@@ -1,0 +1,52 @@
+// Helpers shared by the port's attention kernels (plain C interface, no
+// PyTorch headers: each .cu builds alone into a shared library in seconds).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+// Masked scores, as in the reference kernels (not -inf: exp(NEG_INF - m)
+// underflows to 0 and NEG_INF - NEG_INF stays finite).
+#define NEG_INF (-1e30f)
+
+// Element type codes passed by the Python wrappers.
+enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float apply_softcap(float s, float cap) {
+  return cap > 0.f ? cap * tanhf(s / cap) : s;
+}
+
+// Dynamic shared memory above 48 KB must be opted into per kernel.
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+extern "C" const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

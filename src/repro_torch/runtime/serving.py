@@ -1,0 +1,285 @@
+"""Continuous-batching engine with chunked, fused prefill over a paged pool
+(reference ``runtime/serving.py``, the slice that ``--paged`` serving runs).
+
+* **Slots**: ``max_batch`` decode slots share the page pool; each carries
+  its own position ``cur``, so rope, the pool write and the attention cut
+  are per row.  Free slots ride along as padding rows whose table rows
+  point at the trash page.
+* **Admission**: a request's pages are reserved through its first decode
+  write, its table row is shielded, and its prompt streams in
+  ``prefill_chunk`` pieces whose K/V are written straight into its pages
+  (the host row carries the real pages for the chunks); after each chunk is
+  enqueued, ``decode_interleave`` batched decode ticks run for the active
+  slots.  The row is published when the prompt is in.
+* **Decode tick**: fault in each active slot's write page, one batched
+  greedy step on the device, and exactly one device-to-host copy — the
+  ``(B,)`` int32 picks.
+* **Backpressure**: a request waits in the queue (FIFO) until the free
+  list holds its pages.  Preemption under page pressure is not ported: the
+  tick raises where the reference would preempt.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.runtime.model_iface import TransformerServable
+
+# Reference ServeConfig features outside this slice: field -> (the value the
+# slice supports, the ROADMAP item that ports the rest).
+_NOT_PORTED = {
+    "paged": (True, "the contiguous cache path"),
+    "temperature": (0.0, "temperature sampling"),
+    "kv_dtype": ("fp32", "quantized pools (A6, kernel row 3)"),
+    "fused_prefill": (True, "the contiguous path (scatter-after-prefill)"),
+    "prefix_sharing": (False, "prefix sharing and COW"),
+    "spec_decode": (False, "speculative decode (A5, kernel row 2)"),
+    "state_snapshots": (False, "the zoo (mamba state snapshots)"),
+    "prefix_store": (None, "prefix sharing and COW (the prefix store)"),
+}
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_seq: int = 1024
+    prefill_chunk: int = 256  # task size for streamed prefill
+    max_new_tokens: int = 32
+    max_batch: int = 4  # decode slots
+    decode_interleave: int = 1  # decode ticks per in-flight prefill chunk
+    block_size: int = 16  # cache rows per page
+    num_blocks: int | None = None  # pool size; None = every slot at max_seq + trash
+    # Reference features not ported yet; any other value raises.
+    paged: bool = True
+    temperature: float = 0.0
+    kv_dtype: str = "fp32"
+    fused_prefill: bool = True
+    prefix_sharing: bool = False
+    spec_decode: bool = False
+    state_snapshots: bool = False
+    prefix_store: str | None = None
+
+    def __post_init__(self) -> None:
+        for name, (ok, item) in _NOT_PORTED.items():
+            if getattr(self, name) != ok:
+                raise NotImplementedError(
+                    f"ServeConfig.{name}={getattr(self, name)!r} is not ported "
+                    f"yet (the port supports {ok!r}): ROADMAP, {item}")
+        for name in ("max_seq", "prefill_chunk", "max_new_tokens", "max_batch",
+                     "decode_interleave", "block_size"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.max_seq % self.block_size:
+            raise ValueError(
+                f"max_seq {self.max_seq} must be a multiple of block_size "
+                f"{self.block_size} (pages tile the cache)")
+        if self.num_blocks is not None and self.num_blocks < 2:
+            raise ValueError(
+                f"num_blocks must be >= 2 (block 0 is the trash page), got "
+                f"{self.num_blocks}")
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    tokens: np.ndarray  # (prompt_len,) int32
+    max_new_tokens: int
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Decode-batch slot bookkeeping (positions live here, not in the pool)."""
+
+    index: int
+    uid: int | None = None  # None = free
+    cur: int = 0  # absolute position of the next KV write
+    pending: int = 0  # last sampled token (next decode input)
+    emitted: list[int] = dataclasses.field(default_factory=list)
+    max_new: int = 0
+
+    @property
+    def free(self) -> bool:
+        return self.uid is None
+
+    @property
+    def done(self) -> bool:
+        return self.uid is not None and len(self.emitted) >= self.max_new
+
+
+class StreamedBatchEngine:
+    """Continuous-batching paged serving on ``device`` (CUDA unless the
+    caller passes ``"cpu"``).  Greedy output per request equals the
+    reference engine's."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig, *,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.scfg = scfg
+        self.servable = TransformerServable(cfg, params, scfg, device=self.device)
+        self.kv = self.servable.make_kv_pool()
+        self.slots = [_Slot(index=i) for i in range(scfg.max_batch)]
+        self.queue: collections.deque[Request] = collections.deque()
+        self.outputs: dict[int, np.ndarray] = {}
+        self._next_uid = 0
+        self._chunk = self.servable.chunk_fn()
+        self._decode = self.servable.decode_fn()
+        self.decode_steps = 0  # batched decode ticks run
+        self.prefill_chunks = 0  # prompt chunks run
+        self.admissions = 0
+        self.peak_active = 0  # most requests resident at once
+
+    # -- queue -------------------------------------------------------------------
+
+    def submit(self, tokens, max_new_tokens: int | None = None) -> int:
+        """Queue one prompt; returns its uid."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if tokens.size == 0:
+            raise ValueError("prompt must contain at least one token")
+        max_new = self.scfg.max_new_tokens if max_new_tokens is None else max_new_tokens
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
+        if len(tokens) + max_new > self.scfg.max_seq:
+            raise ValueError(
+                f"prompt {len(tokens)} + max_new {max_new} exceeds max_seq "
+                f"{self.scfg.max_seq}")
+        worst = self.kv.pages_for(len(tokens) + max_new)
+        if worst > self.kv.allocator.capacity:
+            raise ValueError(
+                f"request needs {worst} pages but the pool has "
+                f"{self.kv.allocator.capacity}; grow num_blocks or shrink it")
+        uid = self._next_uid
+        self._next_uid += 1
+        self.queue.append(Request(uid, tokens, max_new))
+        return uid
+
+    @property
+    def active_slots(self) -> list[_Slot]:
+        return [s for s in self.slots if not s.free]
+
+    @property
+    def pending(self) -> bool:
+        return bool(self.queue) or bool(self.active_slots)
+
+    # -- admission ---------------------------------------------------------------
+
+    def _admission_fits(self, req: Request) -> bool:
+        """Pages through the first decode write (len + 1) are free."""
+        return self.kv.pages_for(len(req.tokens) + 1) <= self.kv.free_pages
+
+    def _admit(self, req: Request, slot: _Slot) -> None:
+        """Fused chunked prefill of ``req`` into ``slot``'s pages, with
+        decode ticks for the active slots between chunks."""
+        ok = self.kv.alloc(slot.index, len(req.tokens) + 1)
+        assert ok, "admission checked free pages before popping the queue"
+        self.kv.shield(slot.index)
+        # The device row stays shielded for the interleaved ticks; the chunks
+        # get a host row with the real pages, cut to the pages that cover the
+        # context so far.
+        own = self.kv.slot_pages(slot.index)
+        row = np.zeros((1, self.kv.max_pages), np.int32)
+        row[0, : len(own)] = own
+        tokens = torch.from_numpy(req.tokens[None]).to(self.device)
+        s_total = tokens.shape[1]
+        chunk = min(self.scfg.prefill_chunk, s_total)
+        pos = 0
+        logits = None
+        for lo in range(0, s_total, chunk):
+            piece = tokens[:, lo: lo + chunk]
+            n_ctx = self.kv.pages_for(pos + piece.shape[1])
+            pt = torch.from_numpy(row[:, :n_ctx].copy()).to(self.device)
+            logits, self.kv.pools = self._chunk(self.kv.pools, pt, piece, pos)
+            pos += piece.shape[1]
+            self.prefill_chunks += 1
+            for _ in range(self.scfg.decode_interleave):
+                if self.active_slots:
+                    self._decode_tick()
+        self.kv.publish(slot.index)
+        first = int(torch.argmax(logits[0, -1]).item())  # the admission's one fetch
+        slot.uid = req.uid
+        slot.cur = pos
+        slot.pending = first
+        slot.emitted = [first]
+        slot.max_new = req.max_new_tokens
+        self.admissions += 1
+        self.peak_active = max(self.peak_active, len(self.active_slots))
+        self._on_admit_logits(req.uid, logits[0, -1])
+        self._reap(slot)
+
+    def _on_admit_logits(self, uid: int, logits: torch.Tensor) -> None:
+        """Hook for callers that check the admission step's logits (the
+        chip smoke holds card against CPU on them); a no-op here."""
+
+    def _reap(self, slot: _Slot) -> None:
+        """Free a finished slot and its pages, record its output."""
+        if slot.done:
+            self.outputs[slot.uid] = np.asarray(slot.emitted, np.int32)
+            slot.uid = None
+            slot.emitted = []
+            self.kv.release(slot.index)
+
+    # -- decode ------------------------------------------------------------------
+
+    def _fault_base_positions(self) -> None:
+        """Make each active slot's write position resident.  Where the
+        reference would preempt a slot for pages, the port raises."""
+        for s in self.active_slots:
+            if not self.kv.ensure_write(s.index, s.cur):
+                raise NotImplementedError(
+                    f"page pool exhausted at slot {s.index}: preemption "
+                    "(evict / readmit) is not ported yet: ROADMAP, evict, "
+                    "readmit and preemption")
+
+    def _decode_tick(self) -> None:
+        """One batched greedy decode step for all slots (free ones pad);
+        the only device-to-host copy is the (B,) int32 picks."""
+        self._fault_base_positions()
+        act = self.active_slots
+        if not act:
+            return
+        b = self.scfg.max_batch
+        toks = np.zeros((b, 1), np.int32)
+        cur = np.zeros((b,), np.int32)
+        for s in act:
+            toks[s.index, 0] = s.pending
+            cur[s.index] = s.cur
+        nxt, self.kv.pools = self._decode(
+            torch.from_numpy(toks).to(self.device), self.kv.pools,
+            self.kv.device_page_table(), torch.from_numpy(cur).to(self.device))
+        self.decode_steps += 1
+        picks = nxt.cpu().numpy()  # the tick's one device-to-host copy
+        for s in act:
+            s.cur += 1
+            s.pending = int(picks[s.index])
+            s.emitted.append(s.pending)
+            self._reap(s)
+
+    # -- scheduling --------------------------------------------------------------
+
+    def step(self) -> None:
+        """Admit queued requests into free slots while their pages fit,
+        else run one decode tick."""
+        progressed = False
+        free = [s for s in self.slots if s.free]
+        while self.queue and free and self._admission_fits(self.queue[0]):
+            self._admit(self.queue.popleft(), free.pop(0))
+            progressed = True
+        if not progressed:
+            if not self.active_slots:
+                raise RuntimeError(  # submit() rules this out; never spin
+                    "queued request cannot be admitted into an idle pool")
+            self._decode_tick()
+
+    def run(self) -> dict[int, np.ndarray]:
+        """Drain the queue and all active slots; returns uid -> tokens for
+        the requests finished since the last ``run``."""
+        while self.pending:
+            self.step()
+        done, self.outputs = self.outputs, {}
+        return done
