@@ -2,27 +2,38 @@
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version, holds the card against the CPU on a
 2-layer full-width qwen3-4b, then serves requests through the full 36-layer
-bf16 qwen3-4b on the card.
+bf16 qwen3-4b on the card: plain, with speculative decode, over int8 and
+fp8 KV pages, and over int8 pages with speculative decode.
 
     python3 chip_smoke.py            # every phase, on one CUDA card
-    python3 chip_smoke.py --profile  # the same, plus a torch.profiler serve
+    python3 chip_smoke.py --profile  # the same, plus torch.profiler serves
 
 Phases (any failed check raises, and the script exits non-zero):
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
      TF32 off for matmuls and cuDNN so f32 means f32.
   2. build: every kernel from src/repro_torch/kernels/csrc, timed.
-  3. kernels: each kernel against its plain version in f32 (atol 1e-5) and
-     bf16 (atol 2e-2) at the serving shapes; kernel, plain, SDPA (library)
-     times and the memory/compute bound.
+  3. kernels: each of the five kernels (paged decode, its draft-block,
+     fused-dequant and draft-block fused-dequant entries, prefill) against
+     its plain version in f32 (atol 1e-5) and bf16 (atol 2e-2), over int8
+     and fp8 codes for the quantized entries, at the serving shapes; kernel,
+     plain, SDPA (library) times and the memory/compute bound.
   4. card vs CPU: qwen3-4b at full width cut to 2 layers, f32, 6 requests
      served on cuda (kernels) and on cpu (plain versions): admission logits
-     allclose (atol 2e-3, rtol 1e-3) and greedy tokens identical per uid.
+     allclose (atol 2e-3, rtol 1e-3) and greedy tokens identical per uid;
+     speculative decode (n-gram drafts on tiled prompts, and an oracle
+     drafter) identical card vs CPU and equal to the plain serve; int8 and
+     fp8 pages card vs CPU greedy agreement >= 0.5.
   5. main path: full qwen3-4b (36 layers, bf16, random weights from a seed)
-     serves the same 6 requests; tokens/s, decode-tick and prefill-chunk
-     times; each kernel launched 36 times per decode tick / prefill chunk.
+     serves the same 6 requests plain, with speculative decode (oracle
+     drafter, then n-gram drafts on tiled prompts), over int8 and fp8 pages,
+     and over int8 pages with speculative decode; tokens/s, decode-tick and
+     prefill-chunk times, acceptance, page bytes, agreement with the plain
+     serve; each serve's launch counts are 36 per tick of its kind and per
+     prefill chunk.
 With --profile, phase 5 adds a torch.profiler breakdown (device busy time
-by kernel, idle share).  The last two lines of stdout are the kernels JSON
-and the result JSON.
+by kernel, idle share) of the plain, oracle-spec and int8 serves.  The
+last three lines of stdout are the card's name and power limit, the
+kernels JSON and the result JSON.
 """
 
 from __future__ import annotations
@@ -48,6 +59,20 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # kernel vs plain, max abs
 LOGIT_ATOL, LOGIT_RTOL = 2e-3, 1e-3  # card vs CPU, f32, 2 layers
 PROMPT_LENS = (128, 100, 77, 128, 64, 33)
 NEW_TOKENS, SLOTS, CHUNK, BLOCK = 16, 4, 64, 16
+SPEC_K, SEGMENT = 4, 16  # draft tokens per verify step; tiled prompts' period
+QUANT_FLOOR = 0.5  # greedy agreement of quantized pages (the reference's floor)
+KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
+    "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:40"),
+    "paged_attention_multi": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                              "src/repro/kernels/paged_attention.py:277"),
+    "paged_attention_quant": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                              "src/repro/kernels/ops.py:122"),
+    "paged_attention_multi_quant": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                                    "src/repro/kernels/ops.py:150"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:32"),
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -98,17 +123,54 @@ def paged_case(dtype, cur, *, trash_row=None, seed=0, b=4, h=32, hkv=8, hd=128,
     return q, kp.to(dtype), vp.to(dtype), pt.contiguous(), cl
 
 
-def paged_bytes_flops(q, kp, pt, cl, window):
+def draft_case(dtype, cur, t, *, trash_row=None, seed=0, b=4, h=32, hkv=8, hd=128,
+               bs=16, n_pages=9):
+    """A (B, T, H, hd) draft block per row at positions cur..cur+T-1, its
+    pages in the table (a block may run past the table, into trash)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nb = 1 + b * n_pages
+    q = torch.randn((b, t, h, hd), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((nb, bs, hkv, hd), generator=g, device="cuda")
+    vp = torch.randn((nb, bs, hkv, hd), generator=g, device="cuda")
+    perm = torch.randperm(nb - 1, generator=g, device="cuda")[: b * n_pages] + 1
+    pt = perm.reshape(b, n_pages).to(torch.int32)
+    cl = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    for i in range(b):  # table entries past the block point at trash
+        pt[i, (int(cur[i]) + t - 1) // bs + 1:] = 0
+    if trash_row is not None:  # a shielded / free slot
+        pt[trash_row] = 0
+        cl[trash_row] = 0
+    return q, kp.to(dtype), vp.to(dtype), pt.contiguous(), cl
+
+
+def quantized(pool, kv_dtype):
+    """(codes, (num_blocks, Hkv) f32 scales) of a full-precision pool."""
+    from repro_torch.kernels import quant
+
+    scale = quant.scales_of(pool.float(), kv_dtype)
+    return quant.quantize(pool.float(), scale, kv_dtype), scale
+
+
+def paged_bytes_flops(q, kp, pt, cl, window, *, scales=False):
     """Bytes and flops the function needs: q read and the output written
-    once, the table and lengths, and K and V of positions lo..cur_len only."""
-    hkv, hd = kp.shape[2], kp.shape[3]
-    keys = 0
+    once, the table and lengths, the K and V values (or codes) of positions
+    lo..cur_len+T-1 only (clipped to the table), and for a quantized pool
+    two f32 scales per page read per kv head.  T = 1 for a (B, H, hd) q."""
+    t = q.shape[1] if q.dim() == 4 else 1
+    bs, hkv, hd = kp.shape[1], kp.shape[2], kp.shape[3]
+    s_max = pt.shape[1] * bs
+    rows = pages = keys = 0
     for c in cl.tolist():
         lo = max(0, c - window + 1) if window else 0
-        keys += c - lo + 1
+        hi = min(c + t - 1, s_max - 1)
+        rows += hi - lo + 1
+        pages += hi // bs - lo // bs + 1
+        for i in range(t):  # query i sees positions lo_i..cur+i
+            lo_i = max(0, c + i - window + 1) if window else 0
+            keys += min(c + i, s_max - 1) - lo_i + 1
     nbytes = (2 * q.numel() * q.element_size() + pt.numel() * 4 + cl.numel() * 4
-              + 2 * keys * hkv * hd * kp.element_size())
-    return nbytes, 4.0 * keys * q.shape[1] * hd
+              + 2 * rows * hkv * hd * kp.element_size() + (2 * pages * hkv * 4 if scales else 0))
+    return nbytes, 4.0 * keys * q.shape[-2] * hd
 
 
 def flash_case(dtype, sq, q_offset, *, seed=0, h=32, hkv=8, hd=128):
@@ -130,6 +192,50 @@ def flash_bytes_flops(q, k, q_offset, window):
     return nbytes, 4.0 * keys * h * hd
 
 
+def held(res, name, dtype, label, got, want) -> None:
+    """Check one kernel output against its plain version; keep the worst
+    error of ``name``."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{name} {dtype} {label}: non-finite")
+    check(err <= TOL[dtype], f"{name} {dtype} {label}: max abs err {err}")
+    res[name]["err"] = max(res[name]["err"], err)
+    print(f"[kernels] {name} {str(dtype):14s} {label}: max abs err {err:.3e} "
+          f"(tol {TOL[dtype]})")
+
+
+DRAFT_CASES = [dict(t=5, cur=[139, 111, 88, 76]),  # the verify step's shapes
+               dict(t=2, cur=[0, 15, 16, 100], trash_row=0),
+               dict(t=5, cur=[14, 30, 60, 141]),  # page edges; row 3 runs past the table
+               dict(t=5, cur=[139, 111, 88, 0], window=32, softcap=30.0, trash_row=3)]
+SINGLE_QUANT_CASES = [dict(t=1, cur=[143, 100, 15, 16]),
+                      dict(t=1, cur=[0, 15, 16, 100], trash_row=0, window=32),
+                      dict(t=1, cur=[143, 100, 15, 0], softcap=30.0, trash_row=3)]
+
+
+def sdpa_paged(q, kp, vp, pt, cl, scale, k_scale=None, v_scale=None):
+    """The library yardstick of a paged entry: one SDPA call over the
+    context gathered (and dequantized) beforehand, with the per-query
+    position mask; returns the call to time.  The port never calls it."""
+    import torch.nn.functional as F
+
+    b, n_pages = pt.shape
+    bs, hkv, hd = kp.shape[1], kp.shape[2], kp.shape[3]
+    pt_l = pt.long()
+
+    def ctx(pool, sc):
+        x = pool[pt_l].float() * sc[pt_l][:, :, None, :, None] if sc is not None else pool[pt_l]
+        return x.to(q.dtype).reshape(b, n_pages * bs, hkv, hd).transpose(1, 2).contiguous()
+    kc, vc = ctx(kp, k_scale), ctx(vp, v_scale)
+    q4 = q[:, None] if q.dim() == 3 else q  # (B, T, H, hd)
+    t = q4.shape[1]
+    qpos = cl.long()[:, None] + torch.arange(t, device="cuda")[None, :]
+    mask = (torch.arange(n_pages * bs, device="cuda")[None, None, :] <= qpos[:, :, None])
+    qt = q4.transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask[:, None],
+                                                  scale=scale, enable_gqa=True)
+
+
 def phase_kernels() -> dict:
     import torch.nn.functional as F
 
@@ -138,7 +244,7 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import paged_attention as PA
 
     scale = 1.0 / math.sqrt(128)
-    res = {"paged_attention": {"err": 0.0}, "flash_attention": {"err": 0.0}}
+    res = {name: {"err": 0.0} for name in KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         cases = [dict(cur=[0, 15, 16, 100], trash_row=0),
                  dict(cur=[143, 100, 15, 16]),
@@ -148,62 +254,100 @@ def phase_kernels() -> dict:
             kw = {k: c[k] for k in ("window", "softcap") if k in c}
             q, kp, vp, pt, cl = paged_case(dtype, c["cur"], trash_row=c.get("trash_row"),
                                            seed=i)
-            got = ops.paged_attention(q, kp, vp, pt, cl, **kw)
-            want = PA.paged_attention_plain(q, kp, vp, pt, cl, scale=scale, **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(bool(torch.isfinite(got).all()), f"paged {dtype} {c}: non-finite")
-            check(err <= TOL[dtype], f"paged {dtype} {c}: max abs err {err}")
-            res["paged_attention"]["err"] = max(res["paged_attention"]["err"], err)
-            print(f"[kernels] paged_attention {str(dtype):14s} {c}: max abs err {err:.3e} "
-                  f"(tol {TOL[dtype]})")
+            held(res, "paged_attention", dtype, str(c),
+                 ops.paged_attention(q, kp, vp, pt, cl, **kw),
+                 PA.paged_attention_plain(q, kp, vp, pt, cl, scale=scale, **kw))
+        for i, c in enumerate(DRAFT_CASES):
+            kw = {k: c[k] for k in ("window", "softcap") if k in c}
+            q, kp, vp, pt, cl = draft_case(dtype, c["cur"], c["t"],
+                                           trash_row=c.get("trash_row"), seed=10 + i)
+            held(res, "paged_attention_multi", dtype, str(c),
+                 ops.paged_attention_multi(q, kp, vp, pt, cl, **kw),
+                 PA.paged_attention_multi_plain(q, kp, vp, pt, cl, scale=scale, **kw))
+            for kd in ("int8", "fp8"):
+                (kc, ks), (vc, vs) = quantized(kp, kd), quantized(vp, kd)
+                held(res, "paged_attention_multi_quant", dtype, f"{kd} {c}",
+                     ops.paged_attention_multi_quant(q, kc, vc, ks, vs, pt, cl, **kw),
+                     PA.paged_attention_multi_quant_plain(q, kc, vc, ks, vs, pt, cl,
+                                                          scale=scale, **kw))
+        for i, c in enumerate(SINGLE_QUANT_CASES):
+            kw = {k: c[k] for k in ("window", "softcap") if k in c}
+            q, kp, vp, pt, cl = paged_case(dtype, c["cur"], trash_row=c.get("trash_row"),
+                                           seed=20 + i)
+            for kd in ("int8", "fp8"):
+                (kc, ks), (vc, vs) = quantized(kp, kd), quantized(vp, kd)
+                held(res, "paged_attention_quant", dtype, f"{kd} {c}",
+                     ops.paged_attention_quant(q, kc, vc, ks, vs, pt, cl, **kw),
+                     PA.paged_attention_quant_plain(q, kc, vc, ks, vs, pt, cl, scale=scale,
+                                                    **kw))
         for i, (sq, off, kw) in enumerate([(64, 0, {}), (64, 64, {}), (36, 64, {}),
                                            (64, 64, dict(window=32, softcap=30.0))]):
             q, k, v = flash_case(dtype, sq, off, seed=i)
-            got = ops.flash_attention(q, k, v, q_offset=off, **kw)
-            want = FA.flash_attention_plain(q, k, v, scale=scale, q_offset=off, **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            check(bool(torch.isfinite(got).all()), f"flash {dtype} {sq},{off}: non-finite")
-            check(err <= TOL[dtype], f"flash {dtype} Sq={sq} q_offset={off} {kw}: "
-                                     f"max abs err {err}")
-            res["flash_attention"]["err"] = max(res["flash_attention"]["err"], err)
-            print(f"[kernels] flash_attention {str(dtype):14s} Sq={sq} q_offset={off} "
-                  f"{kw}: max abs err {err:.3e} (tol {TOL[dtype]})")
+            held(res, "flash_attention", dtype, f"Sq={sq} q_offset={off} {kw}",
+                 ops.flash_attention(q, k, v, q_offset=off, **kw),
+                 FA.flash_attention_plain(q, k, v, scale=scale, q_offset=off, **kw))
 
-    # Times at the main path's shapes: bf16, 4 slots, 9 pages of 16; a 64-token
-    # chunk at q_offset 64 (the second chunk of a 128-token prompt).
+    # Times at the main path's shapes, bf16, 4 slots, 9 pages of 16: a decode
+    # tick (cur_len 143/115/92/80), a verify tick (5 tokens from cur_len
+    # 139/111/88/76), each over bf16 pages and over int8 codes (fp8 printed
+    # beside); a 64-token chunk at q_offset 64 (a 128-token prompt's second).
     dt = torch.bfloat16
     q, kp, vp, pt, cl = paged_case(dt, [143, 115, 92, 80], seed=9)
-    pt_l = pt.long()
-    b, n_pages, bs = pt.shape[0], pt.shape[1], kp.shape[1]
-    kc = kp[pt_l].reshape(b, n_pages * bs, 8, 128).transpose(1, 2).contiguous()
-    vc = vp[pt_l].reshape(b, n_pages * bs, 8, 128).transpose(1, 2).contiguous()
-    mask = (torch.arange(n_pages * bs, device="cuda")[None, :] <= cl.long()[:, None])
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None, :]
-    r = res["paged_attention"]
-    r["ms"] = time_ms(lambda: ops.paged_attention(q, kp, vp, pt, cl))
-    r["plain_ms"] = time_ms(lambda: PA.paged_attention_plain(q, kp, vp, pt, cl, scale=scale))
-    r["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask, scale=scale, enable_gqa=True))
-    r["bound_ms"], r["bound_by"] = bound(*paged_bytes_flops(q, kp, pt, cl, 0), dt)
+    qm, kpm, vpm, ptm, clm = draft_case(dt, [139, 111, 88, 76], 5, seed=9)
+    timed = {
+        "paged_attention": (lambda: ops.paged_attention(q, kp, vp, pt, cl),
+                            lambda: PA.paged_attention_plain(q, kp, vp, pt, cl, scale=scale),
+                            sdpa_paged(q, kp, vp, pt, cl, scale),
+                            paged_bytes_flops(q, kp, pt, cl, 0)),
+        "paged_attention_multi": (
+            lambda: ops.paged_attention_multi(qm, kpm, vpm, ptm, clm),
+            lambda: PA.paged_attention_multi_plain(qm, kpm, vpm, ptm, clm, scale=scale),
+            sdpa_paged(qm, kpm, vpm, ptm, clm, scale),
+            paged_bytes_flops(qm, kpm, ptm, clm, 0)),
+    }
+    fp8_ms = {}
+    for kd in ("int8", "fp8"):
+        (kc, ks), (vc, vs) = quantized(kp, kd), quantized(vp, kd)
+        (kcm, ksm), (vcm, vsm) = quantized(kpm, kd), quantized(vpm, kd)
+        entries = {
+            "paged_attention_quant": (
+                lambda kc=kc, vc=vc, ks=ks, vs=vs: ops.paged_attention_quant(
+                    q, kc, vc, ks, vs, pt, cl),
+                lambda kc=kc, vc=vc, ks=ks, vs=vs: PA.paged_attention_quant_plain(
+                    q, kc, vc, ks, vs, pt, cl, scale=scale),
+                sdpa_paged(q, kc, vc, pt, cl, scale, ks, vs),
+                paged_bytes_flops(q, kc, pt, cl, 0, scales=True)),
+            "paged_attention_multi_quant": (
+                lambda kc=kcm, vc=vcm, ks=ksm, vs=vsm: ops.paged_attention_multi_quant(
+                    qm, kc, vc, ks, vs, ptm, clm),
+                lambda kc=kcm, vc=vcm, ks=ksm, vs=vsm: PA.paged_attention_multi_quant_plain(
+                    qm, kc, vc, ks, vs, ptm, clm, scale=scale),
+                sdpa_paged(qm, kcm, vcm, ptm, clm, scale, ksm, vsm),
+                paged_bytes_flops(qm, kcm, ptm, clm, 0, scales=True)),
+        }
+        if kd == "int8":
+            timed.update(entries)
+        else:
+            fp8_ms = {name: time_ms(fns[0]) for name, fns in entries.items()}
 
-    q, k, v = flash_case(dt, 64, 64, seed=9)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    qpos = torch.arange(64, 128, device="cuda")[:, None]
-    fmask = qpos >= torch.arange(128, device="cuda")[None, :]
-    r = res["flash_attention"]
-    r["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, q_offset=64))
-    r["plain_ms"] = time_ms(lambda: FA.flash_attention_plain(q, k, v, scale=scale,
-                                                             q_offset=64))
-    r["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=fmask, scale=scale, enable_gqa=True))
-    r["bound_ms"], r["bound_by"] = bound(*flash_bytes_flops(q, k, 64, 0), dt)
-    for name, r in res.items():
+    qf, kf, vf = flash_case(dt, 64, 64, seed=9)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qf, kf, vf))
+    fmask = torch.arange(64, 128, device="cuda")[:, None] >= torch.arange(
+        128, device="cuda")[None, :]
+    timed["flash_attention"] = (
+        lambda: ops.flash_attention(qf, kf, vf, q_offset=64),
+        lambda: FA.flash_attention_plain(qf, kf, vf, scale=scale, q_offset=64),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask, scale=scale,
+                                               enable_gqa=True),
+        flash_bytes_flops(qf, kf, 64, 0))
+    for name, (kern, plain, lib, (nbytes, flops)) in timed.items():
+        r = res[name]
+        r["ms"], r["plain_ms"], r["library_ms"] = time_ms(kern), time_ms(plain), time_ms(lib)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dt)
         print(f"[kernels] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']})")
+              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}, {nbytes} bytes, {flops:.0f} flops)"
+              + (f"; fp8 codes: kernel {fp8_ms[name]:.4f} ms" if name in fp8_ms else ""))
     return res
 
 
@@ -215,9 +359,39 @@ def prompts(vocab: int) -> list[np.ndarray]:
     return [rng.integers(0, vocab, n, dtype=np.int32) for n in PROMPT_LENS]
 
 
-def serve(cfg, params, device, reqs):
-    """Serve ``reqs`` on ``device``; returns (engine, tokens per request,
-    admission logits per request, per-tick seconds, wall seconds)."""
+def tiled_prompts(vocab: int) -> list[np.ndarray]:
+    """The same lengths, each prompt a random SEGMENT-token segment tiled,
+    so that prompt lookup (the n-gram drafter) finds earlier matches."""
+    rng = np.random.default_rng(2)
+    return [np.resize(rng.integers(0, vocab, SEGMENT, dtype=np.int32), n)
+            for n in PROMPT_LENS]
+
+
+class OracleDrafter:
+    """Replays known outputs (a drafter the port's engine takes through
+    ``drafter=``): for a context that starts with one of ``reqs``, propose
+    the next tokens of its known output."""
+
+    def __init__(self, reqs, outs):
+        self.known = [(np.asarray(p), np.asarray(o)) for p, o in zip(reqs, outs)]
+
+    def propose(self, context, k):
+        for p, out in self.known:
+            if len(context) >= len(p) and np.array_equal(context[: len(p)], p):
+                done = len(context) - len(p)
+                return out[done: done + k].astype(np.int32)
+        return np.zeros(0, np.int32)
+
+
+def agreement(got, want) -> float:
+    """Mean over requests of the share of equal greedy tokens."""
+    return float(np.mean([np.mean(np.asarray(a) == np.asarray(b)) for a, b in zip(got, want)]))
+
+
+def serve(cfg, params, device, reqs, *, drafter=None, **extra):
+    """Serve ``reqs`` on ``device`` with ServeConfig options ``extra``;
+    returns (engine, tokens per request, admission logits per request,
+    per-tick seconds, wall seconds)."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
 
     class Engine(StreamedBatchEngine):
@@ -230,19 +404,21 @@ def serve(cfg, params, device, reqs):
 
         def _decode_tick(self):
             t0 = time.perf_counter()
-            super()._decode_tick()  # ends in the picks' device-to-host copy
+            super()._decode_tick()  # ends in the tick's device-to-host copy
             self.ticks.append(time.perf_counter() - t0)
 
     max_seq = -(-(max(PROMPT_LENS) + NEW_TOKENS) // BLOCK) * BLOCK
     scfg = ServeConfig(max_seq=max_seq, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS,
-                       max_batch=SLOTS, block_size=BLOCK)
-    eng = Engine(cfg, params, scfg, device=device)
+                       max_batch=SLOTS, block_size=BLOCK, **extra)
+    eng = Engine(cfg, params, scfg, device=device, drafter=drafter)
     t0 = time.perf_counter()
     uids = [eng.submit(p) for p in reqs]
     out = eng.run()
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check(eng.kv.pages_in_use == 0, f"{extra}: {eng.kv.pages_in_use} pages left in use")
+    eng.kv.check_invariants()
     return (eng, [out[u] for u in uids], [eng.logits[u] for u in uids], eng.ticks, wall)
 
 
@@ -257,9 +433,10 @@ def phase_card_vs_cpu() -> None:
     def to_cuda(t):
         return {k: to_cuda(v) if isinstance(v, dict) else v.to("cuda")
                 for k, v in t.items()}
+    gpu_params = to_cuda(cpu_params)
 
     reqs = prompts(cfg.vocab_size)
-    _, tok_gpu, log_gpu, _, wall_gpu = serve(cfg, to_cuda(cpu_params), "cuda", reqs)
+    _, tok_gpu, log_gpu, _, wall_gpu = serve(cfg, gpu_params, "cuda", reqs)
     _, tok_cpu, log_cpu, _, wall_cpu = serve(cfg, cpu_params, "cpu", reqs)
     worst = 0.0
     for i, (a, b) in enumerate(zip(log_gpu, log_cpu)):
@@ -274,15 +451,41 @@ def phase_card_vs_cpu() -> None:
           f"for {len(reqs)} requests x {NEW_TOKENS}; card {wall_gpu:.2f}s, cpu "
           f"{wall_cpu:.2f}s")
 
+    # Speculative decode: n-gram drafts on tiled prompts, then an oracle
+    # drafter replaying the plain serve; card == CPU == the plain serve.
+    tiled = tiled_prompts(cfg.vocab_size)
+    _, plain_t, _, _, _ = serve(cfg, gpu_params, "cuda", tiled)
+    for label, drafter in (("n-gram", None), ("oracle", OracleDrafter(tiled, plain_t))):
+        outs = {}
+        for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+            eng, outs[dev], _, _, _ = serve(cfg, p, dev, tiled, drafter=drafter,
+                                            spec_decode=True, spec_k=SPEC_K)
+            stats = (eng.spec_ticks, eng.decode_steps, eng.spec_accepted, eng.spec_proposed)
+        for i, (a, b, c) in enumerate(zip(outs["cuda"], outs["cpu"], plain_t)):
+            check(np.array_equal(a, b), f"spec {label} request {i}: card {a} != CPU {b}")
+            check(np.array_equal(a, c), f"spec {label} request {i}: spec {a} != plain {c}")
+        check(label != "oracle" or stats[0] > 0, "the oracle serve ran no verify tick")
+        print(f"[card_vs_cpu] spec decode ({label} drafts, k={SPEC_K}, tiled prompts): "
+              f"greedy tokens identical card vs CPU and equal to the plain serve; "
+              f"{stats[0]} verify of {stats[1]} ticks, accepted {stats[2]}/{stats[3]}")
+    for kd in ("int8", "fp8"):
+        _, tg, _, _, _ = serve(cfg, gpu_params, "cuda", reqs, kv_dtype=kd)
+        _, tc, _, _, _ = serve(cfg, cpu_params, "cpu", reqs, kv_dtype=kd)
+        agree, vs_plain = agreement(tg, tc), agreement(tg, tok_gpu)
+        check(agree >= QUANT_FLOOR, f"{kd}: card vs CPU greedy agreement {agree}")
+        print(f"[card_vs_cpu] {kd} pages: card vs CPU greedy agreement {agree:.3f} "
+              f"(floor {QUANT_FLOOR}); vs the f32-pool serve {vs_plain:.3f}")
 
-def phase_profile(cfg, params, reqs) -> None:
-    """torch.profiler over one more serve of the requests: device busy time
-    by kernel, and the device's idle share of the wall time."""
+
+def phase_profile(cfg, params, reqs, label="plain", **kw) -> None:
+    """torch.profiler over one more serve of the requests (ServeConfig
+    options and drafter in ``kw``): device busy time by kernel, and the
+    device's idle share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, _, _, wall = serve(cfg, params, "cuda", reqs)
+        _, _, _, _, wall = serve(cfg, params, "cuda", reqs, **kw)
     kern = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
@@ -296,17 +499,48 @@ def phase_profile(cfg, params, reqs) -> None:
                                                      "cutlass"))
                  else "other")
         groups[group] = groups.get(group, 0.0) + ms
-    print(f"[profile] serve of {len(reqs)} requests: wall {wall * 1e3:.1f} ms, device "
+    print(f"[profile] {label} serve of {len(reqs)} requests: wall {wall * 1e3:.1f} ms, device "
           f"busy {busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}; by group (ms) "
           + json.dumps({k: round(v, 3) for k, v in sorted(groups.items())}))
     for name, ms, n in sorted(kern, key=lambda r: -r[1])[:10]:
         print(f"[profile]   {ms:9.3f} ms  {n:6d} x  {name[:100]}")
 
 
-def phase_main_path(res: dict, *, profile: bool = False) -> dict:
-    from repro_torch.configs import qwen3_4b
+def kernel_counters() -> dict:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
+
+    return {"paged_attention": PA.KERNEL, "paged_attention_multi": PA.MULTI_KERNEL,
+            "paged_attention_quant": PA.QUANT_KERNEL,
+            "paged_attention_multi_quant": PA.MULTI_QUANT_KERNEL,
+            "flash_attention": FA.KERNEL}
+
+
+def counted_serve(cfg, params, reqs, **kw):
+    """One serve on the card with every launch count set to 0 just before
+    it; returns serve()'s tuple and the counts read just after.  Checks
+    that each tick and chunk launched its kernel once per layer: the
+    single-token entry per plain tick, the draft-block entry per verify
+    tick (the fused-dequant pair over quantized pages), the prefill
+    kernel per chunk, and nothing else."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = serve(cfg, params, "cuda", reqs, **kw)
+    launches = {name: c.launches for name, c in counters.items()}
+    eng = out[0]
+    q = "_quant" if eng.scfg.kv_dtype != "fp32" else ""
+    want = {name: 0 for name in counters}
+    want[f"paged_attention{q}"] = cfg.n_layers * (eng.decode_steps - eng.spec_ticks)
+    want[f"paged_attention_multi{q}"] = cfg.n_layers * eng.spec_ticks
+    want["flash_attention"] = cfg.n_layers * eng.prefill_chunks
+    check(launches == want, f"{kw}: launches {launches} != {want} ({cfg.n_layers} layers "
+          f"x {eng.decode_steps} ticks ({eng.spec_ticks} verify), {eng.prefill_chunks} chunks)")
+    return out, launches
+
+
+def phase_main_path(res: dict, *, profile: bool = False) -> dict:
+    from repro_torch.configs import qwen3_4b
     from repro_torch.models import transformer as T
 
     cfg = qwen3_4b.CONFIG
@@ -321,22 +555,14 @@ def phase_main_path(res: dict, *, profile: bool = False) -> dict:
     reqs = prompts(cfg.vocab_size)
     serve(cfg, params, "cuda", reqs)  # warm-up: cuBLAS handles, allocator, libraries
 
-    PA.KERNEL.launches = 0
-    FA.KERNEL.launches = 0
-    eng, toks, logits, ticks, wall = serve(cfg, params, "cuda", reqs)
-    launches = {"paged_attention": PA.KERNEL.launches,
-                "flash_attention": FA.KERNEL.launches}
-
+    (eng, toks, logits, ticks, wall), launches = counted_serve(cfg, params, reqs)
     for i, (t, lg) in enumerate(zip(toks, logits)):
         check(len(t) == NEW_TOKENS, f"request {i}: {len(t)} tokens")
         check(bool(((t >= 0) & (t < cfg.padded_vocab)).all()), f"request {i}: {t}")
         check(bool(torch.isfinite(lg).all()), f"request {i}: non-finite logits")
-    check(launches["paged_attention"] == cfg.n_layers * eng.decode_steps > 0,
-          f"paged_attention launches {launches['paged_attention']} != "
-          f"{cfg.n_layers} x {eng.decode_steps} ticks")
-    check(launches["flash_attention"] == cfg.n_layers * eng.prefill_chunks > 0,
-          f"flash_attention launches {launches['flash_attention']} != "
-          f"{cfg.n_layers} x {eng.prefill_chunks} chunks")
+    for name in ("paged_attention", "flash_attention"):
+        check(launches[name] > 0, f"{name}: no launch on the main path")
+        res[name]["launches"] = launches[name]
 
     # One 64-token chunk at q_offset 64 on its own, its writes routed to the
     # trash page (an all-zero table row), timed with a synchronize.
@@ -355,7 +581,7 @@ def phase_main_path(res: dict, *, profile: bool = False) -> dict:
            "decode_ticks": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
            "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
            "prefill_chunk_ms": float(np.median(t_chunk[1:]) * 1e3),
-           "launches": launches,
+           "launches": launches, "page_bytes": eng.kv.page_bytes,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"[main] {len(reqs)} requests x {NEW_TOKENS} new tokens: {n_tok} tokens in "
           f"{wall:.3f}s = {e2e['tokens_per_s']:.1f} tok/s; decode tick p50 "
@@ -366,8 +592,61 @@ def phase_main_path(res: dict, *, profile: bool = False) -> dict:
     print("[main] e2e " + json.dumps(e2e))
     if profile:
         phase_profile(cfg, params, reqs)
-    for name in res:
-        res[name]["launches"] = launches[name]
+
+    # The same requests with speculative decode and over quantized pages.
+    # Each option is served once to warm it, then measured with the launch
+    # counts set to 0; its kernels' JSON launches come from its own serve.
+    tiled = tiled_prompts(cfg.vocab_size)
+    _, plain_tiled, _, _, _ = serve(cfg, params, "cuda", tiled)
+    int8_out = []
+
+    def int8_oracle():
+        return OracleDrafter(reqs, int8_out)
+    variants = [
+        ("spec, oracle drafts", reqs, toks, lambda: OracleDrafter(reqs, toks),
+         dict(spec_decode=True, spec_k=SPEC_K), "paged_attention_multi"),
+        ("spec, n-gram drafts (tiled prompts)", tiled, plain_tiled, lambda: None,
+         dict(spec_decode=True, spec_k=SPEC_K), None),
+        ("int8 pages", reqs, toks, lambda: None, dict(kv_dtype="int8"),
+         "paged_attention_quant"),
+        ("fp8 pages", reqs, toks, lambda: None, dict(kv_dtype="fp8"), None),
+        ("int8 pages + spec, oracle drafts", reqs, toks, int8_oracle,
+         dict(kv_dtype="int8", spec_decode=True, spec_k=SPEC_K),
+         "paged_attention_multi_quant"),
+    ]
+    serves = {"plain": {k: e2e[k] for k in ("tokens_per_s", "decode_tick_ms_p50",
+                                            "decode_ticks", "page_bytes")}}
+    for label, rq, ref_toks, drafter, kw, path in variants:
+        serve(cfg, params, "cuda", rq, drafter=drafter(), **kw)  # warm-up
+        (ev, tv, lv, tk, wv), lv_launch = counted_serve(cfg, params, rq, drafter=drafter(),
+                                                         **kw)
+        for i, (t, lg) in enumerate(zip(tv, lv)):
+            check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
+                  f"{label} request {i}: {t}")
+            check(bool(torch.isfinite(lg).all()), f"{label} request {i}: non-finite logits")
+        if kw.get("kv_dtype") == "int8" and not kw.get("spec_decode"):
+            int8_out.extend(tv)
+        if path is not None:
+            check(lv_launch[path] > 0, f"{path}: no launch in the {label} serve")
+            res[path]["launches"] = lv_launch[path]
+        n = sum(len(t) for t in tv)
+        rate = ev.spec_accepted / ev.spec_proposed if ev.spec_proposed else None
+        serves[label] = {"tokens_per_s": n / wv, "decode_tick_ms_p50": float(np.median(tk) * 1e3),
+                         "decode_ticks": ev.decode_steps, "verify_ticks": ev.spec_ticks,
+                         "accepted": ev.spec_accepted, "proposed": ev.spec_proposed,
+                         "acceptance": rate, "page_bytes": ev.kv.page_bytes,
+                         "agreement_with_plain": agreement(tv, ref_toks),
+                         "launches": lv_launch}
+        print(f"[main] {label}: {n} tokens in {wv:.3f}s = {n / wv:.1f} tok/s; tick p50 "
+              f"{serves[label]['decode_tick_ms_p50']:.2f} ms over {ev.decode_steps} ticks "
+              f"({ev.spec_ticks} verify); acceptance "
+              f"{'-' if rate is None else f'{rate:.3f}'} ({ev.spec_accepted}/"
+              f"{ev.spec_proposed}); page_bytes {ev.kv.page_bytes} (bf16 "
+              f"{e2e['page_bytes']}); agreement with the plain bf16 serve "
+              f"{serves[label]['agreement_with_plain']:.3f}; launches {lv_launch}")
+        if profile and path in ("paged_attention_multi", "paged_attention_quant"):
+            phase_profile(cfg, params, rq, label, drafter=drafter(), **kw)
+    print("[main] serves " + json.dumps(serves))
     return e2e
 
 
@@ -408,14 +687,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_main_path(res, profile=args.profile)
     print(f"[main] {time.perf_counter() - t0:.1f}s")
-    meta = {"paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
-                                "src/repro/kernels/paged_attention.py:40"),
-            "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                "src/repro/kernels/flash_attention.py:32")}
-    kernels = [{"name": n, "route": "cuda", "source": meta[n][0], "replaces": meta[n][1],
-                "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0],
+                "replaces": KERNELS[n][1], "launches": r["launches"],
+                "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]}
                for n, r in res.items()]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)

@@ -11,8 +11,9 @@
 // underflows to 0 and NEG_INF - NEG_INF stays finite).
 #define NEG_INF (-1e30f)
 
-// Element type codes passed by the Python wrappers.
-enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+// Element type codes passed by the Python wrappers (int8 and fp8 e4m3 are
+// the quantized KV pages' code types).
+enum { DTYPE_F32 = 0, DTYPE_BF16 = 1, DTYPE_INT8 = 2, DTYPE_FP8 = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -15,6 +15,10 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 
 
+def _scale(q: torch.Tensor, scale: float | None) -> float:
+    return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, Hkv, hd)
@@ -28,9 +32,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """GQA attention of a query chunk at positions ``q_offset + i`` over
     keys ``0..Sk-1``; kv head ``h // g`` is indexed, never broadcast."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap, scale=scale, q_offset=q_offset)
+                               softcap=softcap, scale=_scale(q, scale), q_offset=q_offset)
 
 
 def paged_attention(
@@ -46,6 +49,61 @@ def paged_attention(
 ) -> torch.Tensor:
     """Decode attention straight from the paged pool: each row attends its
     pages' positions ``<= cur_len``."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _pa.paged_attention(q, k_pool, v_pool, page_table, cur_len,
-                               window=window, softcap=softcap, scale=scale)
+                               window=window, softcap=softcap, scale=_scale(q, scale))
+
+
+def paged_attention_multi(
+    q: torch.Tensor,  # (B, T, H, hd): T-token draft block per row
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    cur_len: torch.Tensor,  # (B,) int32: position of token 0 per row
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """``q_len > 1`` paged decode (speculative verify): query t of row b
+    sees pool positions ``<= cur_len[b] + t``, causal within the block."""
+    return _pa.paged_attention_multi(q, k_pool, v_pool, page_table, cur_len,
+                                     window=window, softcap=softcap, scale=_scale(q, scale))
+
+
+def paged_attention_quant(
+    q: torch.Tensor,  # (B, H, hd)
+    k_pool: torch.Tensor,  # (num_blocks, block_size, Hkv, hd) int8 / fp8 codes
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # (num_blocks, Hkv) f32 per-page, per-kv-head scales
+    v_scale: torch.Tensor,
+    page_table: torch.Tensor,
+    cur_len: torch.Tensor,
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Decode attention over a quantized pool, dequantized (``code *
+    scale``) as each page is read."""
+    return _pa.paged_attention_quant(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                     cur_len, window=window, softcap=softcap,
+                                     scale=_scale(q, scale))
+
+
+def paged_attention_multi_quant(
+    q: torch.Tensor,  # (B, T, H, hd)
+    k_pool: torch.Tensor,  # int8 / fp8 codes
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # (num_blocks, Hkv) f32
+    v_scale: torch.Tensor,
+    page_table: torch.Tensor,
+    cur_len: torch.Tensor,  # (B,) int32: position of token 0 per row
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The quantized twin of :func:`paged_attention_multi`."""
+    return _pa.paged_attention_multi_quant(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                           cur_len, window=window, softcap=softcap,
+                                           scale=_scale(q, scale))

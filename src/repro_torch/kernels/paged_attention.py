@@ -1,12 +1,17 @@
-"""Paged decode attention: wrapper of ``csrc/paged_attention.cu``.
+"""Paged decode attention: wrappers of the four C entries of
+``csrc/paged_attention.cu``.
 
 Replaces the TPU kernel ``repro/kernels/paged_attention.py::_paged_kernel``
-(``paged_attention_kernel``), single-token queries, full-precision pools.
-The kernel's design and bound are in the CUDA source's header.
+in each of its uses: single-token queries (``paged_attention``), a
+``q_len > 1`` draft block per row (``paged_attention_multi``, the
+speculative verify step), and their fused-dequant twins over int8 / fp8
+pools with per-(page, kv head) f32 scales (``paged_attention_quant``,
+``paged_attention_multi_quant``).  One CUDA body serves all four; each
+entry has its own :class:`CudaKernel` and launch count.  The kernel's
+design and bound are in the CUDA source's header.
 
-On a CPU tensor the wrapper runs the plain version
-(:func:`paged_attention_plain`, from ``kernels/ref.py``); on a CUDA tensor
-it launches the kernel or raises — it never falls back.
+On a CPU tensor a wrapper runs its plain version (from ``kernels/ref.py``);
+on a CUDA tensor it launches the kernel or raises — it never falls back.
 """
 
 from __future__ import annotations
@@ -16,50 +21,87 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import CudaKernel, ptr, stream_of
-from repro_torch.kernels.ref import paged_attention_ref as paged_attention_plain
+from repro_torch.kernels.ref import (
+    paged_attention_multi_quant_ref as paged_attention_multi_quant_plain,
+    paged_attention_multi_ref as paged_attention_multi_plain,
+    paged_attention_quant_ref as paged_attention_quant_plain,
+    paged_attention_ref as paged_attention_plain,
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP = 16  # query heads per kv head the kernel holds in registers
+_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}  # quantized pools' code types
 MAX_HEAD_DIM = 256
 
-_I, _P = ctypes.c_int, ctypes.c_void_p
-KERNEL = CudaKernel(
-    "paged_attention.cu", "paged_attention",
-    [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, ctypes.c_float, _P])
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+# n_heads, n_kv, head_dim, block_size, n_pages, window, softcap, scale, stream
+_GEOM = [_I, _I, _I, _I, _I, _I, _F, _F, _P]
+KERNEL = CudaKernel("paged_attention.cu", "paged_attention",
+                    [_I, *[_P] * 6, _I, *_GEOM])
+MULTI_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_multi",
+                          [_I, *[_P] * 6, _I, _I, *_GEOM])
+QUANT_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_quant",
+                          [_I, _I, *[_P] * 8, _I, *_GEOM])
+MULTI_QUANT_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_multi_quant",
+                                [_I, _I, *[_P] * 8, _I, _I, *_GEOM])
 
 
-def _check_inputs(q, k_pool, v_pool, page_table, cur_len) -> None:
+def _check_inputs(q, k_pool, v_pool, page_table, cur_len, *, q_dims: int,
+                  k_scale=None, v_scale=None) -> None:
     """Raise ``ValueError`` unless the inputs are what the kernel takes:
-    one cpu or cuda device, f32 or bf16 q/pools of one type, int32 table
-    and lengths, consistent shapes, contiguous memory."""
-    ts = (q, k_pool, v_pool, page_table, cur_len)
+    one cpu or cuda device; f32 or bf16 q with pools of q's type, or int8 /
+    fp8 code pools with (num_blocks, Hkv) f32 scales; int32 table and
+    lengths; consistent shapes; contiguous memory."""
+    quant = k_scale is not None
+    name = "paged_attention" + ("_multi" if q_dims == 4 else "") + ("_quant" if quant else "")
+    ts = (q, k_pool, v_pool, page_table, cur_len) + ((k_scale, v_scale) if quant else ())
     if any(t.device != q.device for t in ts) or q.device.type not in ("cpu", "cuda"):
         raise ValueError(
-            f"paged_attention: all inputs must be on one cpu or cuda device, got "
+            f"{name}: all inputs must be on one cpu or cuda device, got "
             f"{[str(t.device) for t in ts]}")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    if quant:
+        if k_pool.dtype not in _CODES or v_pool.dtype != k_pool.dtype:
+            raise ValueError(
+                f"{name}: pools must share int8 or float8_e4m3fn codes, got "
+                f"{k_pool.dtype}/{v_pool.dtype}")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise ValueError(f"{name}: k_scale and v_scale must be float32")
+    elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(
-            f"paged_attention: q and pools must share float32 or bfloat16, got "
+            f"{name}: q and pools must share float32 or bfloat16, got "
             f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
     if page_table.dtype != torch.int32 or cur_len.dtype != torch.int32:
-        raise ValueError("paged_attention: page_table and cur_len must be int32")
-    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"{name}: page_table and cur_len must be int32")
+    want_q = "(B, T, H, hd)" if q_dims == 4 else "(B, H, hd)"
+    if q.dim() != q_dims or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(
-            f"paged_attention: want q (B, H, hd) and pools (nb, bs, Hkv, hd), got "
+            f"{name}: want q {want_q} and pools (nb, bs, Hkv, hd), got "
             f"{tuple(q.shape)}, {tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
-    b, h, hd = q.shape
-    hkv = k_pool.shape[2]
+    b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    nb, _, hkv, _ = k_pool.shape
     if k_pool.shape[3] != hd or h % hkv:
         raise ValueError(
-            f"paged_attention: head_dim {hd} vs pool {k_pool.shape[3]}, or "
+            f"{name}: head_dim {hd} vs pool {k_pool.shape[3]}, or "
             f"{h} heads not a multiple of {hkv} kv heads")
+    if quant and (tuple(k_scale.shape) != (nb, hkv) or tuple(v_scale.shape) != (nb, hkv)):
+        raise ValueError(
+            f"{name}: want k_scale and v_scale (num_blocks, Hkv) = {(nb, hkv)}, got "
+            f"{tuple(k_scale.shape)}, {tuple(v_scale.shape)}")
     if page_table.dim() != 2 or page_table.shape[0] != b or tuple(cur_len.shape) != (b,):
         raise ValueError(
-            f"paged_attention: want page_table (B, n_pages) and cur_len (B,) for "
+            f"{name}: want page_table (B, n_pages) and cur_len (B,) for "
             f"B={b}, got {tuple(page_table.shape)}, {tuple(cur_len.shape)}")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("paged_attention: inputs must be contiguous")
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if q.device.type == "cuda" and hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name} kernel: head_dim at most {MAX_HEAD_DIM}, got {hd}")
+
+
+def _geometry(q, k_pool, page_table, window, softcap, scale) -> list:
+    _, bs, hkv, hd = k_pool.shape
+    return [q.shape[-2], hkv, hd, bs, page_table.shape[1], int(window), float(softcap),
+            float(scale), ctypes.c_void_p(stream_of(q))]
 
 
 def paged_attention(
@@ -73,20 +115,88 @@ def paged_attention(
     softcap: float = 0.0,
     scale: float,
 ) -> torch.Tensor:
-    _check_inputs(q, k_pool, v_pool, page_table, cur_len)
+    _check_inputs(q, k_pool, v_pool, page_table, cur_len, q_dims=3)
     if q.device.type == "cpu":
-        return paged_attention_plain(
-            q, k_pool, v_pool, page_table, cur_len, window=window,
-            softcap=softcap, scale=scale)
-    b, h, hd = q.shape
-    _, bs, hkv, _ = k_pool.shape
-    if h // hkv > MAX_GROUP or hd > MAX_HEAD_DIM:
-        raise ValueError(
-            f"paged_attention kernel: at most {MAX_GROUP} query heads per kv "
-            f"head and head_dim {MAX_HEAD_DIM}, got {h // hkv} and {hd}")
+        return paged_attention_plain(q, k_pool, v_pool, page_table, cur_len,
+                                     window=window, softcap=softcap, scale=scale)
     out = torch.empty_like(q)
-    KERNEL.launch(
-        _DTYPES[q.dtype], ptr(q), ptr(k_pool), ptr(v_pool), ptr(page_table),
-        ptr(cur_len), ptr(out), b, h, hkv, hd, bs, page_table.shape[1],
-        int(window), float(softcap), float(scale), ctypes.c_void_p(stream_of(q)))
+    KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k_pool), ptr(v_pool), ptr(page_table),
+                  ptr(cur_len), ptr(out), q.shape[0],
+                  *_geometry(q, k_pool, page_table, window, softcap, scale))
+    return out
+
+
+def paged_attention_multi(
+    q: torch.Tensor,  # (B, T, H, hd): token t of row b at position cur_len[b] + t
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    cur_len: torch.Tensor,  # (B,) int32: position of token 0
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float,
+) -> torch.Tensor:
+    _check_inputs(q, k_pool, v_pool, page_table, cur_len, q_dims=4)
+    if q.device.type == "cpu":
+        return paged_attention_multi_plain(q, k_pool, v_pool, page_table, cur_len,
+                                           window=window, softcap=softcap, scale=scale)
+    out = torch.empty_like(q)
+    MULTI_KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k_pool), ptr(v_pool),
+                        ptr(page_table), ptr(cur_len), ptr(out), q.shape[0], q.shape[1],
+                        *_geometry(q, k_pool, page_table, window, softcap, scale))
+    return out
+
+
+def paged_attention_quant(
+    q: torch.Tensor,  # (B, H, hd)
+    k_pool: torch.Tensor,  # (num_blocks, block_size, Hkv, hd) int8 / fp8 codes
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # (num_blocks, Hkv) f32
+    v_scale: torch.Tensor,
+    page_table: torch.Tensor,
+    cur_len: torch.Tensor,
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float,
+) -> torch.Tensor:
+    _check_inputs(q, k_pool, v_pool, page_table, cur_len, q_dims=3, k_scale=k_scale,
+                  v_scale=v_scale)
+    if q.device.type == "cpu":
+        return paged_attention_quant_plain(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                           cur_len, window=window, softcap=softcap,
+                                           scale=scale)
+    out = torch.empty_like(q)
+    QUANT_KERNEL.launch(_DTYPES[q.dtype], _CODES[k_pool.dtype], ptr(q), ptr(k_pool),
+                        ptr(v_pool), ptr(k_scale), ptr(v_scale), ptr(page_table),
+                        ptr(cur_len), ptr(out), q.shape[0],
+                        *_geometry(q, k_pool, page_table, window, softcap, scale))
+    return out
+
+
+def paged_attention_multi_quant(
+    q: torch.Tensor,  # (B, T, H, hd)
+    k_pool: torch.Tensor,  # int8 / fp8 codes
+    v_pool: torch.Tensor,
+    k_scale: torch.Tensor,  # (num_blocks, Hkv) f32
+    v_scale: torch.Tensor,
+    page_table: torch.Tensor,
+    cur_len: torch.Tensor,
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float,
+) -> torch.Tensor:
+    _check_inputs(q, k_pool, v_pool, page_table, cur_len, q_dims=4, k_scale=k_scale,
+                  v_scale=v_scale)
+    if q.device.type == "cpu":
+        return paged_attention_multi_quant_plain(
+            q, k_pool, v_pool, k_scale, v_scale, page_table, cur_len, window=window,
+            softcap=softcap, scale=scale)
+    out = torch.empty_like(q)
+    MULTI_QUANT_KERNEL.launch(_DTYPES[q.dtype], _CODES[k_pool.dtype], ptr(q), ptr(k_pool),
+                              ptr(v_pool), ptr(k_scale), ptr(v_scale), ptr(page_table),
+                              ptr(cur_len), ptr(out), q.shape[0], q.shape[1],
+                              *_geometry(q, k_pool, page_table, window, softcap, scale))
     return out

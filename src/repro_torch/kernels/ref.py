@@ -56,6 +56,68 @@ def paged_attention_ref(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
+def paged_attention_multi_ref(
+    q: torch.Tensor,  # (B, T, H, hd): a T-token draft block per row
+    k_pool: torch.Tensor,  # (num_blocks, block_size, Hkv, hd)
+    v_pool: torch.Tensor,  # (num_blocks, block_size, Hkv, hd)
+    page_table: torch.Tensor,  # (B, n_pages) int32
+    cur_len: torch.Tensor,  # (B,) int32: position of token 0 per row
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The ``q_len > 1`` twin of :func:`paged_attention_ref`: query t of row
+    b sits at position ``cur_len[b] + t`` and sees keys at positions
+    ``<= cur_len[b] + t`` (causal within the block, and the window)."""
+    b, t, h, hd = q.shape
+    _, bs, hkv, _ = k_pool.shape
+    g = h // hkv
+    n_pages = page_table.shape[1]
+    s_log = n_pages * bs
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    pt = page_table.long()
+    k = k_pool[pt].reshape(b, s_log, hkv, hd).float()
+    v = v_pool[pt].reshape(b, s_log, hkv, hd).float()
+    qf = q.float().reshape(b, t, hkv, g, hd)
+    s = torch.einsum("btngd,bknd->bngtk", qf, k) * scale
+    s = _softcap(s, softcap)
+    pos = torch.arange(s_log, device=q.device)[None, None, :]
+    qpos = cur_len.long()[:, None, None] + torch.arange(t, device=q.device)[None, :, None]
+    ok = pos <= qpos  # (B, T, S)
+    if window > 0:
+        ok = ok & (qpos - pos < window)
+    s = s.masked_fill(~ok[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngtk,bknd->btngd", p, v)
+    return out.reshape(b, t, h, hd).to(q.dtype)
+
+
+def _dequant_pool(pool: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(num_blocks, bs, hkv, hd) codes x (num_blocks, hkv) scales -> f32."""
+    return pool.float() * scale[:, None, :, None]
+
+
+def paged_attention_quant_ref(q, k_pool, v_pool, k_scale, v_scale, page_table, cur_len,
+                              *, window: int = 0, softcap: float = 0.0,
+                              scale: float | None = None) -> torch.Tensor:
+    """Plain fused-dequant decode: dequantize the pools up front (exactly
+    ``code * scale``, the value the kernel rebuilds per page), then
+    :func:`paged_attention_ref`."""
+    return paged_attention_ref(
+        q, _dequant_pool(k_pool, k_scale), _dequant_pool(v_pool, v_scale),
+        page_table, cur_len, window=window, softcap=softcap, scale=scale)
+
+
+def paged_attention_multi_quant_ref(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                    cur_len, *, window: int = 0, softcap: float = 0.0,
+                                    scale: float | None = None) -> torch.Tensor:
+    """The ``q_len > 1`` twin of :func:`paged_attention_quant_ref`."""
+    return paged_attention_multi_ref(
+        q, _dequant_pool(k_pool, k_scale), _dequant_pool(v_pool, v_scale),
+        page_table, cur_len, window=window, softcap=softcap, scale=scale)
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, Hkv, hd)

@@ -2,7 +2,8 @@
 continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --paged \
-        --requests 4 --prompt-len 128 --new-tokens 16 [--device cpu]
+        --requests 4 --prompt-len 128 --new-tokens 16 [--device cpu] \
+        [--kv-dtype int8|fp8] [--spec-decode --spec-k 4 --spec-ngram 3]
 
 Like the reference launcher it serves the arch's smoke-size config with
 random weights from a fixed seed.  It runs on CUDA unless ``--device cpu``.
@@ -38,6 +39,15 @@ def main(argv: list[str] | None = None) -> None:
                     help="cache rows per KV page")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="page-pool size; default = every slot at max_seq")
+    ap.add_argument("--kv-dtype", default="fp32", choices=("fp32", "int8", "fp8"),
+                    help="KV page storage: full precision, or int8 / fp8 codes with "
+                         "per-(page, kv head) scales")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decode: n-gram drafts, one batched verify step")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per verify step")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="longest n-gram the prompt-lookup drafter matches")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     if not args.paged:
@@ -51,7 +61,9 @@ def main(argv: list[str] | None = None) -> None:
     scfg = ServeConfig(max_seq=max_seq, prefill_chunk=args.prefill_chunk,
                        max_new_tokens=args.new_tokens, max_batch=args.max_batch,
                        decode_interleave=args.interleave,
-                       block_size=args.block_size, num_blocks=args.num_blocks)
+                       block_size=args.block_size, num_blocks=args.num_blocks,
+                       kv_dtype=args.kv_dtype, spec_decode=args.spec_decode,
+                       spec_k=args.spec_k, spec_ngram=args.spec_ngram)
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int32)
 
@@ -63,11 +75,17 @@ def main(argv: list[str] | None = None) -> None:
     rows = [outs[u].tolist() for u in uids]
     total_new = sum(len(r) for r in rows)
     st = eng.kv.stats(active_slots=eng.peak_active)
+    spec = ""
+    if args.spec_decode:
+        rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else 0.0
+        spec = (f", spec k={args.spec_k}: {eng.spec_ticks} verify ticks, acceptance "
+                f"{rate:.2f} ({eng.spec_accepted}/{eng.spec_proposed})")
     print(f"[serve] {args.arch} on {device} (continuous-batching x{args.max_batch} "
-          f"slots, {eng.decode_steps} batched decode steps, paged "
-          f"block={eng.kv.block_size} (peak {st.peak_in_use}/{st.capacity} pages, "
-          f"{st.page_bytes}B/page)): {args.requests} requests x {args.prompt_len} "
-          f"prompt -> {total_new // args.requests} new tokens each in {dt:.2f}s "
+          f"slots, {eng.decode_steps} batched decode steps{spec}, paged "
+          f"block={eng.kv.block_size} kv_dtype={args.kv_dtype} (peak "
+          f"{st.peak_in_use}/{st.capacity} pages, page_bytes={st.page_bytes})): "
+          f"{args.requests} requests x {args.prompt_len} prompt -> "
+          f"{total_new // args.requests} new tokens each in {dt:.2f}s "
           f"({total_new / dt:.1f} tok/s incl. prefill)")
     for i, row in enumerate(rows[:3]):
         print(f"[serve] req{i}: {row[:12]}{'...' if len(row) > 12 else ''}")

@@ -1,12 +1,14 @@
 """Decoder-only transformer of the serving slice (reference
 ``models/transformer.py``): init, the paged pool, the layer loop, the fused
-prefill chunk, paged decode and greedy sampling.
+prefill chunk, paged decode (one token, or a draft block for speculative
+verify) and greedy sampling.
 
 Parameters are nested dicts of tensors laid out as the reference's pytree:
 every leaf under ``blocks/layer{i}`` has a leading repeat axis ``r``, and a
 Python loop over repeats takes the place of ``lax.scan``.  Pools are
-``(r, num_blocks, block_size, n_kv_heads, head_dim)`` per unit position and
-are updated in place.
+``(r, num_blocks, block_size, n_kv_heads, head_dim)`` per unit position
+(plus ``(r, num_blocks, n_kv_heads)`` f32 scales when quantized) and are
+updated in place.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 
@@ -131,17 +134,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      kv_dtype: str = "fp32", *, device=None) -> Params:
-    """One global page pool per attention unit position, in
-    ``compute_dtype``.  Block 0 is the trash page."""
-    if kv_dtype != "fp32":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: quantized pools are ROADMAP A6 (kernel row 3)")
+    """One global page pool per attention unit position.  Block 0 is the
+    trash page.  ``kv_dtype`` "fp32" keeps the pool in ``compute_dtype``;
+    "int8" / "fp8" store codes plus ``k_scale``/``v_scale`` leaves of
+    shape ``(r, num_blocks, n_kv_heads)`` f32 (see ``kernels/quant``).
+    An unknown ``kv_dtype`` raises ``ValueError``."""
+    quantized = quant.is_quantized(kv_dtype)
     dev = resolve_device(device)
+    pool_dt = quant.storage_dtype(kv_dtype) if quantized else cfg.compute_dtype
     shape = (cfg.n_repeats, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"blocks": {
-        f"layer{i}": {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-                      "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
-        for i, _ in enumerate(cfg.layer_unit)}}
+    sshape = (cfg.n_repeats, num_blocks, cfg.n_kv_heads)
+    blocks = {}
+    for i, _ in enumerate(cfg.layer_unit):
+        c = {"k": torch.zeros(shape, dtype=pool_dt, device=dev),
+             "v": torch.zeros(shape, dtype=pool_dt, device=dev)}
+        if quantized:
+            c["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+            c["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+        blocks[f"layer{i}"] = c
+    return {"blocks": blocks}
 
 
 # ----------------------------------------------------------------------------
@@ -242,6 +253,22 @@ def decode_step_paged(
     h, caches = forward_hidden(cfg, params, h, positions=cur_len[:, None],
                                caches=caches, page_table=page_table,
                                cur_len=cur_len)
+    return _logits(cfg, params, h, unembed), caches
+
+
+def decode_step_multi_paged(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches: Params,
+    page_table: torch.Tensor, cur_len: torch.Tensor, *, unembed: torch.Tensor,
+) -> tuple[torch.Tensor, Params]:
+    """Multi-token decode step (the speculative verify step's target pass):
+    tokens (B, T) at positions ``cur_len + [0, T)``, each written into the
+    pool and scored with a causal mask inside the block.  Positions past a
+    row's pages (padding past its live draft) go to trash block 0.  Returns
+    logits (B, T, V) and the pools."""
+    h = _embed_tokens(cfg, params, tokens)
+    positions = cur_len.long()[:, None] + torch.arange(tokens.shape[1], device=h.device)
+    h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
+                               page_table=page_table, cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
 
 

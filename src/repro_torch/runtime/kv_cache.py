@@ -2,7 +2,9 @@
 page tables (reference ``runtime/kv_cache.py``, without prefix sharing).
 
 Each attention unit position owns K and V pools of shape
-``(r, num_blocks, block_size, n_kv_heads, head_dim)`` on the device; one
+``(r, num_blocks, block_size, n_kv_heads, head_dim)`` on the device (int8
+or fp8 codes plus ``(r, num_blocks, n_kv_heads)`` f32 scales when the pool
+is quantized); one
 host-side page table ``(max_batch, max_pages)`` int32 is shared by every
 layer and copied to the device per step.  **Block 0 is the trash page**:
 free and shielded slots' table rows point at it, so padding rows of the
@@ -172,6 +174,8 @@ class PagedKVCache:
 
     @property
     def page_bytes(self) -> int:
+        """Device bytes of one page across all layers: K + V, plus the
+        per-page scale rows when the pool is quantized."""
         return sum(leaf.numel() * leaf.element_size() // self.num_blocks
                    for c in self.pools["blocks"].values() for leaf in c.values())
 
@@ -223,6 +227,21 @@ class PagedKVCache:
                 "writing a shared page needs a copy-on-write fork: ROADMAP, "
                 "prefix sharing and COW")
         return True
+
+    def truncate(self, slot: int, length: int) -> None:
+        """Shrink ``slot``'s pages to cover exactly ``length`` rows: the
+        speculative-decode rollback, which returns the pages faulted for
+        rejected draft positions to the free list.  The dropped tail must
+        be exclusively owned (refcount 1)."""
+        keep = self.pages_for(length)
+        tail = self._owned[slot][keep:]
+        if not tail:
+            return
+        assert all(self.allocator.refcount(p) == 1 for p in tail), (
+            "rollback would drop a shared page", slot, tail)
+        self.allocator.free(tail)
+        del self._owned[slot][keep:]
+        self.page_table[slot, keep:] = TRASH_PAGE
 
     def release(self, slot: int) -> None:
         """Drop ``slot``'s pages and point its table row at trash."""

@@ -1,8 +1,8 @@
 """The servable model behind ``StreamedBatchEngine`` (reference
 ``runtime/model_iface.py``): the decoder-only transformer over a paged
 pool.  It owns the model-specific half of serving — the pool layout, the
-fused prefill chunk and the greedy decode step — so the engine never calls
-the transformer directly.
+fused prefill chunk, the greedy decode step and the speculative verify
+step — so the engine never calls the transformer directly.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.runtime import spec
 from repro_torch.runtime.kv_cache import PagedKVCache
 
 
@@ -55,3 +56,10 @@ class TransformerServable:
             return T.decode_and_sample_paged(cfg, params, tokens, pools, page_table,
                                              cur_len, unembed=unembed)
         return fn
+
+    def verify_fn(self) -> Callable:
+        """``fn(toks (B, T), pools, page_table, cur, d_len) -> (emit (B, T)
+        int32, n_accept (B,) int32, pools)``: the greedy speculative verify
+        step on the device; the tick fetches only ``emit`` and
+        ``n_accept``."""
+        return spec.make_verifier(self.cfg, self.params, unembed=self.unembed)

@@ -14,6 +14,15 @@
 * **Decode tick**: fault in each active slot's write page, one batched
   greedy step on the device, and exactly one device-to-host copy — the
   ``(B,)`` int32 picks.
+* **Speculative tick** (``spec_decode``): a drafter proposes up to
+  ``spec_k`` tokens per slot, one multi-token verify step scores the
+  pending token plus the draft, and each slot advances by its accepted
+  prefix plus the bonus token; one device-to-host copy of ``(emit,
+  n_accept)``.  Draft pages are faulted best-effort and rolled back
+  (``kv.truncate``) past the accepted prefix.  Greedy output equals the
+  plain ticks' by construction.
+* **Quantized pages** (``kv_dtype`` "int8" / "fp8"): the pool stores codes
+  and per-(page, kv head) scales; see ``kernels/quant``.
 * **Backpressure**: a request waits in the queue (FIFO) until the free
   list holds its pages.  Preemption under page pressure is not ported: the
   tick raises where the reference would preempt.
@@ -29,17 +38,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import quant
+from repro_torch.runtime import spec
 from repro_torch.runtime.model_iface import TransformerServable
 
 # Reference ServeConfig features outside this slice: field -> (the value the
 # slice supports, the ROADMAP item that ports the rest).
 _NOT_PORTED = {
     "paged": (True, "the contiguous cache path"),
-    "temperature": (0.0, "temperature sampling"),
-    "kv_dtype": ("fp32", "quantized pools (A6, kernel row 3)"),
+    "temperature": (0.0, "temperature sampling (with or without spec_decode)"),
     "fused_prefill": (True, "the contiguous path (scatter-after-prefill)"),
     "prefix_sharing": (False, "prefix sharing and COW"),
-    "spec_decode": (False, "speculative decode (A5, kernel row 2)"),
     "state_snapshots": (False, "the zoo (mamba state snapshots)"),
     "prefix_store": (None, "prefix sharing and COW (the prefix store)"),
 }
@@ -54,13 +63,17 @@ class ServeConfig:
     decode_interleave: int = 1  # decode ticks per in-flight prefill chunk
     block_size: int = 16  # cache rows per page
     num_blocks: int | None = None  # pool size; None = every slot at max_seq + trash
+    kv_dtype: str = "fp32"  # pool storage: "fp32" | "int8" | "fp8"
+    # speculative decode: a drafter proposes spec_k tokens, one batched
+    # verify step scores all k + 1 positions (greedy only)
+    spec_decode: bool = False
+    spec_k: int = 4  # draft tokens proposed per verify step
+    spec_ngram: int = 3  # longest n-gram the default prompt-lookup matches
     # Reference features not ported yet; any other value raises.
     paged: bool = True
     temperature: float = 0.0
-    kv_dtype: str = "fp32"
     fused_prefill: bool = True
     prefix_sharing: bool = False
-    spec_decode: bool = False
     state_snapshots: bool = False
     prefix_store: str | None = None
 
@@ -71,13 +84,14 @@ class ServeConfig:
                     f"ServeConfig.{name}={getattr(self, name)!r} is not ported "
                     f"yet (the port supports {ok!r}): ROADMAP, {item}")
         for name in ("max_seq", "prefill_chunk", "max_new_tokens", "max_batch",
-                     "decode_interleave", "block_size"):
+                     "decode_interleave", "block_size", "spec_k", "spec_ngram"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.max_seq % self.block_size:
             raise ValueError(
                 f"max_seq {self.max_seq} must be a multiple of block_size "
                 f"{self.block_size} (pages tile the cache)")
+        quant.validate_kv_dtype(self.kv_dtype)
         if self.num_blocks is not None and self.num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block 0 is the trash page), got "
@@ -97,6 +111,7 @@ class _Slot:
 
     index: int
     uid: int | None = None  # None = free
+    prompt: np.ndarray | None = None  # prompt tokens: the drafter's lookup corpus
     cur: int = 0  # absolute position of the next KV write
     pending: int = 0  # last sampled token (next decode input)
     emitted: list[int] = dataclasses.field(default_factory=list)
@@ -114,10 +129,11 @@ class _Slot:
 class StreamedBatchEngine:
     """Continuous-batching paged serving on ``device`` (CUDA unless the
     caller passes ``"cpu"``).  Greedy output per request equals the
-    reference engine's."""
+    reference engine's.  With ``spec_decode``, ``drafter`` (anything with
+    ``propose(context, k)``) replaces the default ``NGramDrafter``."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig, *,
-                 device=None):
+                 device=None, drafter: spec.Drafter | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -130,10 +146,19 @@ class StreamedBatchEngine:
         self._next_uid = 0
         self._chunk = self.servable.chunk_fn()
         self._decode = self.servable.decode_fn()
-        self.decode_steps = 0  # batched decode ticks run
+        self.decode_steps = 0  # batched decode ticks run (plain and verify)
         self.prefill_chunks = 0  # prompt chunks run
         self.admissions = 0
         self.peak_active = 0  # most requests resident at once
+        self.spec_ticks = 0  # verify steps run
+        self.spec_proposed = 0  # draft tokens scored by verify steps
+        self.spec_accepted = 0  # draft tokens accepted (rate = accepted / proposed)
+        self.drafter = None
+        self._verify = None
+        if scfg.spec_decode:
+            self.drafter = (drafter if drafter is not None
+                            else spec.NGramDrafter(max_n=scfg.spec_ngram))
+            self._verify = self.servable.verify_fn()
 
     # -- queue -------------------------------------------------------------------
 
@@ -203,6 +228,7 @@ class StreamedBatchEngine:
         self.kv.publish(slot.index)
         first = int(torch.argmax(logits[0, -1]).item())  # the admission's one fetch
         slot.uid = req.uid
+        slot.prompt = req.tokens
         slot.cur = pos
         slot.pending = first
         slot.emitted = [first]
@@ -221,6 +247,7 @@ class StreamedBatchEngine:
         if slot.done:
             self.outputs[slot.uid] = np.asarray(slot.emitted, np.int32)
             slot.uid = None
+            slot.prompt = None
             slot.emitted = []
             self.kv.release(slot.index)
 
@@ -237,6 +264,14 @@ class StreamedBatchEngine:
                     "readmit and preemption")
 
     def _decode_tick(self) -> None:
+        """One decode tick: speculative (draft + batched verify) when
+        ``spec_decode`` is on, else one plain batched single-token step."""
+        if self.scfg.spec_decode:
+            self._spec_tick()
+        else:
+            self._plain_tick()
+
+    def _plain_tick(self) -> None:
         """One batched greedy decode step for all slots (free ones pad);
         the only device-to-host copy is the (B,) int32 picks."""
         self._fault_base_positions()
@@ -258,6 +293,76 @@ class StreamedBatchEngine:
             s.cur += 1
             s.pending = int(picks[s.index])
             s.emitted.append(s.pending)
+            self._reap(s)
+
+    # -- speculative decode ------------------------------------------------------
+
+    def _spec_budget(self, s: _Slot) -> int:
+        """Draft tokens worth proposing for ``s`` this tick: capped by the
+        remaining token budget (a tick emits at most budget + 1 tokens) and
+        by the cache rows left for the draft block's writes."""
+        return max(0, min(self.scfg.spec_k, s.max_new - len(s.emitted) - 1,
+                          self.scfg.max_seq - 1 - s.cur))
+
+    def _spec_tick(self) -> None:
+        """One speculate/verify step: the drafter proposes up to ``spec_k``
+        tokens per slot, one multi-token step scores all ``k + 1``
+        positions, and each slot advances by its accepted prefix plus the
+        bonus token.  The base position faults as in the plain tick; draft
+        positions are best-effort — a slot never takes pages it cannot get,
+        its draft shrinks to the pages that fit.  After acceptance the
+        pages of rejected positions go back (``kv.truncate``).  A tick with
+        no draft at all runs the plain tick instead."""
+        k = self.scfg.spec_k
+        self._fault_base_positions()
+        act = self.active_slots
+        if not act:
+            return
+        b = self.scfg.max_batch
+        toks = np.zeros((b, k + 1), np.int32)
+        cur = np.zeros((b,), np.int32)
+        d_len = np.zeros((b,), np.int32)
+        for s in act:
+            toks[s.index, 0] = s.pending
+            cur[s.index] = s.cur
+            budget = self._spec_budget(s)
+            draft = np.zeros(0, np.int32)
+            if budget > 0:
+                draft = np.asarray(self.drafter.propose(
+                    np.concatenate([s.prompt, np.asarray(s.emitted, np.int32)]),
+                    budget), np.int32)[:budget]
+            have = draft.size
+            for pos in range(s.cur + 1, s.cur + draft.size + 1):
+                if not self.kv.ensure_write(s.index, pos):
+                    have = pos - s.cur - 1
+                    break
+            draft = draft[:have]
+            if draft.size:
+                toks[s.index, 1: 1 + draft.size] = draft
+                d_len[s.index] = draft.size
+                self.spec_proposed += int(draft.size)
+        if not int(d_len.sum()):
+            # Every drafter came back empty: the (k+1)-wide verify step would
+            # cost ~(k+1)x a plain tick with nothing to accept.
+            self._plain_tick()
+            return
+        dev = self.device
+        emit, n_accept, self.kv.pools = self._verify(
+            torch.from_numpy(toks).to(dev), self.kv.pools, self.kv.device_page_table(),
+            torch.from_numpy(cur).to(dev), torch.from_numpy(d_len).to(dev))
+        self.decode_steps += 1
+        self.spec_ticks += 1
+        # The tick's one device-to-host copy: (B, k+1) emitted tokens and
+        # (B,) acceptance counts side by side.
+        got = torch.cat([emit, n_accept[:, None]], dim=1).cpu().numpy()
+        for s in act:
+            n = int(got[s.index, -1])
+            self.spec_accepted += n
+            new = got[s.index, : n + 1].tolist()
+            s.cur += n + 1
+            s.pending = new[-1]
+            s.emitted.extend(new)
+            self.kv.truncate(s.index, s.cur)
             self._reap(s)
 
     # -- scheduling --------------------------------------------------------------

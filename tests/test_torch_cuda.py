@@ -19,6 +19,7 @@ from repro_torch import configs
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import quant
 from repro_torch.models import transformer as T
 from repro_torch.runtime import serving
 
@@ -101,11 +102,92 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
 
 def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     q, kp, vp, pt, cl = (t.to(cuda) for t in _paged(torch.float32, [1, 2, 3, 4]))
-    with pytest.raises(ValueError, match="query heads per kv head"):
-        wide = torch.zeros((4, 8 * 17, 128), device=cuda)
-        ops.paged_attention(wide, kp, vp, pt, cl)
+    with pytest.raises(ValueError, match="head_dim"):
+        wide = torch.zeros((4, 32, 320), device=cuda)
+        pool = torch.zeros((*kp.shape[:3], 320), device=cuda)
+        ops.paged_attention(wide, pool, pool, pt, cl)
     with pytest.raises(ValueError, match="device"):
         ops.paged_attention(q.cpu(), kp, vp, pt, cl)
+    codes = kp.to(torch.int8)
+    sc = torch.ones((kp.shape[0], kp.shape[2]), device=cuda)
+    with pytest.raises(ValueError, match="int8 or float8_e4m3fn"):
+        ops.paged_attention_quant(q, kp.half(), vp.half(), sc, sc, pt, cl)
+    with pytest.raises(ValueError, match="num_blocks, Hkv"):
+        ops.paged_attention_multi_quant(q[:, None], codes, codes, sc[1:], sc, pt, cl)
+
+
+def _quantize(pool, kv_dtype):
+    """(codes, scales) of a full-precision pool, the port's own quantizer."""
+    scale = quant.scales_of(pool, kv_dtype)
+    return quant.quantize(pool, scale, kv_dtype), scale
+
+
+MULTI_CASES = [
+    dict(t=5, cur=[139, 111, 88, 76]),  # the verify step's shapes
+    dict(t=2, cur=[0, 15, 16, 100], trash_row=0),
+    dict(t=5, cur=[14, 30, 60, 141]),  # page edges; row 3 runs past the table
+    dict(t=5, cur=[139, 111, 88, 0], window=32, softcap=30.0, trash_row=3),
+    dict(t=5, cur=[7, 3, 12, 0], hd=64, g=2, bs=8),
+    dict(t=3, cur=[40, 7, 12, 21], g=8),  # 24 rows: two row tiles
+]
+
+
+def _draft_inputs(dtype, case, cuda):
+    shape = {k: case[k] for k in ("hd", "g", "bs") if k in case}
+    t = case["t"]
+    q, kp, vp, pt, cl = _paged(dtype, case["cur"], trash_row=case.get("trash_row"),
+                               **shape)
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((q.shape[0], t, *q.shape[1:]), generator=gen).to(dtype)
+    # Trash garbage at ordinary magnitude: a draft row attends several
+    # trash keys, and x100 outputs would round past the bf16 tolerance.
+    kp[0] /= 100.0
+    vp[0] /= 100.0
+    for i in range(pt.shape[0]):  # keep the pages of the whole draft block
+        last = int(cl[i]) + t - 1
+        if case.get("trash_row") != i and last // kp.shape[1] < pt.shape[1]:
+            pt[i, last // kp.shape[1]] = kp.shape[0] - 1 - i
+    return [x.to(cuda) for x in (q, kp, vp, pt, cl)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", MULTI_CASES, ids=str)
+def test_paged_multi_kernel_matches_plain(cuda, dtype, case):
+    kw = {k: case[k] for k in ("window", "softcap") if k in case}
+    q, kp, vp, pt, cl = _draft_inputs(dtype, case, cuda)
+    n0 = PA.MULTI_KERNEL.launches
+    got = ops.paged_attention_multi(q, kp, vp, pt, cl, **kw)
+    want = PA.paged_attention_multi_plain(q, kp, vp, pt, cl,
+                                          scale=1 / math.sqrt(q.shape[-1]), **kw)
+    torch.cuda.synchronize()
+    assert PA.MULTI_KERNEL.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", [dict(t=1, cur=[143, 100, 15, 16]),
+                                  dict(t=1, cur=[0, 15, 16, 100], trash_row=0, window=32),
+                                  *MULTI_CASES], ids=str)
+def test_paged_quant_kernels_match_plain(cuda, dtype, kv_dtype, case):
+    kw = {k: case[k] for k in ("window", "softcap") if k in case}
+    q, kp, vp, pt, cl = _draft_inputs(dtype, case, cuda)
+    (kc, ks), (vc, vs) = _quantize(kp.float(), kv_dtype), _quantize(vp.float(), kv_dtype)
+    scale = 1 / math.sqrt(q.shape[-1])
+    if case["t"] == 1:
+        q, kern = q[:, 0].contiguous(), PA.QUANT_KERNEL
+        fn, plain = ops.paged_attention_quant, PA.paged_attention_quant_plain
+    else:
+        kern = PA.MULTI_QUANT_KERNEL
+        fn, plain = ops.paged_attention_multi_quant, PA.paged_attention_multi_quant_plain
+    n0 = kern.launches
+    got = fn(q, kc, vc, ks, vs, pt, cl, **kw)
+    want = plain(q, kc, vc, ks, vs, pt, cl, scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -126,6 +208,35 @@ def test_engine_on_card_matches_cpu(cuda):
         uids = [eng.submit(t) for t in prompts]
         got = eng.run()
         out[dev] = [got[u] for u in uids]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("extra", [dict(spec_decode=True, spec_k=4), dict(kv_dtype="int8"),
+                                   dict(kv_dtype="fp8"),
+                                   dict(kv_dtype="int8", spec_decode=True, spec_k=3)],
+                         ids=str)
+def test_spec_and_quantized_engines_on_card_match_cpu(cuda, extra):
+    """Smoke qwen3-4b through the verify and fused-dequant kernels on the
+    card and their plain versions on the CPU, on prompts that tile a
+    segment (so prompt lookup drafts): greedy tokens identical per request
+    (f32 pools agree to 1e-6; quantized codes can flip at a rounding edge,
+    which at this size has not happened)."""
+    cfg = configs.get_smoke_config("qwen3-4b")
+    params = T.init_params(cfg, 0, device="cpu")
+    scfg = serving.ServeConfig(max_seq=48, prefill_chunk=16, max_new_tokens=10,
+                               max_batch=2, block_size=8, **extra)
+    rng = np.random.default_rng(3)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, n), 3).astype(np.int32)
+               for n in (6, 5, 8, 4)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else {k: _to(v, cuda) for k, v in params.items()}
+        eng = serving.StreamedBatchEngine(cfg, p, scfg, device=dev)
+        uids = [eng.submit(t) for t in prompts]
+        got = eng.run()
+        out[dev] = [got[u] for u in uids]
+        assert eng.kv.pages_in_use == 0
     for a, b in zip(out["cpu"], out["cuda"]):
         np.testing.assert_array_equal(a, b)
 

@@ -1,7 +1,9 @@
 """The port's model code against the JAX reference on equal weights and
-inputs: configs, the weight bridge, layers, both paged attention branches,
-the fused prefill chunk and the paged decode step.  All f32; tolerance
-1e-5 abs/rel unless stated (sums run in another order)."""
+inputs: configs, the weight bridge, layers, both paged attention branches
+(single-token and draft-block decode, fused prefill) over full-precision
+and int8 / fp8 pools, the fused prefill chunk and the paged decode steps.
+All f32; tolerance 1e-5 abs/rel unless stated (sums run in another
+order)."""
 
 import dataclasses
 
@@ -12,12 +14,14 @@ import pytest
 import torch
 
 import repro.configs as RC
+from repro.kernels import quant as RQ
 from repro.models import attention as RA
 from repro.models import layers as RL
 from repro.models import transformer as RT
 from repro.runtime import serving as RS
 from repro_torch import bridge
 from repro_torch import configs as PC
+from repro_torch.kernels import quant as PQ
 from repro_torch.models import attention as PA
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
@@ -216,11 +220,8 @@ def test_attention_rejects_unported_paths(smoke):
     x = torch.zeros((1, 2, pcfg.d_model))
     with pytest.raises(NotImplementedError, match="contiguous"):
         PA.attention_apply(pp, x, **_attn_kw(pcfg))
-    pools = {"k": torch.zeros((3, 8, 2, 16)), "v": torch.zeros((3, 8, 2, 16))}
-    with pytest.raises(NotImplementedError, match="speculative"):
-        PA.attention_apply(pp, x, cache=pools, cur_len=torch.zeros(1, dtype=torch.int32),
-                           page_table=torch.zeros((1, 2), dtype=torch.int32),
-                           **_attn_kw(pcfg))
+    with pytest.raises(ValueError, match="kv_dtype"):
+        PT.init_paged_cache(pcfg, 4, 8, "int4", device="cpu")
 
 
 def test_decode_step_paged_logits_match_reference(smoke):
@@ -269,3 +270,197 @@ def test_prefill_chunk_matches_reference_fused_chunk(smoke):
     for key in ("k", "v"):
         np.testing.assert_allclose(pools["blocks"]["layer0"][key].numpy(),
                                    np.asarray(c_r["blocks"]["layer0"][key]), **TOL)
+
+
+# -- draft blocks (speculative verify) and quantized pools ---------------------------
+
+
+def _mixer(tree, params):
+    pr = {k: v[0] if not isinstance(v, dict) else {"scale": v["scale"][0]}
+          for k, v in tree["blocks"]["layer0"]["mixer"].items()}
+    return pr, PT._at(params["blocks"]["layer0"]["mixer"], 0)
+
+
+def _draft_case(rng, cfg, s, *, b=3, bs=8, n_pages=4):
+    """Pools, a table and positions for a (B, S) block: row 0 crosses a
+    page edge, row 1 runs past its table into trash, row 2 is a free slot
+    (cur_len 0, all-trash row)."""
+    nb = 1 + b * n_pages
+    k_pool, v_pool = _pools(rng, nb, bs, cfg.n_kv_heads, cfg.head_dim)
+    pt = (rng.permutation(b * n_pages) + 1).reshape(b, n_pages).astype(np.int32)
+    cl = np.array([6, n_pages * bs - 2, 0], np.int32)
+    pt[2] = 0
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    return k_pool, v_pool, pt, cl, x, cl[:, None] + np.arange(s)
+
+
+def test_attention_paged_draft_block_matches_reference(smoke):
+    rcfg, pcfg, tree, params = smoke
+    pr, pp = _mixer(tree, params)
+    k_pool, v_pool, pt, cl, x, pos = _draft_case(np.random.default_rng(5), rcfg, 5)
+    out_r, c_r = RA.attention_apply(
+        _j(pr), jnp.asarray(x), positions=jnp.asarray(pos),
+        cache={"k": jnp.asarray(k_pool), "v": jnp.asarray(v_pool)},
+        cur_len=jnp.asarray(cl), page_table=jnp.asarray(pt), **_attn_kw(rcfg))
+    cache = {"k": _t(k_pool), "v": _t(v_pool)}
+    out_p, _ = PA.attention_apply(pp, _t(x), positions=_t(pos), cache=cache, cur_len=_t(cl),
+                                  page_table=_t(pt), **_attn_kw(pcfg))
+    assert out_p.shape == (3, 5, pcfg.d_model)
+    np.testing.assert_allclose(out_p.numpy(), np.asarray(out_r), **TOL)
+    for key in ("k", "v"):  # the trash page's contents are unspecified
+        np.testing.assert_allclose(cache[key].numpy()[1:], np.asarray(c_r[key])[1:], **TOL)
+
+
+def test_decode_step_multi_paged_logits_match_reference(smoke):
+    rcfg, pcfg, tree, params = smoke
+    rng = np.random.default_rng(6)
+    b, bs, n_pages, t = 3, 8, 4, 4
+    nb = 1 + b * n_pages
+    k_pool, v_pool = _pools(rng, nb, bs, rcfg.n_kv_heads, rcfg.head_dim, r=rcfg.n_repeats)
+    pt = (rng.permutation(b * n_pages) + 1).reshape(b, n_pages).astype(np.int32)
+    cl = np.array([5, 14, 30], np.int32)
+    tok = rng.integers(0, rcfg.vocab_size, (b, t)).astype(np.int32)
+    logits_r, c_r = RT.decode_step_multi_paged(
+        rcfg, _j(tree), jnp.asarray(tok),
+        {"blocks": {"layer0": {"k": jnp.asarray(k_pool), "v": jnp.asarray(v_pool)}}},
+        jnp.asarray(pt), jnp.asarray(cl))
+    pools = {"blocks": {"layer0": {"k": _t(k_pool), "v": _t(v_pool)}}}
+    logits_p, _ = PT.decode_step_multi_paged(pcfg, params, _t(tok), pools, _t(pt), _t(cl),
+                                             unembed=PT.unembed_f32(pcfg, params))
+    assert logits_p.shape == (b, t, pcfg.padded_vocab)
+    np.testing.assert_allclose(logits_p.numpy(), np.asarray(logits_r), **TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(pools["blocks"]["layer0"][key].numpy()[:, 1:],
+                                   np.asarray(c_r["blocks"]["layer0"][key])[:, 1:], **TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_init_paged_cache_quantized_layout_matches_reference(smoke, kv_dtype):
+    rcfg, pcfg, _, _ = smoke
+    ref = RT.init_paged_cache(rcfg, 2, 9, 8, kv_dtype)["blocks"]["layer0"]
+    port = PT.init_paged_cache(pcfg, 9, 8, kv_dtype, device="cpu")["blocks"]["layer0"]
+    assert set(port) == set(ref) == {"k", "v", "k_scale", "v_scale"}
+    for key in port:
+        assert tuple(port[key].shape) == ref[key].shape
+    assert port["k"].dtype == PQ.storage_dtype(kv_dtype)
+    assert port["k_scale"].dtype == torch.float32
+
+
+def _codes_np(a):
+    """int8 / fp8 codes (torch or reference) as comparable integers."""
+    if isinstance(a, torch.Tensor):
+        return (a.view(torch.uint8) if a.dtype == torch.float8_e4m3fn else a).numpy().astype(int)
+    a = np.array(a)
+    return (a if a.dtype == np.int8 else a.view(np.uint8)).astype(int)
+
+
+def _quant_cache(rng, cfg, kv_dtype, nb, bs):
+    """A quantized pool with live codes and scales, as (reference cache,
+    port cache)."""
+    ref, port = {}, {}
+    for key in ("k", "v"):
+        full = rng.standard_normal((nb, bs, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32)
+        sc = RQ.scales_of(jnp.asarray(full), kv_dtype)
+        codes = RQ.quantize(jnp.asarray(full), sc, kv_dtype)
+        ref[key], ref[f"{key}_scale"] = codes, sc
+        t = torch.from_numpy(_codes_np(codes).astype(np.uint8 if kv_dtype == "fp8" else np.int8))
+        port[key] = t.view(torch.float8_e4m3fn) if kv_dtype == "fp8" else t
+        port[f"{key}_scale"] = _t(sc)
+    return ref, port
+
+
+def _ref_kv_rows(pr, x, positions, cfg):
+    """The reference attention_apply's K/V rows, op for op (eager), so the
+    port's write helpers can be fed bit-identical rows."""
+    b, s, _ = x.shape
+    x = jnp.asarray(x)
+    k = (x @ pr["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ pr["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = RL.rmsnorm(pr["k_norm"], k)
+    sin, cos = RL.rope_angles(jnp.asarray(positions), cfg.head_dim, cfg.rope_theta)
+    if positions.ndim == 1:
+        sin, cos = sin[None], cos[None]
+    return RL.apply_rope(k, sin, cos), v
+
+
+def _assert_quant_pools(port, ref, live):
+    """Codes equal but for rare one-ulp row differences (the projections run
+    in another framework), scales within 1e-6 relative."""
+    for key in ("k", "v"):
+        a, r = _codes_np(port[key])[live], _codes_np(ref[key])[live]
+        assert (a != r).mean() <= 0.01, f"{key}: {(a != r).mean():.4f} of codes differ"
+        np.testing.assert_allclose(port[f"{key}_scale"].numpy()[live],
+                                   np.asarray(ref[f"{key}_scale"])[live], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("s", [1, 3])
+def test_attention_quantized_decode_matches_reference(smoke, kv_dtype, s):
+    """The quantized decode write (rescale-on-grow, a fresh page's stale
+    scale ignored) and the fused-dequant read: codes and scales bit-equal
+    to the reference's on the reference's own rows; through the whole
+    layer, outputs within 1e-5."""
+    rcfg, pcfg, tree, params = smoke
+    rng = np.random.default_rng(7)
+    pr, pp = _mixer(tree, params)
+    b, bs, n_pages = 3, 8, 4
+    ref, port = _quant_cache(rng, rcfg, kv_dtype, 1 + b * n_pages, bs)
+    pt = (rng.permutation(b * n_pages) + 1).reshape(b, n_pages).astype(np.int32)
+    cl = np.array([7, 16, 0], np.int32)  # a page edge, a fresh page, a free slot
+    pt[2] = 0
+    x = rng.standard_normal((b, s, rcfg.d_model)).astype(np.float32)
+    pos = cl[:, None] + np.arange(s)
+    out_r, c_r = RA.attention_apply(
+        _j(pr), jnp.asarray(x), positions=jnp.asarray(pos), cache=dict(ref),
+        cur_len=jnp.asarray(cl), page_table=jnp.asarray(pt), **_attn_kw(rcfg))
+    live = slice(1, None)
+
+    rows = _ref_kv_rows(_j(pr), x, pos, rcfg)
+    idx = pos // bs
+    page = np.where(idx < n_pages, np.take_along_axis(pt, np.minimum(idx, n_pages - 1), 1), 0)
+    fed = {k: v.clone() for k, v in port.items()}
+    for key, r in zip(("k", "v"), rows):
+        PA._quant_paged_write(fed[key], fed[f"{key}_scale"], _t(r), _t(page).long(),
+                              _t(pos % bs).long(), kv_dtype)
+        np.testing.assert_array_equal(_codes_np(fed[key])[live], _codes_np(c_r[key])[live])
+        np.testing.assert_array_equal(fed[f"{key}_scale"].numpy()[live],
+                                      np.asarray(c_r[f"{key}_scale"])[live])
+
+    out_p, _ = PA.attention_apply(pp, _t(x), positions=_t(pos), cache=port, cur_len=_t(cl),
+                                  page_table=_t(pt), **_attn_kw(pcfg))
+    np.testing.assert_allclose(out_p.numpy(), np.asarray(out_r), **TOL)
+    _assert_quant_pools(port, c_r, live)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("s,q_offset", [(16, 0), (7, 12)])
+def test_attention_quantized_fused_prefill_matches_reference(smoke, kv_dtype, s, q_offset):
+    """The quantized prefill write (fresh pages from offset 0, a chunk that
+    starts mid-page merging into the previous chunk's page) and the
+    dequantized context read into the prefill kernel."""
+    rcfg, pcfg, tree, params = smoke
+    rng = np.random.default_rng(8)
+    pr, pp = _mixer(tree, params)
+    bs = 8
+    ref, port = _quant_cache(rng, rcfg, kv_dtype, 9, bs)
+    n_ctx = -(-(q_offset + s) // bs)
+    pt = (rng.permutation(8)[:n_ctx] + 1)[None].astype(np.int32)
+    x = rng.standard_normal((1, s, rcfg.d_model)).astype(np.float32)
+    pos = q_offset + np.arange(s)
+    out_r, c_r = RA.attention_apply(
+        _j(pr), jnp.asarray(x), positions=jnp.asarray(pos), chunk=rcfg.attn_chunk,
+        cache=dict(ref), q_offset=q_offset, page_table=jnp.asarray(pt), **_attn_kw(rcfg))
+
+    rows = _ref_kv_rows(_j(pr), x, pos, rcfg)
+    fed = {k: v.clone() for k, v in port.items()}
+    for key, r in zip(("k", "v"), rows):
+        PA._quant_prefill_write(fed[key], fed[f"{key}_scale"], _t(r), _t(pt), q_offset,
+                                kv_dtype)
+        np.testing.assert_array_equal(_codes_np(fed[key]), _codes_np(c_r[key]))
+        np.testing.assert_array_equal(fed[f"{key}_scale"].numpy(),
+                                      np.asarray(c_r[f"{key}_scale"]))
+
+    out_p, _ = PA.attention_apply(pp, _t(x), positions=_t(pos), cache=port,
+                                  q_offset=q_offset, page_table=_t(pt), **_attn_kw(pcfg))
+    np.testing.assert_allclose(out_p.numpy(), np.asarray(out_r), **TOL)
+    _assert_quant_pools(port, c_r, slice(None))

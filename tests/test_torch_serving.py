@@ -1,6 +1,9 @@
 """The port's paged engine against the JAX StreamedBatchEngine: smoke
 qwen3-4b, paged, fused prefill, greedy, equal weights through the bridge.
-Greedy tokens per uid must be identical."""
+Greedy tokens per uid must be identical on full-precision pools; on int8 /
+fp8 pools (with and without speculative decode) the mean greedy agreement
+must reach the reference's own floor, 0.5 (``QUANT_TOL`` in
+``tests/test_quant_kv.py``): one flipped argmax cascades."""
 
 import jax
 import numpy as np
@@ -72,11 +75,44 @@ def test_engine_matches_reference_greedy(setup):
     assert eng.kv.pages_in_use == 0
 
 
+QUANT_FLOOR = 0.5
+
+
 def test_engine_rejects_unported_features():
-    for bad in (dict(paged=False), dict(temperature=0.5), dict(kv_dtype="int8"),
-                dict(prefix_sharing=True), dict(spec_decode=True)):
+    for bad in (dict(paged=False), dict(temperature=0.5), dict(prefix_sharing=True),
+                dict(spec_decode=True, temperature=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PS.ServeConfig(**bad)
+    with pytest.raises(NotImplementedError, match="temperature sampling"):
+        PS.ServeConfig(spec_decode=True, temperature=0.5)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        PS.ServeConfig(kv_dtype="int4")
+    with pytest.raises(ValueError, match="spec_k"):
+        PS.ServeConfig(spec_decode=True, spec_k=0)
+
+
+@pytest.mark.parametrize("extra", [dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
+                                   dict(kv_dtype="int8", spec_decode=True, spec_k=2)],
+                         ids=str)
+def test_quantized_engine_agrees_with_reference(setup, extra):
+    rcfg, pcfg, tree, prompts = setup
+    kw = dict(max_seq=MAX_SEQ, prefill_chunk=CHUNK, max_new_tokens=NEW,
+              max_batch=SLOTS, block_size=BLOCK, **extra)
+    ref = RS.StreamedBatchEngine(rcfg, jax.tree.map(jax.numpy.asarray, tree),
+                                 RS.ServeConfig(paged=True, **kw))
+    r_uids = [ref.submit(p) for p in prompts]
+    want = ref.run()
+    eng = PS.StreamedBatchEngine(
+        pcfg, bridge.params_from_numpy(tree, pcfg, device="cpu"), PS.ServeConfig(**kw),
+        device="cpu")
+    p_uids = [eng.submit(p) for p in prompts]
+    got = eng.run()
+    agree = float(np.mean([np.mean(got[pu] == want[ru]) for pu, ru in zip(p_uids, r_uids)]))
+    print(f"{extra}: mean greedy agreement with the JAX engine {agree:.3f}")
+    assert all(got[pu].shape == want[ru].shape for pu, ru in zip(p_uids, r_uids))
+    assert agree >= QUANT_FLOOR
+    assert eng.kv.pages_in_use == 0
+    eng.kv.check_invariants()
 
 
 def test_engine_raises_instead_of_preempting(setup):
@@ -99,6 +135,17 @@ def test_launcher_runs_on_cpu(capsys):
                  "--block-size", "8", "--max-batch", "2"])
     out = capsys.readouterr().out
     assert "3 requests x 20 prompt -> 4 new tokens each" in out
+
+
+def test_launcher_runs_spec_decode_over_int8_pages(capsys):
+    pserve.main(["--device", "cpu", "--paged", "--requests", "2", "--prompt-len", "12",
+                 "--new-tokens", "8", "--prefill-chunk", "8", "--block-size", "8",
+                 "--max-batch", "2", "--spec-decode", "--spec-k", "3", "--spec-ngram", "2",
+                 "--kv-dtype", "int8"])
+    out = capsys.readouterr().out
+    assert "2 requests x 12 prompt -> 8 new tokens each" in out
+    assert "spec k=3" in out and "acceptance" in out
+    assert "kv_dtype=int8" in out and "page_bytes=" in out
 
 
 def test_launcher_requires_paged():
