@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each
-against its plain PyTorch version, holds the card against the CPU on a
-2-layer full-width qwen3-4b, then serves requests through the full 36-layer
-bf16 qwen3-4b on the card: plain, with speculative decode, over int8 and
-fp8 KV pages, and over int8 pages with speculative decode.
+against its plain PyTorch version, holds the card against the CPU on
+2-layer full-width qwen3-4b and mamba2-2.7b, then serves requests through
+the full 36-layer bf16 qwen3-4b on the card (plain, with speculative
+decode, over int8 and fp8 KV pages, and over int8 pages with speculative
+decode) and through the full 64-layer bf16 mamba2-2.7b (contiguous slot
+cache, paged pool, state snapshots).
 
     python3 chip_smoke.py            # every phase, on one CUDA card
     python3 chip_smoke.py --profile  # the same, plus torch.profiler serves
@@ -12,17 +14,25 @@ Phases (any failed check raises, and the script exits non-zero):
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
      TF32 off for matmuls and cuDNN so f32 means f32.
   2. build: every kernel from src/repro_torch/kernels/csrc, timed.
-  3. kernels: each of the five kernels (paged decode, its draft-block,
-     fused-dequant and draft-block fused-dequant entries, prefill) against
-     its plain version in f32 (atol 1e-5) and bf16 (atol 2e-2), over int8
-     and fp8 codes for the quantized entries, at the serving shapes; kernel,
-     plain, SDPA (library) times and the memory/compute bound.
+  3. kernels: each of the six kernels (paged decode, its draft-block,
+     fused-dequant and draft-block fused-dequant entries, prefill, SSD
+     chunk scan) against its plain version in f32 (atol 1e-5) and bf16
+     (atol 2e-2), over int8 and fp8 codes for the quantized entries, at the
+     serving shapes; the SSD scan's y and final state over aligned and
+     ragged lengths, Q = 256 and zero / random initial states, relative to
+     the plain output's largest magnitude (at least 1): f32 1e-4 (see
+     SSD_RTOL), bf16 2e-2;
+     kernel, plain, SDPA (library, none for the SSD scan) times and the
+     memory/compute bound.
   4. card vs CPU: qwen3-4b at full width cut to 2 layers, f32, 6 requests
      served on cuda (kernels) and on cpu (plain versions): admission logits
      allclose (atol 2e-3, rtol 1e-3) and greedy tokens identical per uid;
      speculative decode (n-gram drafts on tiled prompts, and an oracle
      drafter) identical card vs CPU and equal to the plain serve; int8 and
-     fp8 pages card vs CPU greedy agreement >= 0.5.
+     fp8 pages card vs CPU greedy agreement >= 0.5.  mamba2-2.7b at full
+     width cut to 2 layers, f32, served contiguous, paged and with state
+     snapshots (prompts sharing a 64-token head): admission logits allclose
+     (atol 2e-3, rtol 1e-3), greedy tokens and snapshot hits identical.
   5. main path: full qwen3-4b (36 layers, bf16, random weights from a seed)
      serves the same 6 requests plain, with speculative decode (oracle
      drafter, then n-gram drafts on tiled prompts), over int8 and fp8 pages,
@@ -30,10 +40,17 @@ Phases (any failed check raises, and the script exits non-zero):
      prefill-chunk times, acceptance, page bytes, agreement with the plain
      serve; each serve's launch counts are 36 per tick of its kind and per
      prefill chunk.
-With --profile, phase 5 adds a torch.profiler breakdown (device busy time
-by kernel, idle share) of the plain, oracle-spec and int8 serves.  The
-last three lines of stdout are the card's name and power limit, the
-kernels JSON and the result JSON.
+  6. main path, mamba: full mamba2-2.7b (64 layers, bf16, random weights
+     from a seed) serves the same 6 requests over a contiguous slot cache
+     and beside a paged pool, then prompts sharing a 64-token head with
+     state snapshots (tokens equal to the same prompts served without
+     them); tokens/s, tick and chunk times, snapshot hits and the
+     snapshot's device-to-host copy time; the SSD kernel launches 64 times
+     per prefill chunk and no other kernel launches.
+With --profile, phases 5 and 6 add a torch.profiler breakdown (device busy
+time by kernel, idle share) of the plain, oracle-spec, int8 and mamba
+contiguous serves.  The last three lines of stdout are the card's name
+and power limit, the kernels JSON and the result JSON.
 """
 
 from __future__ import annotations
@@ -56,6 +73,12 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # kernel vs plain, max abs
+# The SSD scan, relative to the plain output's largest magnitude (at least
+# 1): inside a chunk of up to 256 tokens the cumulative log-decay reaches
+# hundreds, so one f32 ulp of it is a relative error of ~1e-5 in each decay
+# factor, and kernel and plain sum it in different orders.  1e-4 is the
+# reference's own tolerance for its SSD kernel (tests/test_kernels.py).
+SSD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGIT_ATOL, LOGIT_RTOL = 2e-3, 1e-3  # card vs CPU, f32, 2 layers
 PROMPT_LENS = (128, 100, 77, 128, 64, 33)
 NEW_TOKENS, SLOTS, CHUNK, BLOCK = 16, 4, 64, 16
@@ -72,7 +95,10 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                                     "src/repro/kernels/ops.py:150"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:32"),
+    "ssd": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "src/repro/kernels/ssd_chunk.py:43"),
 }
+SNAP_HEAD = 64  # tokens every snapshot-serve prompt longer than it starts with
 
 
 def check(cond: bool, msg: str) -> None:
@@ -192,16 +218,51 @@ def flash_bytes_flops(q, k, q_offset, window):
     return nbytes, 4.0 * keys * h * hd
 
 
-def held(res, name, dtype, label, got, want) -> None:
-    """Check one kernel output against its plain version; keep the worst
-    error of ``name``."""
+def held(res, name, dtype, label, got, want, tol: float | None = None) -> None:
+    """Check one kernel output against its plain version (tolerance
+    ``tol``, by default ``TOL[dtype]``); keep the worst error of ``name``."""
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype] if tol is None else tol
     check(bool(torch.isfinite(got).all()), f"{name} {dtype} {label}: non-finite")
-    check(err <= TOL[dtype], f"{name} {dtype} {label}: max abs err {err}")
+    check(err <= tol, f"{name} {dtype} {label}: max abs err {err} > {tol}")
     res[name]["err"] = max(res[name]["err"], err)
     print(f"[kernels] {name} {str(dtype):14s} {label}: max abs err {err:.3e} "
-          f"(tol {TOL[dtype]})")
+          f"(tol {tol:.3e})")
+
+
+def ssd_case(dtype, b, s, *, init, seed=0, h=80, p=64, n=128):
+    """Mamba2 SSD inputs at the full config's widths: x (b, s, H, P), dt =
+    softplus of a normal, a = -exp(linspace(-1, 1, H)), B/C scaled normals,
+    and a random initial state or none."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device="cuda"))
+    a = -torch.exp(torch.linspace(-1.0, 1.0, h, device="cuda"))
+    bm = (0.3 * torch.randn((b, s, n), generator=g, device="cuda")).to(dtype)
+    cm = (0.3 * torch.randn((b, s, n), generator=g, device="cuda")).to(dtype)
+    st = torch.randn((b, h, p, n), generator=g, device="cuda") if init else None
+    return x, dt, a, bm, cm, st
+
+
+def ssd_bytes_flops(x, bm, chunk, init):
+    """Bytes: x, dt, a, B, C and the initial state read once, y and the
+    final state written once.  Operations (what the chunked algorithm
+    needs on these inputs): per batch row, the causal half of each chunk's
+    C B^T (shared by the heads); per head, the decayed scores times x, the
+    carried state's term and the state update."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    e = x.element_size()
+    state = b * h * p * n * 4
+    nbytes = (2 * x.numel() * e + b * s * h * 4 + h * 4 + 2 * bm.numel() * e
+              + (state if init else 0) + state)
+    pairs = 0
+    for t0 in range(0, s, chunk):
+        q = min(chunk, s - t0)
+        pairs += q * (q + 1) // 2
+    flops = b * (2.0 * pairs * n + h * (2.0 * pairs * p + 4.0 * s * p * n))
+    return nbytes, flops
 
 
 DRAFT_CASES = [dict(t=5, cur=[139, 111, 88, 76]),  # the verify step's shapes
@@ -242,6 +303,7 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_chunk as SSD
 
     scale = 1.0 / math.sqrt(128)
     res = {name: {"err": 0.0} for name in KERNELS}
@@ -286,6 +348,20 @@ def phase_kernels() -> dict:
             held(res, "flash_attention", dtype, f"Sq={sq} q_offset={off} {kw}",
                  ops.flash_attention(q, k, v, q_offset=off, **kw),
                  FA.flash_attention_plain(q, k, v, scale=scale, q_offset=off, **kw))
+        # The SSD scan: the serve's 64-token chunk, its tails of 36 and 13,
+        # two full Q = 256 chunks, and 256 + a 44-token tail.
+        for i, (b, s_len, chunk, init) in enumerate(
+                [(1, 64, 256, True), (1, 64, 256, False), (4, 64, 256, True),
+                 (1, 36, 256, True), (4, 13, 256, False), (1, 512, 256, True),
+                 (4, 512, 256, False), (1, 300, 256, False), (4, 300, 256, True)]):
+            x, dt_, a, bm, cm, st = ssd_case(dtype, b, s_len, init=init, seed=30 + i)
+            y, fs = SSD.ssd_chunked(x, dt_, a, bm, cm, chunk=chunk, init_state=st)
+            y_p, fs_p = SSD.ssd_chunked_plain(x, dt_, a, bm, cm, chunk=chunk, init_state=st)
+            label = f"b={b} S={s_len} chunk={chunk} init={'random' if init else 'zero'}"
+            held(res, "ssd", dtype, label + " y", y, y_p,
+                 SSD_RTOL[dtype] * max(1.0, y_p.float().abs().max().item()))
+            held(res, "ssd", torch.float32, label + " final state", fs, fs_p,
+                 SSD_RTOL[torch.float32] * max(1.0, fs_p.abs().max().item()))
 
     # Times at the main path's shapes, bf16, 4 slots, 9 pages of 16: a decode
     # tick (cur_len 143/115/92/80), a verify tick (5 tokens from cur_len
@@ -340,12 +416,21 @@ def phase_kernels() -> dict:
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask, scale=scale,
                                                enable_gqa=True),
         flash_bytes_flops(qf, kf, 64, 0))
+    # The SSD scan as a prefill chunk of the serve runs it: b=1, a 64-token
+    # chunk, the carried state in; no single PyTorch call computes it.
+    xs, dts, as_, bs_, cs_, sts = ssd_case(dt, 1, 64, init=True, seed=9)
+    timed["ssd"] = (
+        lambda: SSD.ssd_chunked(xs, dts, as_, bs_, cs_, chunk=256, init_state=sts),
+        lambda: SSD.ssd_chunked_plain(xs, dts, as_, bs_, cs_, chunk=256, init_state=sts),
+        None, ssd_bytes_flops(xs, bs_, 64, True))
     for name, (kern, plain, lib, (nbytes, flops)) in timed.items():
         r = res[name]
-        r["ms"], r["plain_ms"], r["library_ms"] = time_ms(kern), time_ms(plain), time_ms(lib)
+        r["ms"], r["plain_ms"] = time_ms(kern), time_ms(plain)
+        r["library_ms"] = time_ms(lib) if lib is not None else None
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dt)
+        lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernels] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"library {lib_ms}, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}, {nbytes} bytes, {flops:.0f} flops)"
               + (f"; fp8 codes: kernel {fp8_ms[name]:.4f} ms" if name in fp8_ms else ""))
     return res
@@ -388,16 +473,36 @@ def agreement(got, want) -> float:
     return float(np.mean([np.mean(np.asarray(a) == np.asarray(b)) for a, b in zip(got, want)]))
 
 
+def snapshot_prompts(vocab: int) -> list[np.ndarray]:
+    """PROMPT_LENS again, every prompt longer than SNAP_HEAD starting with
+    one shared SNAP_HEAD-token head (the shorter ones random)."""
+    rng = np.random.default_rng(3)
+    head = rng.integers(0, vocab, SNAP_HEAD, dtype=np.int32)
+    return [np.concatenate([head, rng.integers(0, vocab, n - SNAP_HEAD, dtype=np.int32)])
+            if n > SNAP_HEAD else rng.integers(0, vocab, n, dtype=np.int32)
+            for n in PROMPT_LENS]
+
+
 def serve(cfg, params, device, reqs, *, drafter=None, **extra):
     """Serve ``reqs`` on ``device`` with ServeConfig options ``extra``;
     returns (engine, tokens per request, admission logits per request,
-    per-tick seconds, wall seconds)."""
+    per-tick seconds, wall seconds).  The engine also keeps the seconds of
+    each state snapshot it stored (its device-to-host copy)."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
 
     class Engine(StreamedBatchEngine):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
-            self.logits, self.ticks = {}, []
+            self.logits, self.ticks, self.snapshot_s = {}, [], []
+            offer = self.servable.maybe_snapshot
+
+            def timed_offer(tokens, caches, pos):
+                n0 = len(self.servable.snapshots or ())
+                t0 = time.perf_counter()
+                offer(tokens, caches, pos)
+                if len(self.servable.snapshots or ()) > n0:
+                    self.snapshot_s.append(time.perf_counter() - t0)
+            self.servable.maybe_snapshot = timed_offer
 
         def _on_admit_logits(self, uid, logits):
             self.logits[uid] = logits.float().cpu()
@@ -417,8 +522,13 @@ def serve(cfg, params, device, reqs, *, drafter=None, **extra):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(eng.kv.pages_in_use == 0, f"{extra}: {eng.kv.pages_in_use} pages left in use")
-    eng.kv.check_invariants()
+    if eng.paged:
+        check(eng.kv.pages_in_use == 0, f"{extra}: {eng.kv.pages_in_use} pages left in use")
+        eng.kv.check_invariants()
+    # The timing hook closes over the engine: drop it so the engine and its
+    # device caches are freed as soon as the caller lets go of them (else
+    # they wait for the garbage collector and inflate the next serve's peak).
+    del eng.servable.maybe_snapshot
     return (eng, [out[u] for u in uids], [eng.logits[u] for u in uids], eng.ticks, wall)
 
 
@@ -429,11 +539,7 @@ def phase_card_vs_cpu() -> None:
     cfg = dataclasses.replace(qwen3_4b.CONFIG, n_layers=2, param_dtype=torch.float32,
                               compute_dtype=torch.float32)
     cpu_params = T.init_params(cfg, 0, device="cpu")
-
-    def to_cuda(t):
-        return {k: to_cuda(v) if isinstance(v, dict) else v.to("cuda")
-                for k, v in t.items()}
-    gpu_params = to_cuda(cpu_params)
+    gpu_params = to_device(cpu_params, "cuda")
 
     reqs = prompts(cfg.vocab_size)
     _, tok_gpu, log_gpu, _, wall_gpu = serve(cfg, gpu_params, "cuda", reqs)
@@ -477,6 +583,46 @@ def phase_card_vs_cpu() -> None:
               f"(floor {QUANT_FLOOR}); vs the f32-pool serve {vs_plain:.3f}")
 
 
+def phase_card_vs_cpu_mamba() -> None:
+    """mamba2-2.7b at full width cut to 2 layers, f32: contiguous, paged and
+    snapshot serves on the card (SSD kernel) and on the CPU (its plain
+    version)."""
+    from repro_torch.configs import mamba2_2_7b
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(mamba2_2_7b.CONFIG, n_layers=2, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    cpu_params = T.init_params(cfg, 0, device="cpu")
+    gpu_params = to_device(cpu_params, "cuda")
+    for label, reqs, kw in (("contiguous", prompts(cfg.vocab_size), dict(paged=False)),
+                            ("paged", prompts(cfg.vocab_size), dict(paged=True)),
+                            ("snapshots", snapshot_prompts(cfg.vocab_size),
+                             dict(paged=False, state_snapshots=True))):
+        eng_g, tok_g, log_g, _, wall_g = serve(cfg, gpu_params, "cuda", reqs, **kw)
+        eng_c, tok_c, log_c, _, wall_c = serve(cfg, cpu_params, "cpu", reqs, **kw)
+        worst = max((a - b).abs().max().item() for a, b in zip(log_g, log_c))
+        for i, (a, b) in enumerate(zip(log_g, log_c)):
+            check(torch.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+                  f"mamba {label} request {i}: card vs CPU admission logits differ by "
+                  f"{(a - b).abs().max().item():.3e}")
+        for i, (a, b) in enumerate(zip(tok_g, tok_c)):
+            check(np.array_equal(a, b), f"mamba {label} request {i}: card {a} != CPU {b}")
+        check((eng_g.snapshot_hits, eng_g.snapshot_tokens_reused)
+              == (eng_c.snapshot_hits, eng_c.snapshot_tokens_reused),
+              f"mamba {label}: snapshot counters differ card vs CPU")
+        check(label != "snapshots" or eng_g.snapshot_hits > 0, "no snapshot hit")
+        print(f"[card_vs_cpu] mamba2 2-layer full-width f32 {label}: admission logits max "
+              f"abs diff {worst:.3e} (atol {LOGIT_ATOL}, rtol {LOGIT_RTOL}); greedy tokens "
+              f"identical for {len(reqs)} requests x {NEW_TOKENS}; snapshot hits "
+              f"{eng_g.snapshot_hits} ({eng_g.snapshot_tokens_reused} tokens); card "
+              f"{wall_g:.2f}s, cpu {wall_c:.2f}s")
+
+
+def to_device(tree, device):
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
 def phase_profile(cfg, params, reqs, label="plain", **kw) -> None:
     """torch.profiler over one more serve of the requests (ServeConfig
     options and drafter in ``kw``): device busy time by kernel, and the
@@ -495,6 +641,7 @@ def phase_profile(cfg, params, reqs, label="plain", **kw) -> None:
         low = name.lower()
         group = ("paged_attention" if "paged_attention" in low else
                  "flash_attention" if "flash_attention" in low else
+                 "ssd" if "ssd_chunk" in low else
                  "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
                                                      "cutlass"))
                  else "other")
@@ -509,11 +656,12 @@ def phase_profile(cfg, params, reqs, label="plain", **kw) -> None:
 def kernel_counters() -> dict:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_chunk as SSD
 
     return {"paged_attention": PA.KERNEL, "paged_attention_multi": PA.MULTI_KERNEL,
             "paged_attention_quant": PA.QUANT_KERNEL,
             "paged_attention_multi_quant": PA.MULTI_QUANT_KERNEL,
-            "flash_attention": FA.KERNEL}
+            "flash_attention": FA.KERNEL, "ssd": SSD.KERNEL}
 
 
 def counted_serve(cfg, params, reqs, **kw):
@@ -522,18 +670,22 @@ def counted_serve(cfg, params, reqs, **kw):
     that each tick and chunk launched its kernel once per layer: the
     single-token entry per plain tick, the draft-block entry per verify
     tick (the fused-dequant pair over quantized pages), the prefill
-    kernel per chunk, and nothing else."""
+    kernel per chunk, and nothing else; for mamba, the SSD kernel once per
+    layer per prefill chunk and nothing else."""
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
     out = serve(cfg, params, "cuda", reqs, **kw)
     launches = {name: c.launches for name, c in counters.items()}
     eng = out[0]
-    q = "_quant" if eng.scfg.kv_dtype != "fp32" else ""
     want = {name: 0 for name in counters}
-    want[f"paged_attention{q}"] = cfg.n_layers * (eng.decode_steps - eng.spec_ticks)
-    want[f"paged_attention_multi{q}"] = cfg.n_layers * eng.spec_ticks
-    want["flash_attention"] = cfg.n_layers * eng.prefill_chunks
+    if eng.scfg.arch_kind == "mamba":
+        want["ssd"] = cfg.n_layers * eng.prefill_chunks
+    else:
+        q = "_quant" if eng.scfg.kv_dtype != "fp32" else ""
+        want[f"paged_attention{q}"] = cfg.n_layers * (eng.decode_steps - eng.spec_ticks)
+        want[f"paged_attention_multi{q}"] = cfg.n_layers * eng.spec_ticks
+        want["flash_attention"] = cfg.n_layers * eng.prefill_chunks
     check(launches == want, f"{kw}: launches {launches} != {want} ({cfg.n_layers} layers "
           f"x {eng.decode_steps} ticks ({eng.spec_ticks} verify), {eng.prefill_chunks} chunks)")
     return out, launches
@@ -650,6 +802,88 @@ def phase_main_path(res: dict, *, profile: bool = False) -> dict:
     return e2e
 
 
+def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
+    """The full 64-layer bf16 mamba2-2.7b: the 6 requests over a contiguous
+    slot cache and beside a paged pool, then head-sharing prompts without
+    and with state snapshots, each warmed once and measured with the launch
+    counts at 0."""
+    from repro_torch.configs import mamba2_2_7b
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serving import ServingEngine
+
+    cfg = mamba2_2_7b.CONFIG
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[mamba] mamba2-2.7b: {cfg.n_layers} layers, d_model {cfg.d_model}, ssm_state "
+          f"{cfg.ssm_state}, headdim {cfg.mamba_headdim}, ssd_chunk {cfg.ssd_chunk}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}), bf16, {n_params / 1e9:.3f}B params, "
+          f"init {time.perf_counter() - t0:.1f}s")
+    reqs, shared = prompts(cfg.vocab_size), snapshot_prompts(cfg.vocab_size)
+    out = {}
+    runs = [("contiguous", reqs, dict(paged=False)), ("paged", reqs, dict(paged=True)),
+            ("shared heads, no snapshots", shared, dict(paged=False)),
+            ("shared heads, snapshots", shared, dict(paged=False, state_snapshots=True))]
+    for label, rq, kw in runs:
+        serve(cfg, params, "cuda", rq, **kw)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        (eng, toks, logits, ticks, wall), launches = counted_serve(cfg, params, rq, **kw)
+        for i, (t, lg) in enumerate(zip(toks, logits)):
+            check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
+                  f"mamba {label} request {i}: {t}")
+            check(bool(torch.isfinite(lg).all()), f"mamba {label} request {i}: non-finite")
+        check(launches["ssd"] == cfg.n_layers * eng.prefill_chunks > 0,
+              f"mamba {label}: ssd launches {launches['ssd']}")
+        n = sum(len(t) for t in toks)
+        out[label] = {"toks": toks, "tokens_per_s": n / wall, "wall_s": wall,
+                      "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
+                      "decode_ticks": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
+                      "snapshot_hits": eng.snapshot_hits,
+                      "snapshot_tokens_reused": eng.snapshot_tokens_reused,
+                      "snapshot_copy_ms": [x * 1e3 for x in eng.snapshot_s],
+                      "launches": launches,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"[mamba] {label}: {n} tokens in {wall:.3f}s = {n / wall:.1f} tok/s; tick p50 "
+              f"{out[label]['decode_tick_ms_p50']:.2f} ms over {eng.decode_steps} ticks; "
+              f"{eng.prefill_chunks} prefill chunks; snapshot hits {eng.snapshot_hits} "
+              f"({eng.snapshot_tokens_reused} tokens reused), snapshot copies (ms) "
+              f"{[round(x, 2) for x in out[label]['snapshot_copy_ms']]}; launches {launches}; "
+              f"peak {out[label]['peak_mem_gb']:.2f} GB")
+        if label == "contiguous":
+            res["ssd"]["launches"] = launches["ssd"]
+            if profile:
+                phase_profile(cfg, params, rq, "mamba contiguous", **kw)
+    check(all(np.array_equal(a, b) for a, b in zip(out["contiguous"]["toks"],
+                                                   out["paged"]["toks"])),
+          "mamba: the paged serve's tokens differ from the contiguous serve's")
+    snap = out["shared heads, snapshots"]
+    check(snap["snapshot_hits"] == 3, f"mamba: snapshot hits {snap['snapshot_hits']} != 3")
+    check(all(np.array_equal(a, b) for a, b in zip(snap["toks"],
+                                                   out["shared heads, no snapshots"]["toks"])),
+          "mamba: snapshot serve tokens differ from the same prompts served without")
+
+    # One 64-token prefill chunk at position 64 over a b=1 cache, synchronized.
+    single = ServingEngine(cfg, params, eng.scfg, device="cuda",
+                           unembed=T.unembed_f32(cfg, params))
+    piece = torch.from_numpy(reqs[0][None].copy()).to("cuda")
+    t_chunk = []
+    for _ in range(6):
+        chunks = single.iter_prefill_chunks(piece)
+        next(chunks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        next(chunks)
+        torch.cuda.synchronize()
+        t_chunk.append(time.perf_counter() - t1)
+    summary = {k: {f: v for f, v in r.items() if f != "toks"} for k, r in out.items()}
+    summary["prefill_chunk_ms"] = float(np.median(t_chunk[1:]) * 1e3)
+    print(f"[mamba] prefill chunk (64 tokens at position 64, b=1) "
+          f"{summary['prefill_chunk_ms']:.2f} ms")
+    print("[mamba] serves " + json.dumps(summary))
+    return summary
+
+
 def _leaves(t):
     for v in t.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -683,10 +917,14 @@ def main() -> int:
     res = phase_kernels()
     t0 = time.perf_counter()
     phase_card_vs_cpu()
+    phase_card_vs_cpu_mamba()
     print(f"[card_vs_cpu] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_main_path(res, profile=args.profile)
     print(f"[main] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_main_mamba(res, profile=args.profile)
+    print(f"[mamba] {time.perf_counter() - t0:.1f}s")
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0],
                 "replaces": KERNELS[n][1], "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

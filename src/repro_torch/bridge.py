@@ -6,8 +6,10 @@ arrays, into the port's parameters.
 
 The layouts already agree (weights ``(in, out)``, a leading repeat axis on
 every block leaf), so the bridge checks each leaf's shape against
-``transformer.param_shapes`` and converts it to ``cfg.param_dtype``.  It is
-for tests that hold the port against the reference on equal weights.
+``transformer.param_shapes`` and converts it to its stored type
+(``transformer.leaf_dtype``: ``cfg.param_dtype``, but f32 for mamba's A_log,
+D and dt_bias).  It is for tests that hold the port against the reference
+on equal weights.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
             if a.shape != tuple(want):
                 raise ValueError(f"params{path}/{k}: shape {a.shape} != {want}")
             out[k] = torch.from_numpy(a.astype(np.float32)).to(
-                device=dev, dtype=cfg.param_dtype)
+                device=dev, dtype=T.leaf_dtype(cfg, k))
         return out
 
     return convert(tree, T.param_shapes(cfg), "")

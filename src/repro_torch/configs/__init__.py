@@ -1,7 +1,7 @@
 """Architecture registry of the port.
 
-Only qwen3-4b is served so far; the reference's other nine architectures
-are listed in ROADMAP.md as still to port.
+qwen3-4b and mamba2-2.7b are served so far; the reference's other eight
+architectures are listed in ROADMAP.md as still to port.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig, smoke_reduce
 #: arch-id -> module name
 _MODULES: dict[str, str] = {
     "qwen3-4b": "qwen3_4b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import ssd_chunk as _ssd
 
 
 def _scale(q: torch.Tensor, scale: float | None) -> float:
@@ -107,3 +108,18 @@ def paged_attention_multi_quant(
     return _pa.paged_attention_multi_quant(q, k_pool, v_pool, k_scale, v_scale, page_table,
                                            cur_len, window=window, softcap=softcap,
                                            scale=_scale(q, scale))
+
+
+def ssd(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) f32, positive
+    a: torch.Tensor,  # (H,) f32, negative
+    b_: torch.Tensor,  # (B, S, N)
+    c_: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 64,
+) -> torch.Tensor:
+    """Mamba2 SSD scan from a zero state -> y (B, S, H, P) in x's type (the
+    reference's ``ops.ssd``; any S, where the TPU kernel needs S % chunk ==
+    0)."""
+    return _ssd.ssd_chunked(x, dt, a, b_, c_, chunk=chunk)[0]

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (the allclose ground truth).
+"""Plain PyTorch versions of the port's kernels (the allclose ground truth):
+the attention entries and the SSD chunk scan.
 
 They compute in float32 whatever the input type and return the query's
 type, as the reference's ``kernels/ref.py`` oracles do.  The CPU path of
@@ -151,3 +152,87 @@ def flash_attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bngqk,bknd->bqngd", p, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def ssd_chunked_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) positive (softplus applied)
+    a: torch.Tensor,  # (H,) negative
+    b_: torch.Tensor,  # (B, S, N), one group shared by every head
+    c_: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 64,
+    init_state: torch.Tensor | None = None,  # (B, H, P, N) f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (the reference's ``models/mamba.ssd_chunked``):
+    returns (y (B, S, H, P) in x's type, final state (B, H, P, N) f32).
+    The chunk grid is the reference's: chunks of ``min(chunk, S)``, then one
+    short tail chunk when they do not tile ``S``.  A Python loop over
+    chunks takes the place of ``lax.scan``."""
+    bsz, s, h, p = x.shape
+    n = b_.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        main = (s // chunk) * chunk
+        y_head, state = ssd_chunked_ref(
+            x[:, :main], dt[:, :main], a, b_[:, :main], c_[:, :main],
+            chunk=chunk, init_state=init_state)
+        y_tail, state = ssd_chunked_ref(
+            x[:, main:], dt[:, main:], a, b_[:, main:], c_[:, main:],
+            chunk=s - main, init_state=state)
+        return torch.cat([y_head, y_tail], dim=1), state
+    t = s // chunk
+    xd = x.float() * dt.float()[..., None]  # dt-discretized input, f32
+    adt = dt.float() * a.float()[None, None, :]  # (B, S, H) negative
+    xc = xd.reshape(bsz, t, chunk, h, p)
+    ac = adt.reshape(bsz, t, chunk, h)
+    bc = b_.float().reshape(bsz, t, chunk, n)
+    cc = c_.float().reshape(bsz, t, chunk, n)
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    idx = torch.arange(chunk, device=x.device)
+    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]  # (1, Q, Q, 1)
+    ys = []
+    for i in range(t):
+        xq, aq, bq, cq = xc[:, i], ac[:, i], bc[:, i], cc[:, i]
+        a_cs = torch.cumsum(aq, dim=1)  # (B, Q, H) cumulative log-decay
+        # L[i, j] = exp(cs_i - cs_j) for i >= j, masked BEFORE the exp: the
+        # upper triangle's positive log-decays would overflow.
+        ldiff = a_cs[:, :, None, :] - a_cs[:, None, :, :]  # (B, Q, Q, H)
+        l = torch.exp(torch.where(tri, ldiff, float("-inf")))
+        scores = torch.einsum("bqn,bkn->bqk", cq, bq)
+        y_diag = torch.einsum("bqk,bqkh,bkhp->bqhp", scores, l, xq)
+        y_off = torch.einsum("bqn,bhpn,bqh->bqhp", cq, state, torch.exp(a_cs))
+        decay_to_end = torch.exp(a_cs[:, -1:, :] - a_cs)  # (B, Q, H)
+        chunk_state = torch.einsum("bqn,bqh,bqhp->bhpn", bq, decay_to_end, xq)
+        state = state * torch.exp(a_cs[:, -1, :])[:, :, None, None] + chunk_state
+        ys.append(y_diag + y_off)
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p)
+    return y.to(x.dtype), state
+
+
+def ssd_ref(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_: torch.Tensor,
+    c_: torch.Tensor, *, init_state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token recurrence (the reference's ``models/mamba.ssd_ref``):
+    h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t, y_t = C_t h_t."""
+    bsz, s, h, p = x.shape
+    n = b_.shape[-1]
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for i in range(s):
+        state, y = ssd_step_ref(state, x[:, i], dt[:, i], a, b_[:, i], c_[:, i])
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_step_ref(state, x_t, dt_t, a, b_t, c_t) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token of the recurrence in f32: (new state (B, H, P, N), y
+    (B, H, P) f32)."""
+    f32 = torch.float32
+    decay = torch.exp(dt_t.to(f32) * a.to(f32)[None])  # (B, H)
+    inp = torch.einsum("bn,bhp,bh->bhpn", b_t.to(f32), x_t.to(f32), dt_t.to(f32))
+    state = state * decay[..., None, None] + inp
+    return state, torch.einsum("bn,bhpn->bhp", c_t.to(f32), state)

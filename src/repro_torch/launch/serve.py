@@ -1,9 +1,15 @@
-"""Serving launcher of the port: N requests through the paged
-continuous-batching engine.
+"""Serving launcher of the port: N requests through the continuous-batching
+engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --paged \
         --requests 4 --prompt-len 128 --new-tokens 16 [--device cpu] \
         [--kv-dtype int8|fp8] [--spec-decode --spec-k 4 --spec-ngram 3]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        [--paged] [--state-snapshots] [--device cpu]
+
+Transformers serve paged only (the contiguous attention cache is not
+ported yet); mamba2 serves over a contiguous slot cache or, with
+``--paged``, beside a page pool.
 
 Like the reference launcher it serves the arch's smoke-size config with
 random weights from a fixed seed.  It runs on CUDA unless ``--device cpu``.
@@ -19,6 +25,7 @@ import numpy as np
 import repro_torch.configs as configs
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.runtime.model_iface import arch_kind_of
 from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
 
 
@@ -34,7 +41,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--interleave", type=int, default=1,
                     help="decode steps per in-flight prefill chunk")
     ap.add_argument("--paged", action="store_true",
-                    help="page the batched KV cache (the only path ported)")
+                    help="page the batched KV cache (required for transformers)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="cache rows per KV page")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -48,14 +55,16 @@ def main(argv: list[str] | None = None) -> None:
                     help="draft tokens proposed per verify step")
     ap.add_argument("--spec-ngram", type=int, default=3,
                     help="longest n-gram the prompt-lookup drafter matches")
+    ap.add_argument("--state-snapshots", action="store_true",
+                    help="mamba: reuse chunk-aligned SSM-state snapshots across requests")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("only --paged serving is ported; the contiguous cache path is "
+    cfg = configs.get_smoke_config(args.arch)
+    if not args.paged and arch_kind_of(cfg) != "mamba":
+        ap.error("transformers serve only with --paged; the contiguous cache path is "
                  "still to port (ROADMAP, the contiguous path)")
     device = resolve_device(args.device)
 
-    cfg = configs.get_smoke_config(args.arch)
     params = T.init_params(cfg, 0, device=device)
     max_seq = -(-(args.prompt_len + args.new_tokens) // args.block_size) * args.block_size
     scfg = ServeConfig(max_seq=max_seq, prefill_chunk=args.prefill_chunk,
@@ -63,7 +72,8 @@ def main(argv: list[str] | None = None) -> None:
                        decode_interleave=args.interleave,
                        block_size=args.block_size, num_blocks=args.num_blocks,
                        kv_dtype=args.kv_dtype, spec_decode=args.spec_decode,
-                       spec_k=args.spec_k, spec_ngram=args.spec_ngram)
+                       spec_k=args.spec_k, spec_ngram=args.spec_ngram, paged=args.paged,
+                       state_snapshots=args.state_snapshots)
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int32)
 
@@ -74,16 +84,22 @@ def main(argv: list[str] | None = None) -> None:
     dt = time.perf_counter() - t0
     rows = [outs[u].tolist() for u in uids]
     total_new = sum(len(r) for r in rows)
-    st = eng.kv.stats(active_slots=eng.peak_active)
     spec = ""
     if args.spec_decode:
         rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else 0.0
         spec = (f", spec k={args.spec_k}: {eng.spec_ticks} verify ticks, acceptance "
                 f"{rate:.2f} ({eng.spec_accepted}/{eng.spec_proposed})")
+    if args.state_snapshots:
+        spec += (f", state snapshots: {eng.snapshot_hits} hits, "
+                 f"{eng.snapshot_tokens_reused} tokens reused")
+    if args.paged:
+        st = eng.kv.stats(active_slots=eng.peak_active)
+        cache = (f"paged block={eng.kv.block_size} kv_dtype={args.kv_dtype} (peak "
+                 f"{st.peak_in_use}/{st.capacity} pages, page_bytes={st.page_bytes})")
+    else:
+        cache = "contiguous slot cache"
     print(f"[serve] {args.arch} on {device} (continuous-batching x{args.max_batch} "
-          f"slots, {eng.decode_steps} batched decode steps{spec}, paged "
-          f"block={eng.kv.block_size} kv_dtype={args.kv_dtype} (peak "
-          f"{st.peak_in_use}/{st.capacity} pages, page_bytes={st.page_bytes})): "
+          f"slots, {eng.decode_steps} batched decode steps{spec}, {cache}): "
           f"{args.requests} requests x {args.prompt_len} prompt -> "
           f"{total_new // args.requests} new tokens each in {dt:.2f}s "
           f"({total_new / dt:.1f} tok/s incl. prefill)")

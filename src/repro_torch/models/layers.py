@@ -21,12 +21,15 @@ Params = dict
 # ----------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    """Truncated normal in [-2, 2] times 1/sqrt(fan_in), drawn in f32."""
+def dense_init(gen: torch.Generator, shape, dtype, *, scale: float | None = None
+               ) -> torch.Tensor:
+    """Truncated normal in [-2, 2] times ``scale`` (default 1/sqrt(fan_in)),
+    drawn in f32."""
     fan_in = shape[0] if len(shape) > 1 else 1
+    std = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return w.mul_(1.0 / math.sqrt(max(1, fan_in))).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:

@@ -1,14 +1,17 @@
-"""Decoder-only transformer of the serving slice (reference
-``models/transformer.py``): init, the paged pool, the layer loop, the fused
+"""The layer stack of the served models (reference
+``models/transformer.py``): init, the caches, the layer loop, the fused
 prefill chunk, paged decode (one token, or a draft block for speculative
-verify) and greedy sampling.
+verify), the contiguous prefill chunk and decode step of slot-state-only
+caches, and greedy sampling.  Two layer kinds are ported: attention +
+swiglu FFN (qwen3-4b) and the mamba2 block with no FFN (mamba2-2.7b).
 
 Parameters are nested dicts of tensors laid out as the reference's pytree:
 every leaf under ``blocks/layer{i}`` has a leading repeat axis ``r``, and a
-Python loop over repeats takes the place of ``lax.scan``.  Pools are
-``(r, num_blocks, block_size, n_kv_heads, head_dim)`` per unit position
-(plus ``(r, num_blocks, n_kv_heads)`` f32 scales when quantized) and are
-updated in place.
+Python loop over repeats takes the place of ``lax.scan``.  Attention pools
+are ``(r, num_blocks, block_size, n_kv_heads, head_dim)`` per unit position
+(plus ``(r, num_blocks, n_kv_heads)`` f32 scales when quantized); mamba
+layers carry slot-indexed ``ssm`` ``(r, B, H, P, N)`` f32 and ``conv``
+``(r, B, 3, conv_dim)`` leaves.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -20,19 +23,22 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import mamba
 
 Params = dict
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for configs outside the slice: the port
-    serves decoder-only attention + swiglu stacks (qwen3-4b and its kin)."""
+    """Raise ``NotImplementedError`` for configs outside the ported layer
+    kinds: decoder-only attention + swiglu stacks (qwen3-4b and its kin) and
+    pure mamba2 stacks (mamba blocks, no FFN)."""
     for spec in cfg.layer_unit:
-        if spec.mixer not in ("attn", "attn_local") or spec.ffn != "dense" \
-                or spec.cross_attn:
+        attn = spec.mixer in ("attn", "attn_local") and spec.ffn == "dense"
+        ssm = spec.mixer == "mamba" and spec.ffn == "none"
+        if not (attn or ssm) or spec.cross_attn:
             raise NotImplementedError(
                 f"layer {spec} is not ported yet: ROADMAP A10, the zoo "
-                "(mamba, MoE, encoder-decoder)")
+                "(MoE, hybrids, encoder-decoder)")
     unsupported = [f for f in ("sandwich_norm", "sinusoidal_pos", "embed_scale",
                                "is_encoder_decoder", "prefix_len", "final_softcap")
                    if getattr(cfg, f)]
@@ -49,8 +55,15 @@ def check_supported(cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------------------
 
 
+def _mamba_kw(cfg: ModelConfig) -> dict:
+    return dict(expand=cfg.mamba_expand, headdim=cfg.mamba_headdim, d_state=cfg.ssm_state)
+
+
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
     """Per-layer leaf shapes (no repeat axis), as the reference's pytree."""
+    if spec.mixer == "mamba":
+        return {"mixer_norm": {"scale": (cfg.d_model,)},
+                "mixer": mamba.mamba_shapes(cfg.d_model, **_mamba_kw(cfg))}
     d, hd = cfg.d_model, cfg.head_dim
     mixer = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
              "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
@@ -80,10 +93,20 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+def leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The stored type of parameter leaf ``name``: ``cfg.param_dtype``, but
+    f32 for mamba's A_log, D and dt_bias, as in the reference."""
+    return torch.float32 if name in mamba.F32_PARAMS else cfg.param_dtype
+
+
 def _layer_init(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator) -> Params:
     """One layer's parameters (no repeat axis), as the reference's
-    ``_layer_init`` for an attention + dense FFN layer."""
+    ``_layer_init`` for an attention + dense FFN layer or a mamba layer."""
     dt, dev = cfg.param_dtype, gen.device
+    if spec.mixer == "mamba":
+        return {"mixer_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
+                "mixer": mamba.mamba_init(gen, d_model=cfg.d_model, dtype=dt,
+                                          **_mamba_kw(cfg))}
     return {
         "mixer_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
         "mixer": attn_lib.attention_init(
@@ -112,7 +135,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
 
     def empty(tree):
         return {k: empty(v) if isinstance(v, dict)
-                else torch.empty(v, dtype=dt, device=dev) for k, v in tree.items()}
+                else torch.empty(v, dtype=leaf_dtype(cfg, k), device=dev)
+                for k, v in tree.items()}
 
     def copy_into(dst, src, i):
         for k, v in src.items():
@@ -132,20 +156,50 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
     return p
 
 
-def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+def _slot_state(cfg: ModelConfig, bsz: int, dev) -> Params:
+    """A mamba layer's slot-indexed state: ssm (r, B, H, P, N) f32 and the
+    conv tail (r, B, 3, conv_dim) in ``compute_dtype``."""
+    r = cfg.n_repeats
+    c = mamba.mamba_cache_init(r * bsz, cfg.d_model, dtype=cfg.compute_dtype, device=dev,
+                               **_mamba_kw(cfg))
+    return {k: v.view(r, bsz, *v.shape[1:]) for k, v in c.items()}
+
+
+def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, *, device=None) -> Params:
+    """Contiguous decode caches of ``bsz`` rows, stacked over the repeat
+    axis per unit position: the slot-indexed state of mamba layers.
+    Contiguous attention K/V (``max_seq`` rows per slot) is not ported yet
+    and raises ``NotImplementedError``."""
+    dev = resolve_device(device)
+    blocks = {}
+    for i, spec in enumerate(cfg.layer_unit):
+        if spec.mixer != "mamba":
+            raise NotImplementedError(
+                f"{cfg.name}: contiguous attention caches (max_seq {max_seq}) are not "
+                "ported yet: ROADMAP, the contiguous cache path")
+        blocks[f"layer{i}"] = _slot_state(cfg, bsz, dev)
+    return {"blocks": blocks}
+
+
+def init_paged_cache(cfg: ModelConfig, bsz: int, num_blocks: int, block_size: int,
                      kv_dtype: str = "fp32", *, device=None) -> Params:
     """One global page pool per attention unit position.  Block 0 is the
     trash page.  ``kv_dtype`` "fp32" keeps the pool in ``compute_dtype``;
     "int8" / "fp8" store codes plus ``k_scale``/``v_scale`` leaves of
     shape ``(r, num_blocks, n_kv_heads)`` f32 (see ``kernels/quant``).
-    An unknown ``kv_dtype`` raises ``ValueError``."""
+    Mamba layers' state is O(1) per slot and stays slot-indexed (``bsz``
+    rows), as in :func:`init_cache`.  An unknown ``kv_dtype`` raises
+    ``ValueError``."""
     quantized = quant.is_quantized(kv_dtype)
     dev = resolve_device(device)
     pool_dt = quant.storage_dtype(kv_dtype) if quantized else cfg.compute_dtype
     shape = (cfg.n_repeats, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
     sshape = (cfg.n_repeats, num_blocks, cfg.n_kv_heads)
     blocks = {}
-    for i, _ in enumerate(cfg.layer_unit):
+    for i, spec in enumerate(cfg.layer_unit):
+        if spec.mixer == "mamba":
+            blocks[f"layer{i}"] = _slot_state(cfg, bsz, dev)
+            continue
         c = {"k": torch.zeros(shape, dtype=pool_dt, device=dev),
              "v": torch.zeros(shape, dtype=pool_dt, device=dev)}
         if quantized:
@@ -167,8 +221,18 @@ def _at(tree: dict, i: int) -> dict:
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, *,
                  positions, cache, cur_len, q_offset, page_table) -> torch.Tensor:
-    """One attention + dense FFN layer (pre-norm, residual).  The pool views
-    in ``cache`` are written in place."""
+    """One layer (pre-norm, residual): attention + dense FFN, or a mamba
+    block (decode when ``cur_len`` is given, else a prefill piece that
+    continues from the cached state).  The cache views in ``cache`` are
+    written in place."""
+    if spec.mixer == "mamba":
+        x = layers.rmsnorm(p["mixer_norm"], h)
+        out, upd = mamba.mamba_apply(
+            p["mixer"], x, chunk=cfg.ssd_chunk, state=cache["ssm"],
+            conv_state=cache["conv"], decode=cur_len is not None, **_mamba_kw(cfg))
+        cache["ssm"].copy_(upd["ssm"])
+        cache["conv"].copy_(upd["conv"])
+        return h + out
     window = cfg.spec_window(spec)
     x = layers.rmsnorm(p["mixer_norm"], h)
     out, _ = attn_lib.attention_apply(
@@ -188,12 +252,12 @@ def forward_hidden(
     h: torch.Tensor,  # (B, S, D) embedded inputs
     *,
     positions: torch.Tensor,
-    caches: Params,  # paged pools, stacked over repeats
-    page_table: torch.Tensor,  # (B, n_pages) int32, shared by every layer
+    caches: Params,  # paged pools or contiguous slot state, stacked over repeats
+    page_table: torch.Tensor | None = None,  # (B, n_pages) int32, shared by every layer
     cur_len: torch.Tensor | None = None,  # decode: (B,) int32
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, Params]:
-    """Run the stacked blocks over the paged pools (updated in place)."""
+    """Run the stacked blocks over the caches (updated in place)."""
     blocks, pools = params["blocks"], caches["blocks"]
     for i in range(cfg.n_repeats):
         for j, spec in enumerate(cfg.layer_unit):
@@ -270,6 +334,42 @@ def decode_step_multi_paged(
     h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
                                page_table=page_table, cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
+
+
+def prefill_chunk(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches: Params, pos0: int,
+    *, unembed: torch.Tensor,
+) -> tuple[torch.Tensor, Params]:
+    """One prompt chunk at absolute positions ``pos0..`` over a contiguous
+    cache (``init_cache``), continuing from the state it holds.  Returns
+    the last position's logits (B, 1, V) and the caches."""
+    h = _embed_tokens(cfg, params, tokens)
+    positions = pos0 + torch.arange(h.shape[1], device=h.device)
+    h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
+                               q_offset=pos0)
+    return _logits(cfg, params, h[:, -1:], unembed), caches
+
+
+def decode_step(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches: Params,
+    cur_len: torch.Tensor, *, unembed: torch.Tensor,
+) -> tuple[torch.Tensor, Params]:
+    """One decode step over a contiguous cache: tokens (B, 1) at per-slot
+    positions ``cur_len`` (B,).  Returns logits (B, 1, V) and the caches."""
+    h = _embed_tokens(cfg, params, tokens)
+    h, caches = forward_hidden(cfg, params, h, positions=cur_len[:, None], caches=caches,
+                               cur_len=cur_len)
+    return _logits(cfg, params, h, unembed), caches
+
+
+def decode_and_sample(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches: Params,
+    cur_len: torch.Tensor, *, unembed: torch.Tensor,
+) -> tuple[torch.Tensor, Params]:
+    """Contiguous decode step with the greedy pick on the device: (B,) int32
+    tokens and the caches."""
+    logits, caches = decode_step(cfg, params, tokens, caches, cur_len, unembed=unembed)
+    return sample_tokens(logits[:, -1]), caches
 
 
 def sample_tokens(logits: torch.Tensor) -> torch.Tensor:

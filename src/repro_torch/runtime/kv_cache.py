@@ -1,20 +1,24 @@
 """Paged KV cache: a global page pool, a refcounted free list and per-slot
-page tables (reference ``runtime/kv_cache.py``, without prefix sharing).
+page tables (reference ``runtime/kv_cache.py``, without prefix sharing),
+and ``StateStore``, the host-side store of recurrent-state snapshots.
 
 Each attention unit position owns K and V pools of shape
 ``(r, num_blocks, block_size, n_kv_heads, head_dim)`` on the device (int8
 or fp8 codes plus ``(r, num_blocks, n_kv_heads)`` f32 scales when the pool
-is quantized); one
-host-side page table ``(max_batch, max_pages)`` int32 is shared by every
-layer and copied to the device per step.  **Block 0 is the trash page**:
-free and shielded slots' table rows point at it, so padding rows of the
-batched decode step write their garbage there and never into live pages.
+is quantized); mamba unit positions keep their O(1) state slot-indexed
+(``(r, max_batch, ...)``) beside the pages.  One host-side page table
+``(max_batch, max_pages)`` int32 is shared by every layer and copied to the
+device per step.  **Block 0 is the trash page**: free and shielded slots'
+table rows point at it, so padding rows of the batched decode step write
+their garbage there and never into live pages.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
+from typing import Any
 
 import numpy as np
 import torch
@@ -24,6 +28,15 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 
 TRASH_PAGE = 0  # physical block 0: sink for padding writes, never allocated
+PAGED_LEAVES = ("k", "v", "k_scale", "v_scale")  # per-page leaves; the rest are per slot
+
+
+def scatter_slot_state(dst: dict, src: dict, slot: int) -> None:
+    """Overwrite row ``slot`` of every per-slot leaf of ``dst`` (``(r, B,
+    ...)``) with the b=1 cache ``src`` (``(r, 1, ...)``), in place."""
+    for name, c in dst["blocks"].items():
+        for key, leaf in c.items():
+            leaf[:, slot: slot + 1].copy_(src["blocks"][name][key])
 
 
 class PoolInvariantError(AssertionError):
@@ -152,7 +165,7 @@ class PagedKVCache:
             num_blocks = max_batch * self.max_pages + 1
         self.num_blocks = num_blocks
         self.allocator = BlockAllocator(num_blocks)
-        self.pools = T.init_paged_cache(cfg, num_blocks, block_size, kv_dtype,
+        self.pools = T.init_paged_cache(cfg, max_batch, num_blocks, block_size, kv_dtype,
                                         device=self.device)
         self.page_table = np.full((max_batch, self.max_pages), TRASH_PAGE, np.int32)
         self._owned: list[list[int]] = [[] for _ in range(max_batch)]
@@ -175,9 +188,10 @@ class PagedKVCache:
     @property
     def page_bytes(self) -> int:
         """Device bytes of one page across all layers: K + V, plus the
-        per-page scale rows when the pool is quantized."""
-        return sum(leaf.numel() * leaf.element_size() // self.num_blocks
-                   for c in self.pools["blocks"].values() for leaf in c.values())
+        per-page scale rows when the pool is quantized (0 for a pool of
+        slot state only)."""
+        return sum(c[k].numel() * c[k].element_size() // self.num_blocks
+                   for c in self.pools["blocks"].values() for k in PAGED_LEAVES if k in c)
 
     def stats(self, *, active_slots: int = 0) -> PoolStats:
         return PoolStats(capacity=self.allocator.capacity, in_use=self.pages_in_use,
@@ -250,6 +264,21 @@ class PagedKVCache:
             self._owned[slot] = []
         self.page_table[slot, :] = TRASH_PAGE
 
+    def scatter(self, slot: int, caches: Any, length: int) -> None:
+        """Write a b=1 contiguous cache (an admission's chunked prefill) into
+        ``slot``: its per-slot state rows are overwritten whole, so garbage
+        that padding ticks left in them is gone.  The slot must own
+        ``pages_for(length)`` pages.  Contiguous attention K/V rows (scattered
+        into pages by the reference) are not ported yet and raise."""
+        assert 0 < length and len(self._owned[slot]) >= self.pages_for(length), (
+            slot, length, self._owned[slot])
+        blocks = self.pools["blocks"]
+        if any(k in PAGED_LEAVES for c in blocks.values() for k in c):
+            raise NotImplementedError(
+                "scattering contiguous attention rows into pages is not ported yet: "
+                "ROADMAP, the contiguous cache path")
+        scatter_slot_state(self.pools, caches, slot)
+
     def device_page_table(self) -> torch.Tensor:
         """The host table as an int32 tensor on the pools' device."""
         return torch.from_numpy(self.page_table.copy()).to(self.device)
@@ -273,3 +302,59 @@ class PagedKVCache:
                 raise PoolInvariantError(
                     "POOL002", f"slot {slot} table rows {bad} alias pages it does "
                     f"not own ({row[:n].tolist()} vs {owned})")
+
+
+class StateStore:
+    """Host-side LRU map: chunk-aligned prompt prefix -> recurrent-state
+    snapshot (the mamba servable's analog of the prefix registry; the
+    reference's ``kv_cache.StateStore``).
+
+    A recurrent SSM compresses the whole prefix into O(1) state, so the
+    only shareable artifact is a snapshot of that state at a known token
+    boundary: an admission whose prompt extends a stored prefix restores
+    the snapshot and streams only the uncovered tail.  Snapshots are host
+    copies, and boundaries are multiples of the prefill chunk so a resumed
+    prefill dispatches the exact chunk tasks a full prefill would.
+    """
+
+    def __init__(self, max_entries: int = 32):
+        if max_entries < 1:
+            raise ValueError(f"max_entries must be >= 1, got {max_entries}")
+        self.max_entries = max_entries
+        # digest -> (token bytes, n_tokens, host snapshot)
+        self._entries: collections.OrderedDict[bytes, tuple[bytes, int, Any]] = (
+            collections.OrderedDict())
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def put(self, tokens: np.ndarray, snapshot: Any) -> None:
+        """Store a host snapshot for ``tokens`` (LRU-bounded; an existing
+        entry for the same tokens is refreshed in place)."""
+        tb = np.ascontiguousarray(np.asarray(tokens, np.int32)).tobytes()
+        d = hashlib.sha1(tb).digest()
+        self._entries[d] = (tb, len(tb) // 4, snapshot)
+        self._entries.move_to_end(d)
+        while len(self._entries) > self.max_entries:
+            self._entries.popitem(last=False)
+
+    def lookup(self, tokens: np.ndarray, *, align_tokens: int) -> tuple[int, Any]:
+        """Longest stored chunk-aligned *proper* prefix of ``tokens`` ->
+        (n_tokens, snapshot); (0, None) on miss.  Stored bytes are compared
+        on a hit, so a digest collision can never alias prefixes."""
+        if align_tokens < 1:
+            raise ValueError(f"align_tokens must be >= 1, got {align_tokens}")
+        tokens = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        top = ((tokens.size - 1) // align_tokens) * align_tokens
+        for n in range(top, 0, -align_tokens):
+            tb = tokens[:n].tobytes()
+            d = hashlib.sha1(tb).digest()
+            entry = self._entries.get(d)
+            if entry is not None and entry[0] == tb:
+                self._entries.move_to_end(d)
+                self.hits += 1
+                return entry[1], entry[2]
+        self.misses += 1
+        return 0, None

@@ -1,16 +1,23 @@
-"""Continuous-batching engine with chunked, fused prefill over a paged pool
-(reference ``runtime/serving.py``, the slice that ``--paged`` serving runs).
+"""Continuous-batching engine with chunked prefill (reference
+``runtime/serving.py``): paged transformer serving with fused prefill, and
+mamba serving over a contiguous slot cache or beside a paged pool.
+``ServingEngine`` holds the b=1 streamed prefill of one admission.
 
-* **Slots**: ``max_batch`` decode slots share the page pool; each carries
-  its own position ``cur``, so rope, the pool write and the attention cut
-  are per row.  Free slots ride along as padding rows whose table rows
-  point at the trash page.
-* **Admission**: a request's pages are reserved through its first decode
-  write, its table row is shielded, and its prompt streams in
-  ``prefill_chunk`` pieces whose K/V are written straight into its pages
-  (the host row carries the real pages for the chunks); after each chunk is
-  enqueued, ``decode_interleave`` batched decode ticks run for the active
-  slots.  The row is published when the prompt is in.
+* **Slots**: ``max_batch`` decode slots share the cache; each carries its
+  own position ``cur``, so rope, the pool write and the attention cut are
+  per row.  Free slots ride along as padding rows: their table rows point
+  at the trash page, and their slot state advances with garbage that the
+  next admission's scatter overwrites whole.
+* **Admission** (paged): a request's pages are reserved through its first
+  decode write and its table row is shielded.  Its prompt streams in
+  ``prefill_chunk`` pieces; after each chunk is enqueued,
+  ``decode_interleave`` batched decode ticks run for the active slots.
+  Fused (transformers): each chunk's K/V are written straight into its
+  pages (the host row carries the real pages for the chunks).  Non-fused
+  (mamba): the chunks run over a b=1 contiguous cache, optionally resumed
+  from a restored state snapshot, and the cache is scattered into the slot
+  when the prompt is in (``kv.scatter``, or the slot rows of the
+  contiguous cache).  The row is published when the prompt is in.
 * **Decode tick**: fault in each active slot's write page, one batched
   greedy step on the device, and exactly one device-to-host copy — the
   ``(B,)`` int32 picks.
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -39,17 +47,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import quant
+from repro_torch.models import transformer as T
 from repro_torch.runtime import spec
-from repro_torch.runtime.model_iface import TransformerServable
+from repro_torch.runtime.kv_cache import scatter_slot_state
 
-# Reference ServeConfig features outside this slice: field -> (the value the
-# slice supports, the ROADMAP item that ports the rest).
+# Reference ServeConfig features outside the port so far: field -> (the value
+# the port supports, the ROADMAP item that ports the rest).
 _NOT_PORTED = {
-    "paged": (True, "the contiguous cache path"),
     "temperature": (0.0, "temperature sampling (with or without spec_decode)"),
-    "fused_prefill": (True, "the contiguous path (scatter-after-prefill)"),
     "prefix_sharing": (False, "prefix sharing and COW"),
-    "state_snapshots": (False, "the zoo (mamba state snapshots)"),
     "prefix_store": (None, "prefix sharing and COW (the prefix store)"),
 }
 
@@ -69,12 +75,21 @@ class ServeConfig:
     spec_decode: bool = False
     spec_k: int = 4  # draft tokens proposed per verify step
     spec_ngram: int = 3  # longest n-gram the default prompt-lookup matches
-    # Reference features not ported yet; any other value raises.
+    # Paged pool (the port's default; the reference defaults to contiguous).
+    # Transformers serve paged only: the contiguous attention cache is not
+    # ported yet.
     paged: bool = True
-    temperature: float = 0.0
-    fused_prefill: bool = True
-    prefix_sharing: bool = False
+    # Write prefill K/V straight into pool pages; None = on for paged
+    # transformers, off elsewhere (resolved by validate_arch).
+    fused_prefill: bool | None = None
+    # mamba: reuse chunk-aligned SSM-state snapshots across admissions.
     state_snapshots: bool = False
+    # Stamped by build_servable from the model ("transformer" | "mamba");
+    # setting it up front validates arch-dependent flags early.
+    arch_kind: str | None = None
+    # Reference features not ported yet; any other value raises.
+    temperature: float = 0.0
+    prefix_sharing: bool = False
     prefix_store: str | None = None
 
     def __post_init__(self) -> None:
@@ -87,15 +102,105 @@ class ServeConfig:
                      "decode_interleave", "block_size", "spec_k", "spec_ngram"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
-        if self.max_seq % self.block_size:
-            raise ValueError(
-                f"max_seq {self.max_seq} must be a multiple of block_size "
-                f"{self.block_size} (pages tile the cache)")
         quant.validate_kv_dtype(self.kv_dtype)
-        if self.num_blocks is not None and self.num_blocks < 2:
+        if quant.is_quantized(self.kv_dtype) and not self.paged:
             raise ValueError(
-                f"num_blocks must be >= 2 (block 0 is the trash page), got "
-                f"{self.num_blocks}")
+                "kv_dtype quantizes the paged KV pool; it requires paged=True (the "
+                "contiguous cache stays full precision)")
+        if self.fused_prefill and not self.paged:
+            raise ValueError(
+                "fused_prefill writes prefill K/V through the page table; it requires "
+                "paged=True")
+        if self.paged:
+            if self.max_seq % self.block_size:
+                raise ValueError(
+                    f"max_seq {self.max_seq} must be a multiple of block_size "
+                    f"{self.block_size} (pages tile the cache)")
+            if self.num_blocks is not None and self.num_blocks < 2:
+                raise ValueError(
+                    f"num_blocks must be >= 2 (block 0 is the trash page), got "
+                    f"{self.num_blocks}")
+        self.validate_arch()
+
+    def validate_arch(self) -> None:
+        """Arch-dependent flag validation (the reference's rules and
+        messages, plus the port's): a no-op until ``arch_kind`` is stamped,
+        which ``build_servable`` does with the model in hand."""
+        kind = self.arch_kind
+        if kind is None:
+            return
+        if kind not in ("transformer", "mamba"):
+            raise ValueError(f"unknown arch_kind {kind!r}; expected transformer | mamba")
+        if kind == "mamba":
+            if self.prefix_sharing:
+                raise NotImplementedError(
+                    "prefix sharing maps attention KV pages; mamba/hybrid archs carry "
+                    "per-slot SSM state with no page-granular snapshot — "
+                    "state_snapshots=True gives the chunk-aligned state-reuse "
+                    "degradation instead")
+            if self.spec_decode:
+                raise NotImplementedError(
+                    "speculative decode rolls rejected positions back by masking KV "
+                    "writes; mamba/hybrid archs advance irreversible per-slot SSM state")
+            if quant.is_quantized(self.kv_dtype):
+                raise NotImplementedError(
+                    "quantized KV pages cover attention K/V pool blocks; "
+                    f"arch_kind={kind!r} carries cache state (SSM rows) with no per-page "
+                    "scale — serve it with kv_dtype='fp32'")
+            if self.fused_prefill:
+                raise NotImplementedError(
+                    "fused_prefill routes prefill K/V through the decoder page table; "
+                    f"arch_kind={kind!r} prefills through arch-specific caches — leave "
+                    "fused_prefill unset")
+        if kind == "transformer":
+            if not self.paged:
+                raise NotImplementedError(
+                    "ServeConfig.paged=False for a transformer is not ported yet (the "
+                    "port serves transformers paged): ROADMAP, the contiguous cache path")
+            if self.fused_prefill is False:
+                raise NotImplementedError(
+                    "ServeConfig.fused_prefill=False for a transformer is not ported yet "
+                    "(scatter-after-prefill): ROADMAP, the contiguous cache path")
+        if self.fused_prefill is None:
+            # The fused path exists only for the transformer prefill chain
+            # over a paged pool.
+            self.fused_prefill = bool(self.paged) and kind == "transformer"
+        if self.state_snapshots and kind != "mamba":
+            raise ValueError(
+                "state_snapshots reuse recurrent SSM state across admissions; "
+                f"arch_kind={kind!r} carries none (mamba only)")
+
+
+class ServingEngine:
+    """The b=1 streamed prefill of one admission (the reference's
+    ``ServingEngine.iter_prefill_chunks``) over a contiguous cache."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device, unembed):
+        self.cfg, self.params, self.scfg, self.device = cfg, params, scfg, device
+        self.unembed = unembed
+
+    def iter_prefill_chunks(self, tokens: torch.Tensor, *, caches=None, pos0: int = 0
+                            ) -> Iterator[tuple[torch.Tensor, dict, int]]:
+        """Yield (logits-so-far (1, 1, V), caches, position after the chunk)
+        per prompt chunk.  ``caches``/``pos0`` continue a prefill whose first
+        ``pos0`` tokens are already in the cache (a restored snapshot).  The
+        chunk grid is anchored at position 0 (the chunk size is picked from
+        the *full* length ``pos0 + s``), so a continued prefill dispatches
+        the chunks a full prefill would."""
+        cfg, params, unembed = self.cfg, self.params, self.unembed
+        b, s = tokens.shape
+        if caches is None:
+            assert pos0 == 0, "a continued prefill needs its context cache"
+            caches = T.init_cache(cfg, b, self.scfg.max_seq, device=self.device)
+        chunk = min(self.scfg.prefill_chunk, pos0 + s)
+        pos = pos0
+        for lo in range(0, s, chunk):
+            piece = tokens[:, lo: lo + chunk]
+            with torch.inference_mode():
+                logits, caches = T.prefill_chunk(cfg, params, piece, caches, pos,
+                                                 unembed=unembed)
+            pos += piece.shape[1]
+            yield logits, caches, pos
 
 
 @dataclasses.dataclass
@@ -127,9 +232,9 @@ class _Slot:
 
 
 class StreamedBatchEngine:
-    """Continuous-batching paged serving on ``device`` (CUDA unless the
-    caller passes ``"cpu"``).  Greedy output per request equals the
-    reference engine's.  With ``spec_decode``, ``drafter`` (anything with
+    """Continuous-batching serving on ``device`` (CUDA unless the caller
+    passes ``"cpu"``).  Greedy output per request equals the reference
+    engine's.  With ``spec_decode``, ``drafter`` (anything with
     ``propose(context, k)``) replaces the default ``NGramDrafter``."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig, *,
@@ -138,18 +243,28 @@ class StreamedBatchEngine:
         self.cfg = cfg
         self.params = params
         self.scfg = scfg
-        self.servable = TransformerServable(cfg, params, scfg, device=self.device)
-        self.kv = self.servable.make_kv_pool()
+        # Imported here: model_iface imports this module eagerly.
+        from repro_torch.runtime.model_iface import build_servable
+        self.servable = build_servable(cfg, params, scfg, device=self.device)
+        self.paged = scfg.paged
+        if self.paged:
+            self.kv = self.servable.make_kv_pool()
+            self.caches = None  # the state lives in self.kv.pools
+        else:
+            self.kv = None
+            self.caches = self.servable.init_slot_caches(scfg.max_batch)
         self.slots = [_Slot(index=i) for i in range(scfg.max_batch)]
         self.queue: collections.deque[Request] = collections.deque()
         self.outputs: dict[int, np.ndarray] = {}
         self._next_uid = 0
-        self._chunk = self.servable.chunk_fn()
-        self._decode = self.servable.decode_fn()
+        self._chunk = self.servable.chunk_fn() if scfg.fused_prefill else None
+        self._decode = self.servable.decode_fn(paged=self.paged)
         self.decode_steps = 0  # batched decode ticks run (plain and verify)
         self.prefill_chunks = 0  # prompt chunks run
         self.admissions = 0
         self.peak_active = 0  # most requests resident at once
+        self.snapshot_hits = 0  # admissions that restored an SSM-state snapshot
+        self.snapshot_tokens_reused = 0  # prompt tokens never re-prefilled
         self.spec_ticks = 0  # verify steps run
         self.spec_proposed = 0  # draft tokens scored by verify steps
         self.spec_accepted = 0  # draft tokens accepted (rate = accepted / proposed)
@@ -174,11 +289,12 @@ class StreamedBatchEngine:
             raise ValueError(
                 f"prompt {len(tokens)} + max_new {max_new} exceeds max_seq "
                 f"{self.scfg.max_seq}")
-        worst = self.kv.pages_for(len(tokens) + max_new)
-        if worst > self.kv.allocator.capacity:
-            raise ValueError(
-                f"request needs {worst} pages but the pool has "
-                f"{self.kv.allocator.capacity}; grow num_blocks or shrink it")
+        if self.paged:
+            worst = self.kv.pages_for(len(tokens) + max_new)
+            if worst > self.kv.allocator.capacity:
+                raise ValueError(
+                    f"request needs {worst} pages but the pool has "
+                    f"{self.kv.allocator.capacity}; grow num_blocks or shrink it")
         uid = self._next_uid
         self._next_uid += 1
         self.queue.append(Request(uid, tokens, max_new))
@@ -199,14 +315,44 @@ class StreamedBatchEngine:
         return self.kv.pages_for(len(req.tokens) + 1) <= self.kv.free_pages
 
     def _admit(self, req: Request, slot: _Slot) -> None:
-        """Fused chunked prefill of ``req`` into ``slot``'s pages, with
-        decode ticks for the active slots between chunks."""
-        ok = self.kv.alloc(slot.index, len(req.tokens) + 1)
-        assert ok, "admission checked free pages before popping the queue"
-        self.kv.shield(slot.index)
-        # The device row stays shielded for the interleaved ticks; the chunks
-        # get a host row with the real pages, cut to the pages that cover the
-        # context so far.
+        """Chunked prefill of ``req`` into ``slot``, with decode ticks for
+        the active slots between chunks: fused into the slot's pages, or
+        streamed over a b=1 cache and scattered into the slot."""
+        if self.paged:
+            ok = self.kv.alloc(slot.index, len(req.tokens) + 1)
+            assert ok, "admission checked free pages before popping the queue"
+            # Until the slot goes active it is a padding row of the
+            # interleaved ticks: its writes must go to the trash page.
+            self.kv.shield(slot.index)
+        if self.scfg.fused_prefill:
+            logits, pos = self._fused_prefill(req, slot)
+        else:
+            logits, pos = self._streamed_prefill(req, slot)
+        if self.paged:
+            self.kv.publish(slot.index)
+        first = int(torch.argmax(logits[0, -1]).item())  # the admission's one fetch
+        slot.uid = req.uid
+        slot.prompt = req.tokens
+        slot.cur = pos
+        slot.pending = first
+        slot.emitted = [first]
+        slot.max_new = req.max_new_tokens
+        self.admissions += 1
+        self.peak_active = max(self.peak_active, len(self.active_slots))
+        self._on_admit_logits(req.uid, logits[0, -1])
+        self._reap(slot)
+
+    def _interleave(self) -> None:
+        """The decode ticks run after each dispatched prefill chunk."""
+        for _ in range(self.scfg.decode_interleave):
+            if self.active_slots:
+                self._decode_tick()
+
+    def _fused_prefill(self, req: Request, slot: _Slot) -> tuple[torch.Tensor, int]:
+        """Each chunk's K/V written straight into ``slot``'s pages.  The
+        device row stays shielded for the interleaved ticks; the chunks get
+        a host row with the real pages, cut to the pages that cover the
+        context so far.  Returns (last logits, prompt length)."""
         own = self.kv.slot_pages(slot.index)
         row = np.zeros((1, self.kv.max_pages), np.int32)
         row[0, : len(own)] = own
@@ -222,21 +368,31 @@ class StreamedBatchEngine:
             logits, self.kv.pools = self._chunk(self.kv.pools, pt, piece, pos)
             pos += piece.shape[1]
             self.prefill_chunks += 1
-            for _ in range(self.scfg.decode_interleave):
-                if self.active_slots:
-                    self._decode_tick()
-        self.kv.publish(slot.index)
-        first = int(torch.argmax(logits[0, -1]).item())  # the admission's one fetch
-        slot.uid = req.uid
-        slot.prompt = req.tokens
-        slot.cur = pos
-        slot.pending = first
-        slot.emitted = [first]
-        slot.max_new = req.max_new_tokens
-        self.admissions += 1
-        self.peak_active = max(self.peak_active, len(self.active_slots))
-        self._on_admit_logits(req.uid, logits[0, -1])
-        self._reap(slot)
+            self._interleave()
+        return logits, pos
+
+    def _streamed_prefill(self, req: Request, slot: _Slot) -> tuple[torch.Tensor, int]:
+        """The b=1 streamed prefill (non-fused archs): restore the longest
+        stored state snapshot of the prompt (if any) and stream the rest,
+        offering each chunk boundary for a snapshot; then overwrite the
+        slot's rows whole with the b=1 cache (padding ticks advanced them
+        with garbage).  Returns (last logits, prompt length)."""
+        shared_len, caches = self.servable.lookup_snapshot(req.tokens)
+        if shared_len:
+            self.snapshot_hits += 1
+            self.snapshot_tokens_reused += shared_len
+        tokens = torch.from_numpy(req.tokens[None, shared_len:].copy()).to(self.device)
+        logits, pos = None, shared_len
+        for logits, caches, pos in self.servable.iter_prefill_chunks(
+                tokens, caches=caches, pos0=shared_len):
+            self.servable.maybe_snapshot(req.tokens, caches, pos)
+            self.prefill_chunks += 1
+            self._interleave()
+        if self.paged:
+            self.kv.scatter(slot.index, caches, pos)
+        else:
+            scatter_slot_state(self.caches, caches, slot.index)
+        return logits, pos
 
     def _on_admit_logits(self, uid: int, logits: torch.Tensor) -> None:
         """Hook for callers that check the admission step's logits (the
@@ -249,7 +405,8 @@ class StreamedBatchEngine:
             slot.uid = None
             slot.prompt = None
             slot.emitted = []
-            self.kv.release(slot.index)
+            if self.paged:
+                self.kv.release(slot.index)
 
     # -- decode ------------------------------------------------------------------
 
@@ -274,7 +431,8 @@ class StreamedBatchEngine:
     def _plain_tick(self) -> None:
         """One batched greedy decode step for all slots (free ones pad);
         the only device-to-host copy is the (B,) int32 picks."""
-        self._fault_base_positions()
+        if self.paged:
+            self._fault_base_positions()
         act = self.active_slots
         if not act:
             return
@@ -284,9 +442,13 @@ class StreamedBatchEngine:
         for s in act:
             toks[s.index, 0] = s.pending
             cur[s.index] = s.cur
-        nxt, self.kv.pools = self._decode(
-            torch.from_numpy(toks).to(self.device), self.kv.pools,
-            self.kv.device_page_table(), torch.from_numpy(cur).to(self.device))
+        toks_d = torch.from_numpy(toks).to(self.device)
+        cur_d = torch.from_numpy(cur).to(self.device)
+        if self.paged:
+            nxt, self.kv.pools = self._decode(toks_d, self.kv.pools,
+                                              self.kv.device_page_table(), cur_d)
+        else:
+            nxt, self.caches = self._decode(toks_d, self.caches, cur_d)
         self.decode_steps += 1
         picks = nxt.cpu().numpy()  # the tick's one device-to-host copy
         for s in act:
@@ -372,7 +534,8 @@ class StreamedBatchEngine:
         else run one decode tick."""
         progressed = False
         free = [s for s in self.slots if s.free]
-        while self.queue and free and self._admission_fits(self.queue[0]):
+        while self.queue and free and (not self.paged
+                                       or self._admission_fits(self.queue[0])):
             self._admit(self.queue.popleft(), free.pop(0))
             progressed = True
         if not progressed:

@@ -6,7 +6,13 @@ JAX nor the JAX package, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerances (max abs, kernel vs plain): f32 1e-5 (sums in another order),
-bf16 2e-2 (one bf16 ulp at the outputs' magnitude).
+bf16 2e-2 (one bf16 ulp at the outputs' magnitude).  The SSD scan's
+outputs are not O(1) (sums over a chunk and a carried state), so its
+tolerances are relative to the plain output's largest magnitude: f32 1e-4
+(inside a 256-token chunk the cumulative log-decay reaches hundreds, and
+one f32 ulp of it is a ~1e-5 relative error in each decay factor, summed in
+another order by kernel and plain; 1e-4 is the reference's own tolerance
+for its SSD kernel), bf16 2e-2.
 """
 
 import math
@@ -20,11 +26,13 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import quant
+from repro_torch.kernels import ssd_chunk as SSD
 from repro_torch.models import transformer as T
 from repro_torch.runtime import serving
 
 pytestmark = pytest.mark.cuda
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SSD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = list(ATOL)
 
 
@@ -243,3 +251,80 @@ def test_spec_and_quantized_engines_on_card_match_cpu(cuda, extra):
 
 def _to(v, dev):
     return {k: _to(x, dev) for k, x in v.items()} if isinstance(v, dict) else v.to(dev)
+
+
+SSD_CASES = [dict(b=1, s=64, chunk=256), dict(b=1, s=36, chunk=256),
+             dict(b=1, s=13, chunk=256, init=True), dict(b=2, s=512, chunk=256, init=True),
+             dict(b=1, s=300, chunk=256), dict(b=2, s=100, chunk=64, init=True),
+             dict(b=2, s=40, chunk=8, init=True, h=4, p=8, n=16)]
+
+
+def _ssd_inputs(dtype, case, dev, seed=0):
+    b, s = case["b"], case["s"]
+    h, p, n = case.get("h", 8), case.get("p", 64), case.get("n", 128)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen))
+    a = -torch.exp(torch.linspace(-1.0, 1.0, h))
+    bm = 0.3 * torch.randn((b, s, n), generator=gen)
+    cm = 0.3 * torch.randn((b, s, n), generator=gen)
+    st = torch.randn((b, h, p, n), generator=gen) if case.get("init") else None
+    return (x.to(dtype).to(dev), dt.to(dev), a.to(dev), bm.to(dtype).to(dev),
+            cm.to(dtype).to(dev), None if st is None else st.to(dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_kernel_matches_plain(cuda, dtype, case):
+    """Aligned and ragged lengths, Q = 256 over several row tiles, chunk
+    clamped to S, zero and random initial state: y and the final state."""
+    x, dt, a, bm, cm, st = _ssd_inputs(dtype, case, cuda)
+    n0 = SSD.KERNEL.launches
+    y, f = SSD.ssd_chunked(x, dt, a, bm, cm, chunk=case["chunk"], init_state=st)
+    y_p, f_p = SSD.ssd_chunked_plain(x, dt, a, bm, cm, chunk=case["chunk"], init_state=st)
+    torch.cuda.synchronize()
+    assert SSD.KERNEL.launches == n0 + 1
+    assert y.dtype == x.dtype and f.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(f).all()
+    ymax = max(1.0, y_p.float().abs().max().item())
+    fmax = max(1.0, f_p.abs().max().item())
+    assert (y.float() - y_p.float()).abs().max().item() <= SSD_RTOL[dtype] * ymax
+    assert (f - f_p).abs().max().item() <= SSD_RTOL[torch.float32] * fmax
+
+
+def test_ops_ssd_launches_the_kernel(cuda):
+    x, dt, a, bm, cm, _ = _ssd_inputs(torch.float32, dict(b=1, s=48, chunk=16), cuda)
+    n0 = SSD.KERNEL.launches
+    y = ops.ssd(x, dt, a, bm, cm, chunk=16)
+    torch.cuda.synchronize()
+    assert SSD.KERNEL.launches == n0 + 1
+    torch.testing.assert_close(y, SSD.ssd_chunked_plain(x, dt, a, bm, cm, chunk=16)[0],
+                               atol=SSD_RTOL[torch.float32] * max(1.0, y.abs().max().item()),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("extra", [dict(paged=False), dict(paged=True),
+                                   dict(paged=False, state_snapshots=True)], ids=str)
+def test_mamba_engine_on_card_matches_cpu(cuda, extra):
+    """Smoke mamba2 served on the card (the SSD kernel in every prefill
+    chunk) and on the CPU: greedy tokens identical per request."""
+    cfg = configs.get_smoke_config("mamba2-2.7b")
+    params = T.init_params(cfg, 0, device="cpu")
+    scfg = dict(max_seq=64, prefill_chunk=16, max_new_tokens=6, max_batch=2, **extra)
+    rng = np.random.default_rng(7)
+    head = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, cfg.vocab_size, n).astype(np.int32)])
+               for n in (24, 1, 17, 30)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else {k: _to(v, cuda) for k, v in params.items()}
+        eng = serving.StreamedBatchEngine(cfg, p, serving.ServeConfig(**scfg), device=dev)
+        n0 = SSD.KERNEL.launches
+        uids = [eng.submit(t) for t in prompts]
+        got = eng.run()
+        out[dev] = ([got[u] for u in uids], eng.snapshot_hits)
+        if dev == "cuda":
+            assert SSD.KERNEL.launches - n0 == cfg.n_layers * eng.prefill_chunks
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        np.testing.assert_array_equal(a, b)
+    assert out["cpu"][1] == out["cuda"][1]

@@ -34,7 +34,8 @@ def _imported(path):
 
 def test_port_files_are_found():
     names = {p.name for p in FILES}
-    assert {"chip_smoke.py", "serving.py", "paged_attention.py", "device.py"} <= names
+    assert {"chip_smoke.py", "serving.py", "paged_attention.py", "device.py", "mamba.py",
+            "ssd_chunk.py", "mamba2_2_7b.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -92,6 +93,28 @@ def test_entry_points_raise_without_cuda(no_cuda):
     eng = serving.StreamedBatchEngine(cfg, params, scfg, device="cpu")
     eng.submit(np.arange(5, dtype=np.int32))
     assert len(eng.run()[0]) == 2
+
+
+def test_mamba_entry_points_raise_without_cuda(no_cuda):
+    cfg = configs.get_smoke_config("mamba2-2.7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_cache(cfg, 2, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_paged_cache(cfg, 2, 5, 8)
+    params = T.init_params(cfg, 0, device="cpu")
+    for paged in (False, True):
+        scfg = serving.ServeConfig(max_seq=32, prefill_chunk=8, max_new_tokens=2,
+                                   max_batch=2, block_size=8, paged=paged,
+                                   state_snapshots=True)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serving.StreamedBatchEngine(cfg, params, scfg)
+        eng = serving.StreamedBatchEngine(cfg, params, scfg, device="cpu")
+        eng.submit(np.arange(12, dtype=np.int32))
+        assert len(eng.run()[0]) == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "mamba2-2.7b"])
 
 
 def _to_numpy(t):

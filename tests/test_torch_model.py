@@ -63,18 +63,20 @@ def _j(tree):
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 def test_config_matches_reference_field_by_field(getter):
-    ref = getattr(RC, getter)("qwen3-4b")
-    port = getattr(PC, getter)("qwen3-4b")
-    for f in dataclasses.fields(ref):
-        a, b = getattr(ref, f.name), getattr(port, f.name)
-        if f.name in ("param_dtype", "compute_dtype"):
-            assert np.dtype(a).name == str(b).removeprefix("torch."), f.name
-        elif f.name == "layer_unit":
-            assert [dataclasses.asdict(s) for s in a] == [dataclasses.asdict(s) for s in b]
-        else:
-            assert a == b, f.name
-    assert (port.padded_vocab, port.n_repeats) == (ref.padded_vocab, ref.n_repeats)
-    assert port.spec_window(port.layer_unit[0]) == ref.spec_window(ref.layer_unit[0])
+    assert PC.list_archs() == ["qwen3-4b", "mamba2-2.7b"]
+    for arch in PC.list_archs():
+        ref = getattr(RC, getter)(arch)
+        port = getattr(PC, getter)(arch)
+        for f in dataclasses.fields(ref):
+            a, b = getattr(ref, f.name), getattr(port, f.name)
+            if f.name in ("param_dtype", "compute_dtype"):
+                assert np.dtype(a).name == str(b).removeprefix("torch."), (arch, f.name)
+            elif f.name == "layer_unit":
+                assert [dataclasses.asdict(s) for s in a] == [dataclasses.asdict(s) for s in b]
+            else:
+                assert a == b, (arch, f.name)
+        assert (port.padded_vocab, port.n_repeats) == (ref.padded_vocab, ref.n_repeats)
+        assert port.spec_window(port.layer_unit[0]) == ref.spec_window(ref.layer_unit[0])
 
 
 def test_bridge_copies_every_leaf(smoke):
@@ -221,7 +223,7 @@ def test_attention_rejects_unported_paths(smoke):
     with pytest.raises(NotImplementedError, match="contiguous"):
         PA.attention_apply(pp, x, **_attn_kw(pcfg))
     with pytest.raises(ValueError, match="kv_dtype"):
-        PT.init_paged_cache(pcfg, 4, 8, "int4", device="cpu")
+        PT.init_paged_cache(pcfg, 2, 4, 8, "int4", device="cpu")
 
 
 def test_decode_step_paged_logits_match_reference(smoke):
@@ -338,7 +340,7 @@ def test_decode_step_multi_paged_logits_match_reference(smoke):
 def test_init_paged_cache_quantized_layout_matches_reference(smoke, kv_dtype):
     rcfg, pcfg, _, _ = smoke
     ref = RT.init_paged_cache(rcfg, 2, 9, 8, kv_dtype)["blocks"]["layer0"]
-    port = PT.init_paged_cache(pcfg, 9, 8, kv_dtype, device="cpu")["blocks"]["layer0"]
+    port = PT.init_paged_cache(pcfg, 2, 9, 8, kv_dtype, device="cpu")["blocks"]["layer0"]
     assert set(port) == set(ref) == {"k", "v", "k_scale", "v_scale"}
     for key in port:
         assert tuple(port[key].shape) == ref[key].shape

@@ -79,8 +79,8 @@ QUANT_FLOOR = 0.5
 
 
 def test_engine_rejects_unported_features():
-    for bad in (dict(paged=False), dict(temperature=0.5), dict(prefix_sharing=True),
-                dict(spec_decode=True, temperature=0.5)):
+    for bad in (dict(paged=False, arch_kind="transformer"), dict(temperature=0.5),
+                dict(prefix_sharing=True), dict(spec_decode=True, temperature=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PS.ServeConfig(**bad)
     with pytest.raises(NotImplementedError, match="temperature sampling"):
