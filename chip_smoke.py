@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each
 against its plain PyTorch version, holds the card against the CPU on
-2-layer full-width qwen3-4b and mamba2-2.7b, then serves requests through
-the full 36-layer bf16 qwen3-4b on the card (plain, with speculative
-decode, over int8 and fp8 KV pages, and over int8 pages with speculative
-decode) and through the full 64-layer bf16 mamba2-2.7b (contiguous slot
-cache, paged pool, state snapshots).
+2-layer full-width qwen3-4b and mamba2-2.7b and on the paper's streaming
+path at a small size, then serves requests through the full 36-layer bf16
+qwen3-4b on the card (plain, with speculative decode, over int8 and fp8 KV
+pages, and over int8 pages with speculative decode) and through the full
+64-layer bf16 mamba2-2.7b (contiguous slot cache, paged pool, state
+snapshots), and runs the paper's Fig. 9 experiment (matmul, FWT and NW
+tasks over CUDA streams and the PCIe link) at full size.
 
     python3 chip_smoke.py            # every phase, on one CUDA card
     python3 chip_smoke.py --profile  # the same, plus torch.profiler serves
@@ -14,7 +16,7 @@ Phases (any failed check raises, and the script exits non-zero):
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
      TF32 off for matmuls and cuDNN so f32 means f32.
   2. build: every kernel from src/repro_torch/kernels/csrc, timed.
-  3. kernels: each of the six kernels (paged decode, its draft-block,
+  3. kernels: each of the nine kernels (paged decode, its draft-block,
      fused-dequant and draft-block fused-dequant entries, prefill, SSD
      chunk scan) against its plain version in f32 (atol 1e-5) and bf16
      (atol 2e-2), over int8 and fp8 codes for the quantized entries, at the
@@ -22,8 +24,13 @@ Phases (any failed check raises, and the script exits non-zero):
      ragged lengths, Q = 256 and zero / random initial states, relative to
      the plain output's largest magnitude (at least 1): f32 1e-4 (see
      SSD_RTOL), bf16 2e-2;
-     kernel, plain, SDPA (library, none for the SSD scan) times and the
-     memory/compute bound.
+     the paper kernels at the streaming path's shapes: the streamed matmul
+     (f32 2048^3, bf16, mixed and ragged) within 1e-5 (f32) / 2e-2 (bf16)
+     of the plain output's largest magnitude, the FWT passes (4096, 1024)
+     and (1024, 4096) within 1e-5 of it, NW tiles and a 512 x 384 wavefront
+     bit-equal to the plain version and to nw_full_ref (integer scores);
+     kernel, plain, library (SDPA; torch.matmul for the matmul; none for
+     the SSD scan, FWT and NW) times and the memory/compute bound.
   4. card vs CPU: qwen3-4b at full width cut to 2 layers, f32, 6 requests
      served on cuda (kernels) and on cpu (plain versions): admission logits
      allclose (atol 2e-3, rtol 1e-3) and greedy tokens identical per uid;
@@ -33,6 +40,9 @@ Phases (any failed check raises, and the script exits non-zero):
      width cut to 2 layers, f32, served contiguous, paged and with state
      snapshots (prompts sharing a 64-token head): admission logits allclose
      (atol 2e-3, rtol 1e-3), greedy tokens and snapshot hits identical.
+     The streaming path (launch/streams --small, 2 tasks a category) on the
+     card and on the CPU: matmul and FWT outputs within 1e-5 of the
+     largest magnitude, NW identical.
   5. main path: full qwen3-4b (36 layers, bf16, random weights from a seed)
      serves the same 6 requests plain, with speculative decode (oracle
      drafter, then n-gram drafts on tiled prompts), over int8 and fp8 pages,
@@ -47,6 +57,14 @@ Phases (any failed check raises, and the script exits non-zero):
      them); tokens/s, tick and chunk times, snapshot hits and the
      snapshot's device-to-host copy time; the SSD kernel launches 64 times
      per prefill chunk and no other kernel launches.
+  7. main path, streams: launch/streams at full size (8 tasks a category,
+     4 CUDA streams): per category R, the plan, stage times, single and
+     multi walls, measured and modeled improvement, the H2D/KEX overlap
+     from CUDA events; outputs equal to the plain version, multi-stream
+     outputs equal to single-stream outputs, overlap > 0, and exactly 1
+     matmul, 2 FWT and 127 NW launches per task run; then the pinned
+     H2D / D2H bandwidth of a 256 MB copy.  The improvement is reported,
+     not asserted.
 With --profile, phases 5 and 6 add a torch.profiler breakdown (device busy
 time by kernel, idle share) of the plain, oracle-spec, int8 and mamba
 contiguous serves.  The last three lines of stdout are the card's name
@@ -97,7 +115,15 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                         "src/repro/kernels/flash_attention.py:32"),
     "ssd": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
             "src/repro/kernels/ssd_chunk.py:43"),
+    "streamed_matmul": ("src/repro_torch/kernels/csrc/streamed_matmul.cu",
+                        "src/repro/kernels/streamed_matmul.py:25"),
+    "fwt": ("src/repro_torch/kernels/csrc/fwt.cu", "src/repro/kernels/fwt.py:32"),
+    "nw_tile": ("src/repro_torch/kernels/csrc/nw_tile.cu", "src/repro/kernels/nw_tile.py:42"),
 }
+# The paper kernels, relative to the plain output's largest magnitude (at
+# least 1): k-long f32 sums in another order (matmul), the reference's FWT
+# tolerance, one bf16 ulp; NW is exact (the same f32 operations).
+PAPER_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SNAP_HEAD = 64  # tokens every snapshot-serve prompt longer than it starts with
 
 
@@ -112,6 +138,25 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 4, sleep_cycles: int = 400_000_000) -> float:
+    """Mean device time per call of ``fn`` when the host issues faster than
+    the card runs: the stream is held by a spin kernel (~0.2 s) while the
+    ``iters`` calls are queued behind it, so the events see back-to-back
+    launches, not the host's issue rate.  Keep ``iters`` x launches per
+    call under the launch queue's ~1000 entries."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -655,13 +700,17 @@ def phase_profile(cfg, params, reqs, label="plain", **kw) -> None:
 
 def kernel_counters() -> dict:
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fwt as FWT
+    from repro_torch.kernels import nw_tile as NW
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ssd_chunk as SSD
+    from repro_torch.kernels import streamed_matmul as MM
 
     return {"paged_attention": PA.KERNEL, "paged_attention_multi": PA.MULTI_KERNEL,
             "paged_attention_quant": PA.QUANT_KERNEL,
             "paged_attention_multi_quant": PA.MULTI_QUANT_KERNEL,
-            "flash_attention": FA.KERNEL, "ssd": SSD.KERNEL}
+            "flash_attention": FA.KERNEL, "ssd": SSD.KERNEL,
+            "streamed_matmul": MM.KERNEL, "fwt": FWT.KERNEL, "nw_tile": NW.KERNEL}
 
 
 def counted_serve(cfg, params, reqs, **kw):
@@ -884,6 +933,198 @@ def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
     return summary
 
 
+# -- phases 3, 4 and 7: the paper's streaming path ------------------------------------
+
+NW_N, NW_BLOCK = 2048, 32  # the path's NW task: 64 x 64 tiles of 32, 127 diagonals
+
+
+def dna_scores(n: int, m: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(0, 4, n), rng.integers(0, 4, m)
+    return np.where(a[:, None] == b[None, :], 1.0, -1.0).astype(np.float32)
+
+
+def paper_held(res, name, dtype, label, got, want, rtol) -> None:
+    held(res, name, dtype, label, got, want, rtol * max(1.0, want.float().abs().max().item()))
+
+
+def nw_state(scores, block):
+    """A fresh wavefront state and its diagonals for ``scores`` (the
+    boundary of ops.nw_wavefront), to time the diagonal launches alone."""
+    from repro_torch.core import wavefront
+    from repro_torch.kernels import nw_tile as NW
+
+    n, m = scores.shape
+    rows, cols = n // block, m // block
+    north, west, corner = NW.boundary(rows, cols, block, device=scores.device)
+    out = torch.empty((n, m), device=scores.device)
+    state = wavefront.WavefrontState.create(
+        rows=rows, cols=cols, block=block, north_init=north, west_init=west,
+        corner_init=corner, tiles=out.view(rows, block, cols, block).permute(0, 2, 1, 3))
+    return state, wavefront.diagonal_tiles(rows, cols)
+
+
+def phase_paper_kernels(res: dict) -> None:
+    """The streamed matmul, the FWT passes and the NW diagonal against
+    their plain versions at the streaming path's shapes, and their times."""
+    from repro_torch.kernels import fwt as FWT
+    from repro_torch.kernels import nw_tile as NW
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import streamed_matmul as MM
+
+    g = torch.Generator(device="cuda").manual_seed(40)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dx, dy in ((f32, f32), (bf16, bf16), (f32, bf16)):
+        for m, k, n in ((2048, 2048, 2048), (129, 257, 130), (1, 1000, 3)):
+            x = torch.randn((m, k), generator=g, device="cuda").to(dx)
+            y = torch.randn((k, n), generator=g, device="cuda").to(dy)
+            got = ops.matmul(x, y)
+            check(got.dtype == torch.result_type(x, y), f"matmul out dtype {got.dtype}")
+            paper_held(res, "streamed_matmul", got.dtype, f"{dx}@{dy} ({m},{k})@({k},{n})",
+                       got, MM.matmul_plain(x, y), PAPER_RTOL[got.dtype])
+    for dt in (f32, bf16):
+        for shape in ((4096, 1024), (1024, 4096), (3, 8), (2, 1 << 15)):
+            x = torch.randn(shape, generator=g, device="cuda").to(dt)
+            paper_held(res, "fwt", dt, f"rows x block {shape}", FWT.fwt_block(x),
+                       FWT.fwt_plain(x), PAPER_RTOL[dt])
+    xf = torch.randn(1 << 22, generator=g, device="cuda")
+    paper_held(res, "fwt", f32, "ops.fwt 2^22 (two passes)", ops.fwt(xf), ref.fwt_ref(xf), 1e-5)
+    rng = np.random.default_rng(41)
+    for b in (8, 16, 32, 64, 1024):
+        nw_in = [rng.integers(-b, b, b).astype(np.float32) for _ in range(2)]
+        sub = rng.choice([-1.0, 1.0], size=(b, b)).astype(np.float32)
+        got = ops.nw_tile(*(torch.from_numpy(a).cuda() for a in nw_in), -2.0,
+                          torch.from_numpy(sub).cuda())
+        want = ref.nw_ref(*nw_in, -2.0, sub) if b <= 64 else ops.nw_tile(
+            *(torch.from_numpy(a) for a in nw_in), -2.0, torch.from_numpy(sub)).numpy()
+        held(res, "nw_tile", f32, f"one tile B={b}", got, torch.from_numpy(want).cuda(), 0.0)
+    sc = dna_scores(512, 384, 42)
+    got = ops.nw_wavefront(torch.from_numpy(sc).cuda(), block=32)
+    held(res, "nw_tile", f32, "wavefront 512 x 384 vs nw_full_ref", got,
+         torch.from_numpy(ref.nw_full_ref(sc)).cuda(), 0.0)
+    scores = torch.from_numpy(dna_scores(NW_N, NW_N, 43)).cuda()
+    full = ops.nw_wavefront(scores, block=NW_BLOCK)
+    held(res, "nw_tile", f32, f"wavefront {NW_N} x {NW_N} vs plain", full,
+         NW.nw_wavefront_plain(scores, block=NW_BLOCK), 0.0)
+
+    # Times at the path's shapes.  Matmul: one f32 2048^3 task, library one
+    # torch.matmul (TF32 off).  FWT: both passes of one 2^22 task.  NW: the
+    # 127 diagonal launches of one 2048^2 task, reported per launch.
+    x, y = (torch.randn((2048, 2048), generator=g, device="cuda") for _ in range(2))
+    p1 = torch.randn((4096, 1024), generator=g, device="cuda")
+    p2 = torch.randn((1024, 4096), generator=g, device="cuda")
+    state, diags = nw_state(scores, NW_BLOCK)
+
+    def nw_all(step):
+        for d in diags:
+            step(state, scores, d)
+    n_diag = len(diags)
+    cells = NW_N * NW_N
+    timed = {
+        "streamed_matmul": (lambda: ops.matmul(x, y), lambda: MM.matmul_plain(x, y),
+                            lambda: torch.matmul(x, y), 1,
+                            (3 * x.numel() * 4, 2.0 * 2048 ** 3)),
+        "fwt": (lambda: (FWT.fwt_block(p1), FWT.fwt_block(p2)),
+                lambda: (FWT.fwt_plain(p1), FWT.fwt_plain(p2)), None, 1,
+                (2 * 2 * p1.numel() * 4, p1.numel() * (10 + 12))),
+        # per cell: the diagonal and upper terms (2 ops), their max, the west
+        # fold on column 0 (ignored), and log2(B) = 5 ladder steps of 2 ops
+        "nw_tile": (lambda: nw_all(NW.nw_diagonal), lambda: nw_all(NW.nw_diagonal_plain),
+                    None, n_diag, (2 * cells * 4, cells * (3 + 2 * 5))),
+    }
+    for name, (kern, plain, lib, per, (nbytes, flops)) in timed.items():
+        r = res[name]
+        slow = name == "nw_tile"  # the plain wavefront is ~0.5 s a run
+        # NW: the host issues a diagonal slower than the card runs it, so the
+        # kernel's time is taken with the launches queued ahead (device_ms);
+        # time_ms gives the issue-bound rate, printed beside it.
+        r["ms"] = (device_ms(kern) if slow else time_ms(kern)) / per
+        r["plain_ms"] = time_ms(plain, iters=2 if slow else 20, warmup=1) / per
+        r["library_ms"] = time_ms(lib) if lib is not None else None
+        r["bound_ms"], r["bound_by"] = bound(nbytes / per, flops / per, torch.float32)
+        lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[kernels] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {lib_ms}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}, "
+              f"{nbytes / per:.0f} bytes, {flops / per:.0f} flops)"
+              + (f" per launch; {n_diag} launches a task: kernel {r['ms'] * per:.3f} ms "
+                 f"queued ahead, {time_ms(kern, iters=10):.3f} ms as the host issues them, "
+                 f"plain {r['plain_ms'] * per:.3f} ms" if per > 1 else ""))
+
+
+def phase_card_vs_cpu_streams() -> None:
+    """launch/streams --small (2 tasks a category) on the card and on the
+    CPU: the same tasks from the same seed give the same outputs."""
+    from repro_torch.launch import streams as S
+
+    card = S.run(device="cuda", n_tasks=2, streams=2, small=True)
+    cpu = S.run(device="cpu", n_tasks=2, streams=2, small=True)
+    for a, b in zip(card, cpu):
+        worst = 0.0
+        for got, want in zip(a["outputs"], b["outputs"]):
+            err = (got.float() - want.float()).abs().max().item()
+            tol = (0.0 if a["kernel"] == "nw"
+                   else 1e-5 * max(1.0, want.float().abs().max().item()))
+            check(err <= tol, f"streams {a['category']}: card vs CPU err {err} > {tol}")
+            worst = max(worst, err)
+        check(a["multi_equals_single"] and a["max_abs_err"] <= a["tol"],
+              f"streams {a['category']} --small on the card: {a['max_abs_err']}")
+        print(f"[card_vs_cpu] streams {a['category']} ({a['shape']}, 2 tasks): card vs CPU "
+              f"max abs diff {worst:.3e}; card R {a['R']:.4f}, cpu R {b['R']:.4f}")
+
+
+def pinned_bandwidth(nbytes: int = 256 << 20, reps: int = 5) -> dict:
+    """GB/s of one pinned host -> card and card -> host copy of ``nbytes``
+    (CUDA events, median of ``reps``)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        ms = []
+        for _ in range(reps + 1):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        out[label] = nbytes / (float(np.median(ms[1:])) * 1e-3) / 1e9
+    return out
+
+
+def phase_streams(res: dict) -> list[dict]:
+    """The paper's Fig. 9 experiment at full size through launch/streams,
+    with every launch count set to 0 just before it and read just after."""
+    from repro_torch.launch import streams as S
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    results = S.run(device="cuda", n_tasks=8, streams=4)
+    launches = {name: c.launches for name, c in counters.items()}
+    per_task = {"matmul": ("streamed_matmul", 1), "fwt": ("fwt", 2),
+                "nw": ("nw_tile", 2 * NW_N // NW_BLOCK - 1)}
+    want = {name: 0 for name in counters}
+    for r in results:
+        print(S.format_line(r))
+        name, n = per_task[r["kernel"]]
+        want[name] = n * r["task_runs"]
+        check(r["max_abs_err"] <= r["tol"],
+              f"streams {r['category']}: max abs err {r['max_abs_err']} > {r['tol']}")
+        check(r["multi_equals_single"], f"streams {r['category']}: multi != single outputs")
+        check(r["overlap_ms"] > 0.0, f"streams {r['category']}: no H2D/KEX overlap in events")
+    check(launches == want, f"streams: launches {launches} != {want}")
+    for name in ("streamed_matmul", "fwt", "nw_tile"):
+        res[name]["launches"] = launches[name]
+    for line in S.paper_model_checks():
+        print(line)
+    bw = pinned_bandwidth()
+    print(f"[streams] pinned 256 MB copy: H2D {bw['h2d']:.2f} GB/s, D2H {bw['d2h']:.2f} GB/s; "
+          f"launches {launches}")
+    summary = [{k: v for k, v in r.items() if k != "outputs"} for r in results]
+    print("[streams] results " + json.dumps({"categories": summary, "pinned_gb_s": bw}))
+    return summary
+
+
 def _leaves(t):
     for v in t.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -916,8 +1157,12 @@ def main() -> int:
 
     res = phase_kernels()
     t0 = time.perf_counter()
+    phase_paper_kernels(res)
+    print(f"[kernels] paper kernels {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     phase_card_vs_cpu()
     phase_card_vs_cpu_mamba()
+    phase_card_vs_cpu_streams()
     print(f"[card_vs_cpu] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_main_path(res, profile=args.profile)
@@ -925,6 +1170,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_main_mamba(res, profile=args.profile)
     print(f"[mamba] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_streams(res)
+    print(f"[streams] {time.perf_counter() - t0:.1f}s")
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0],
                 "replaces": KERNELS[n][1], "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("paged_attention.cu", "flash_attention.cu", "ssd_chunk.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu", "ssd_chunk.cu", "streamed_matmul.cu",
+           "fwt.cu", "nw_tile.cu")
 
 
 def _nvcc() -> str:

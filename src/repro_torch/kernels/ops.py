@@ -11,9 +11,19 @@ import math
 
 import torch
 
+from repro_torch.core import wavefront as _wf
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fwt as _fwt
+from repro_torch.kernels import nw_tile as _nw
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ssd_chunk as _ssd
+from repro_torch.kernels import streamed_matmul as _mm
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` with an f32 accumulator, in ``result_type(x, y)`` (the
+    reference's ``ops.matmul``; any shape, so no block arguments)."""
+    return _mm.matmul(x, y)
 
 
 def _scale(q: torch.Tensor, scale: float | None) -> float:
@@ -123,3 +133,57 @@ def ssd(
     reference's ``ops.ssd``; any S, where the TPU kernel needs S % chunk ==
     0)."""
     return _ssd.ssd_chunked(x, dt, a, b_, c_, chunk=chunk)[0]
+
+
+def fwt(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:
+    """Walsh-Hadamard transform of a flat (n,) or batched (r, n) input.
+
+    Kronecker-streamed, as the reference's ``ops.fwt``: WHT(N) = (WHT(B1) x
+    I)(I x WHT(B2)), N = B1 * B2 -- pass 1 on (B1, B2) rows, a transpose,
+    pass 2 on (B2, B1) rows, and a transpose back.  A batched input is one
+    pass over its rows.
+    """
+    if x.dim() != 1:
+        return _fwt.fwt_block(x)
+    n = x.shape[0]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"fwt: length {n} is not a power of two")
+    b2 = block or min(n, 1024)
+    b1 = n // b2
+    if b1 == 1:
+        return _fwt.fwt_block(x[None, :])[0]
+    y = _fwt.fwt_block(x.reshape(b1, b2))  # pass 1: in-block stages
+    y = y.t().contiguous()  # (b2, b1)
+    y = _fwt.fwt_block(y)  # pass 2: cross-block stages
+    return y.t().reshape(n)
+
+
+def nw_tile(north: torch.Tensor, west: torch.Tensor, corner: torch.Tensor | float,
+            sub: torch.Tensor, *, gap: float = 1.0) -> torch.Tensor:
+    """One (B, B) Needleman-Wunsch tile from its north row (B,), west column
+    (B,), corner and substitution scores (B, B): the diagonal kernel over a
+    1 x 1 grid.  Returns the tile, f32."""
+    block = sub.shape[-1]
+    if sub.shape != (block, block) or north.shape != (block,) or west.shape != (block,):
+        raise ValueError(f"nw_tile: want north/west (B,) and sub (B, B), got "
+                         f"{tuple(north.shape)}, {tuple(west.shape)}, {tuple(sub.shape)}")
+    dev = sub.device
+    if north.device != dev or west.device != dev:
+        raise ValueError(f"nw_tile: north, west and sub must share one device, got "
+                         f"{north.device}, {west.device}, {dev}")
+    corners = torch.zeros((2, 2), dtype=torch.float32, device=dev)
+    corners[0, 0] = torch.as_tensor(corner, dtype=torch.float32)
+    out = torch.empty((block, block), dtype=torch.float32, device=dev)
+    state = _wf.WavefrontState.create(
+        rows=1, cols=1, block=block, north_init=north.float()[None],
+        west_init=west.float()[None], corner_init=corners,
+        tiles=out.view(1, block, 1, block).permute(0, 2, 1, 3))
+    _nw.nw_diagonal(state, sub.float().contiguous(), [(0, 0)], gap=gap)
+    return out
+
+
+def nw_wavefront(seq_scores: torch.Tensor, *, block: int, gap: float = 1.0) -> torch.Tensor:
+    """The full (n, m) NW DP matrix via the wavefront scheduler and the tile
+    kernel, one launch per anti-diagonal of the (n / block, m / block) tile
+    grid (the paper's Fig. 8 pipeline)."""
+    return _nw.nw_wavefront(seq_scores, block=block, gap=gap)

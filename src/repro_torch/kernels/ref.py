@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground truth):
-the attention entries and the SSD chunk scan.
+the attention entries, the SSD chunk scan, and the paper kernels (matmul,
+Walsh-Hadamard transform, Needleman-Wunsch tiles; numpy NW oracles).
 
 They compute in float32 whatever the input type and return the query's
 type, as the reference's ``kernels/ref.py`` oracles do.  The CPU path of
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -236,3 +238,88 @@ def ssd_step_ref(state, x_t, dt_t, a, b_t, c_t) -> tuple[torch.Tensor, torch.Ten
     inp = torch.einsum("bn,bhp,bh->bhpn", b_t.to(f32), x_t.to(f32), dt_t.to(f32))
     state = state * decay[..., None, None] + inp
     return state, torch.einsum("bn,bhpn->bhp", c_t.to(f32), state)
+
+
+def matmul_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` with an f32 accumulator, in ``result_type(x, y)``."""
+    return (x.float() @ y.float()).to(torch.result_type(x, y))
+
+
+def fwt_ref(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalized Walsh-Hadamard transform over the last axis: log2(n)
+    butterfly stages in f32, the result in x's type."""
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"fwt: length {n} is not a power of two")
+    lead = tuple(x.shape[:-1])
+    out = x.float()
+    h = 1
+    while h < n:
+        out = out.reshape(*lead, n // (2 * h), 2, h)
+        a, b = out[..., 0, :], out[..., 1, :]
+        out = torch.stack([a + b, a - b], dim=-2).reshape(*lead, n)
+        h *= 2
+    return out.to(x.dtype)
+
+
+NW_NEG = -1e9  # the shift-max ladder's fill (the reference's NEG)
+
+
+def nw_tiles_ref(north: torch.Tensor, west: torch.Tensor, corner: torch.Tensor,
+                 sub: torch.Tensor, *, gap: float = 1.0) -> torch.Tensor:
+    """A batch of NW DP tiles: north / west (T, B), corner (T,), sub (T, B, B)
+    -> (T, B, B) f32.  The reference kernel's algorithm: rows in order, row
+    i from ``max(diag + sub[i], up - gap)`` with the west neighbour folded
+    into column 0, then the left-to-right chain ``H[j] = max_{j'<=j}(tmp[j']
+    - (j - j') gap)`` as a log-step shift-max ladder."""
+    t, b = sub.shape[0], sub.shape[-1]
+    north, west, sub = north.float(), west.float(), sub.float()
+    prev_row, prev_west = north, corner.float()
+    rows = []
+    for i in range(b):
+        diag = torch.cat([prev_west[:, None], prev_row[:, :-1]], dim=1)
+        tmp = torch.maximum(diag + sub[:, i], prev_row - gap)
+        tmp = torch.cat([torch.maximum(tmp[:, :1], west[:, i:i + 1] - gap), tmp[:, 1:]], dim=1)
+        h, shift = tmp, 1
+        while shift < b:
+            fill = torch.full((t, shift), NW_NEG, dtype=h.dtype, device=h.device)
+            h = torch.maximum(h, torch.cat([fill, h[:, :-shift] - gap * shift], dim=1))
+            shift *= 2
+        rows.append(h)
+        prev_row, prev_west = h, west[:, i]
+    return torch.stack(rows, dim=1)
+
+
+def nw_ref(north: np.ndarray, west: np.ndarray, corner: float, sub: np.ndarray, *,
+           gap: float = 1.0) -> np.ndarray:
+    """Sequential double-loop NW tile (numpy oracle)."""
+    b = sub.shape[0]
+    h = np.zeros((b + 1, b + 1), np.float32)
+    h[0, 0] = corner
+    h[0, 1:] = np.asarray(north, np.float32)
+    h[1:, 0] = np.asarray(west, np.float32)
+    for i in range(1, b + 1):
+        for j in range(1, b + 1):
+            h[i, j] = max(
+                h[i - 1, j - 1] + sub[i - 1, j - 1],
+                h[i - 1, j] - gap,
+                h[i, j - 1] - gap,
+            )
+    return h[1:, 1:]
+
+
+def nw_full_ref(seq_scores: np.ndarray, *, gap: float = 1.0) -> np.ndarray:
+    """Full NW matrix for an (n, m) substitution score matrix with the
+    boundary initialized to -i*gap / -j*gap (standard global alignment)."""
+    n, m = seq_scores.shape
+    h = np.zeros((n + 1, m + 1), np.float32)
+    h[0, :] = -gap * np.arange(m + 1)
+    h[:, 0] = -gap * np.arange(n + 1)
+    for i in range(1, n + 1):
+        for j in range(1, m + 1):
+            h[i, j] = max(
+                h[i - 1, j - 1] + seq_scores[i - 1, j - 1],
+                h[i - 1, j] - gap,
+                h[i, j - 1] - gap,
+            )
+    return h[1:, 1:]

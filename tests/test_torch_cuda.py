@@ -12,7 +12,11 @@ tolerances are relative to the plain output's largest magnitude: f32 1e-4
 (inside a 256-token chunk the cumulative log-decay reaches hundreds, and
 one f32 ulp of it is a ~1e-5 relative error in each decay factor, summed in
 another order by kernel and plain; 1e-4 is the reference's own tolerance
-for its SSD kernel), bf16 2e-2.
+for its SSD kernel), bf16 2e-2.  The paper kernels, relative to the plain
+output's largest magnitude (at least 1): matmul f32 1e-5 (k-long f32 sums
+in another order), bf16 2e-2 (one bf16 ulp); FWT f32 1e-5 (the
+reference's), bf16 2e-2; NW exact (the same f32 operations as the plain
+version).
 """
 
 import math
@@ -22,6 +26,11 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.core import streams
+from repro_torch.kernels import fwt as FWT
+from repro_torch.kernels import nw_tile as NW
+from repro_torch.kernels import ref
+from repro_torch.kernels import streamed_matmul as MM
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
@@ -328,3 +337,144 @@ def test_mamba_engine_on_card_matches_cpu(cuda, extra):
     for a, b in zip(out["cpu"][0], out["cuda"][0]):
         np.testing.assert_array_equal(a, b)
     assert out["cpu"][1] == out["cuda"][1]
+
+
+# -- the paper kernels and the stream engine ---------------------------------------
+
+PAPER_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _close(got, want, rtol):
+    tol = rtol * max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, f"max abs err {err} > {tol}"
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)], ids=str)
+@pytest.mark.parametrize("mkn", [(256, 256, 256), (512, 384, 640), (37, 53, 29),
+                                 (129, 257, 130), (1, 1000, 1), (2048, 2048, 2048)], ids=str)
+def test_matmul_kernel_matches_plain(cuda, dtypes, mkn):
+    m, k, n = mkn
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtypes[0])
+    y = torch.randn((k, n), generator=g, device=cuda).to(dtypes[1])
+    n0 = MM.KERNEL.launches
+    got = ops.matmul(x, y)
+    torch.cuda.synchronize()
+    assert MM.KERNEL.launches == n0 + 1
+    assert got.dtype == torch.result_type(x, y) and got.shape == (m, n)
+    _close(got, MM.matmul_plain(x, y), PAPER_RTOL[got.dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(4096, 1024), (1024, 4096), (3, 8), (5, 1), (7, 2),
+                                   (2, 1 << 14), (2, 1 << 15)], ids=str)
+def test_fwt_kernel_matches_plain(cuda, dtype, shape):
+    g = torch.Generator(device="cuda").manual_seed(shape[1])
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    n0 = FWT.KERNEL.launches
+    got = FWT.fwt_block(x)
+    torch.cuda.synchronize()
+    assert FWT.KERNEL.launches == n0 + 1 and got.dtype == dtype
+    _close(got, FWT.fwt_plain(x), PAPER_RTOL[dtype])
+
+
+def test_ops_fwt_on_card(cuda):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1 << 22, generator=g, device=cuda)
+    n0 = FWT.KERNEL.launches
+    got = ops.fwt(x)
+    torch.cuda.synchronize()
+    assert FWT.KERNEL.launches == n0 + 2  # the two Kronecker passes
+    _close(got, ref.fwt_ref(x), 1e-5)
+    rows = torch.randn((6, 512), generator=g, device=cuda)
+    _close(ops.fwt(rows), ref.fwt_ref(rows), 1e-5)
+    assert FWT.KERNEL.launches == n0 + 3
+    with pytest.raises(ValueError, match="shared memory"):
+        FWT.fwt_block(torch.zeros((1, 1 << 16), device=cuda))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("b", [1, 8, 16, 32, 64, 256, 1024])
+def test_nw_tile_kernel_matches_plain(cuda, b, integer):
+    rng = np.random.default_rng(b)
+    if integer:
+        north, west = (rng.integers(-b, b, b).astype(np.float32) for _ in range(2))
+        sub, corner, gap = rng.choice([-1.0, 1.0], size=(b, b)).astype(np.float32), -2.0, 1.0
+    else:
+        north, west = (rng.normal(size=b).astype(np.float32) for _ in range(2))
+        sub, corner, gap = rng.normal(size=(b, b)).astype(np.float32), 0.3, 0.5
+    args = [torch.from_numpy(a) for a in (north, west)]
+    n0 = NW.KERNEL.launches
+    got = ops.nw_tile(args[0].to(cuda), args[1].to(cuda), corner,
+                      torch.from_numpy(sub).to(cuda), gap=gap)
+    torch.cuda.synchronize()
+    assert NW.KERNEL.launches == n0 + 1
+    want = ops.nw_tile(args[0], args[1], corner, torch.from_numpy(sub), gap=gap)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if integer and b <= 64:
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      ref.nw_ref(north, west, corner, sub, gap=gap))
+
+
+@pytest.mark.parametrize("n,m,block", [(512, 384, 32), (256, 256, 64), (128, 96, 8),
+                                       (64, 64, 16)], ids=str)
+def test_nw_wavefront_on_card_bit_equal(cuda, n, m, block):
+    rng = np.random.default_rng(n + m)
+    a, b = rng.integers(0, 4, n), rng.integers(0, 4, m)
+    scores = np.where(a[:, None] == b[None, :], 1.0, -1.0).astype(np.float32)
+    n0 = NW.KERNEL.launches
+    got = ops.nw_wavefront(torch.from_numpy(scores).to(cuda), block=block).cpu().numpy()
+    assert NW.KERNEL.launches - n0 == n // block + m // block - 1  # one per diagonal
+    np.testing.assert_array_equal(got, ref.nw_full_ref(scores))
+    plain = NW.nw_wavefront_plain(torch.from_numpy(scores).to(cuda), block=block)
+    np.testing.assert_array_equal(got, plain.cpu().numpy())
+
+
+def test_paper_wrappers_raise_on_unsupported_cuda_inputs(cuda):
+    x = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.matmul(x.t()[:, :4], x[:4])
+    with pytest.raises(ValueError):
+        ops.matmul(x.double(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        FWT.fwt_block(torch.zeros((8, 16), device=cuda).t())
+    with pytest.raises(ValueError, match="device"):
+        ops.matmul(x, x.cpu())
+
+
+def _executor_tasks(n_tasks, size, seed=0):
+    rng = np.random.default_rng(seed)
+    return [tuple(torch.from_numpy(rng.standard_normal((size, size), np.float32)).pin_memory()
+                  for _ in range(2)) for _ in range(n_tasks)]
+
+
+def test_executor_on_card_multi_equals_single_and_overlaps(cuda):
+    """Matmul tasks over 4 CUDA streams: multi-stream outputs bit-equal to
+    stage-by-stage outputs and to the kernel run directly, and the events
+    show one task's H2D running beside another task's KEX."""
+    tasks = _executor_tasks(8, 1024)
+    ex = streams.HostStreamExecutor(lambda t: ops.matmul(t[0], t[1]), num_streams=4,
+                                    device=cuda)
+    assert all(s != torch.cuda.default_stream(cuda) for s in ex.streams)
+    ex.single_stream_run(tasks)  # warm-up
+    out1, s1 = ex.single_stream_run(tasks)
+    outn, sn = ex.multi_stream_run(tasks)
+    for a, b, (x, y) in zip(out1, outn, tasks):
+        assert a.is_pinned() and b.is_pinned()
+        assert torch.equal(a, b)
+        assert torch.equal(a, ops.matmul(x.to(cuda), y.to(cuda)).cpu())
+    assert s1.h2d > 0 and s1.kex > 0 and s1.d2h > 0 and 0.0 < ex.measure_r(tasks)[0] < 1.0
+    assert len(sn.intervals) == 8 and {iv["stream"] for iv in sn.intervals} == {0, 1, 2, 3}
+    assert sn.h2d_kex_overlap() > 0.0, sn.intervals
+
+
+def test_executor_on_card_refuses_emulation_and_pageable_tasks(cuda):
+    with pytest.raises(ValueError, match="link"):
+        streams.HostStreamExecutor(lambda x: x, device=cuda, link_bw=2e9)
+    ex = streams.HostStreamExecutor(lambda x: x * 2, num_streams=2, device=cuda)
+    with pytest.raises(ValueError, match="pinned"):
+        ex.multi_stream_run([torch.ones(4)])

@@ -35,7 +35,8 @@ def _imported(path):
 def test_port_files_are_found():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "serving.py", "paged_attention.py", "device.py", "mamba.py",
-            "ssd_chunk.py", "mamba2_2_7b.py"} <= names
+            "ssd_chunk.py", "mamba2_2_7b.py", "streams.py", "wavefront.py", "rmetric.py",
+            "streamed_matmul.py", "fwt.py", "nw_tile.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
