@@ -30,7 +30,14 @@ Phases (any failed check raises, and the script exits non-zero):
      and (1024, 4096) within 1e-5 of it, NW tiles and a 512 x 384 wavefront
      bit-equal to the plain version and to nw_full_ref (integer scores);
      kernel, plain, library (SDPA; torch.matmul for the matmul; none for
-     the SSD scan, FWT and NW) times and the memory/compute bound.
+     the SSD scan, FWT and NW) times and the memory/compute bound.  The
+     attention and SSD kernels and their library calls are timed with the
+     calls queued behind a spin kernel (device time; the host's issue rate
+     is printed beside), the plain versions with CUDA events as issued.  The
+     draft-block entries are held over row tiles (68 rows), g = 1 and 8,
+     head_dim 64 and 256 and splits behind the window as well, print their
+     split plan and grid beside their times, and are timed again at a long
+     context (128 pages of 16) beside their bound and SDPA.
   4. card vs CPU: qwen3-4b at full width cut to 2 layers, f32, 6 requests
      served on cuda (kernels) and on cpu (plain versions): admission logits
      allclose (atol 2e-3, rtol 1e-3) and greedy tokens identical per uid;
@@ -163,6 +170,13 @@ def device_ms(fn, iters: int = 4, sleep_cycles: int = 400_000_000) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# Calls queued behind device_ms's spin kernel to time a phase-3 kernel and
+# its library call: a draft-block call runs on the card in less time than
+# the host takes to issue it, so time_ms would time the host (it is printed
+# beside); 100 calls of at most a few launches each stay inside the queue.
+QUEUED = 100
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -313,7 +327,15 @@ def ssd_bytes_flops(x, bm, chunk, init):
 DRAFT_CASES = [dict(t=5, cur=[139, 111, 88, 76]),  # the verify step's shapes
                dict(t=2, cur=[0, 15, 16, 100], trash_row=0),
                dict(t=5, cur=[14, 30, 60, 141]),  # page edges; row 3 runs past the table
-               dict(t=5, cur=[139, 111, 88, 0], window=32, softcap=30.0, trash_row=3)]
+               dict(t=5, cur=[139, 111, 88, 0], window=32, softcap=30.0, trash_row=3),
+               dict(t=17, cur=[120, 100, 64, 3]),  # 68 rows: two row tiles
+               dict(t=5, cur=[139, 111, 88, 76], h=8),  # g = 1
+               dict(t=5, cur=[139, 111, 88, 76], h=64),  # g = 8
+               dict(t=5, cur=[60, 33, 17, 0], hd=64),
+               dict(t=5, cur=[139, 111, 88, 76], hd=256),
+               # every split but the last behind the window
+               dict(t=5, cur=[139, 130, 127, 100], window=16)]
+LONG_CUR, LONG_PAGES = [2043, 2027, 2011, 1995], 128  # the long-context timing shape
 SINGLE_QUANT_CASES = [dict(t=1, cur=[143, 100, 15, 16]),
                       dict(t=1, cur=[0, 15, 16, 100], trash_row=0, window=32),
                       dict(t=1, cur=[143, 100, 15, 0], softcap=30.0, trash_row=3)]
@@ -366,17 +388,19 @@ def phase_kernels() -> dict:
                  PA.paged_attention_plain(q, kp, vp, pt, cl, scale=scale, **kw))
         for i, c in enumerate(DRAFT_CASES):
             kw = {k: c[k] for k in ("window", "softcap") if k in c}
+            shape = {k: c[k] for k in ("h", "hd") if k in c}
+            sc = 1.0 / math.sqrt(c.get("hd", 128))
             q, kp, vp, pt, cl = draft_case(dtype, c["cur"], c["t"],
-                                           trash_row=c.get("trash_row"), seed=10 + i)
+                                           trash_row=c.get("trash_row"), seed=10 + i, **shape)
             held(res, "paged_attention_multi", dtype, str(c),
                  ops.paged_attention_multi(q, kp, vp, pt, cl, **kw),
-                 PA.paged_attention_multi_plain(q, kp, vp, pt, cl, scale=scale, **kw))
+                 PA.paged_attention_multi_plain(q, kp, vp, pt, cl, scale=sc, **kw))
             for kd in ("int8", "fp8"):
                 (kc, ks), (vc, vs) = quantized(kp, kd), quantized(vp, kd)
                 held(res, "paged_attention_multi_quant", dtype, f"{kd} {c}",
                      ops.paged_attention_multi_quant(q, kc, vc, ks, vs, pt, cl, **kw),
                      PA.paged_attention_multi_quant_plain(q, kc, vc, ks, vs, pt, cl,
-                                                          scale=scale, **kw))
+                                                          scale=sc, **kw))
         for i, c in enumerate(SINGLE_QUANT_CASES):
             kw = {k: c[k] for k in ("window", "softcap") if k in c}
             q, kp, vp, pt, cl = paged_case(dtype, c["cur"], trash_row=c.get("trash_row"),
@@ -449,7 +473,7 @@ def phase_kernels() -> dict:
         if kd == "int8":
             timed.update(entries)
         else:
-            fp8_ms = {name: time_ms(fns[0]) for name, fns in entries.items()}
+            fp8_ms = {name: device_ms(fns[0], iters=QUEUED) for name, fns in entries.items()}
 
     qf, kf, vf = flash_case(dt, 64, 64, seed=9)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qf, kf, vf))
@@ -470,15 +494,58 @@ def phase_kernels() -> dict:
         None, ssd_bytes_flops(xs, bs_, 64, True))
     for name, (kern, plain, lib, (nbytes, flops)) in timed.items():
         r = res[name]
-        r["ms"], r["plain_ms"] = time_ms(kern), time_ms(plain)
-        r["library_ms"] = time_ms(lib) if lib is not None else None
+        r["ms"], r["plain_ms"] = device_ms(kern, iters=QUEUED), time_ms(plain)
+        r["library_ms"] = device_ms(lib, iters=QUEUED) if lib is not None else None
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dt)
         lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"[kernels] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        print(f"[kernels] {name}: kernel {r['ms']:.4f} ms ({time_ms(kern):.4f} ms as the host "
+              f"issues it), plain {r['plain_ms']:.4f} ms, "
               f"library {lib_ms}, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}, {nbytes} bytes, {flops:.0f} flops)"
-              + (f"; fp8 codes: kernel {fp8_ms[name]:.4f} ms" if name in fp8_ms else ""))
+              + (f"; fp8 codes: kernel {fp8_ms[name]:.4f} ms" if name in fp8_ms else "")
+              + (f"; {split_plan(qm, kpm, ptm)}" if "multi" in name else ""))
+    long_context(scale)
     return res
+
+
+def split_plan(q, kp, pt) -> str:
+    """The draft-block kernel's split count and grid for these inputs."""
+    from repro_torch.kernels import paged_attention as PA
+
+    p = PA.plan_split(q.shape[0], kp.shape[2], q.shape[1], q.shape[2] // kp.shape[2],
+                      pt.shape[1], q.shape[3])
+    return (f"{p.n_splits} splits of {p.pages_per_split} pages, {p.tiles} row tile(s) of "
+            f"{p.tile_rows}, grid {p.grid} = {p.blocks} blocks")
+
+
+def long_context(scale) -> None:
+    """Both draft-block entries at a long context, bf16: B = 4, T = 5 from
+    cur_len LONG_CUR over LONG_PAGES pages of 16 (bf16 pages, then int8 and
+    fp8 codes), each time beside its bound and the SDPA yardstick.  Printed
+    only: the kernels JSON keeps the verify shape's numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+
+    dt = torch.bfloat16
+    q, kp, vp, pt, cl = draft_case(dt, LONG_CUR, 5, seed=8, n_pages=LONG_PAGES)
+    runs = [("paged_attention_multi", "bf16 pages",
+             lambda: ops.paged_attention_multi(q, kp, vp, pt, cl),
+             sdpa_paged(q, kp, vp, pt, cl, scale), paged_bytes_flops(q, kp, pt, cl, 0))]
+    for kd in ("int8", "fp8"):
+        (kc, ks), (vc, vs) = quantized(kp, kd), quantized(vp, kd)
+        runs.append(("paged_attention_multi_quant", f"{kd} codes",
+                     lambda kc=kc, vc=vc, ks=ks, vs=vs: ops.paged_attention_multi_quant(
+                         q, kc, vc, ks, vs, pt, cl),
+                     sdpa_paged(q, kc, vc, pt, cl, scale, ks, vs),
+                     paged_bytes_flops(q, kc, pt, cl, 0, scales=True)))
+    for name, label, kern, lib, (nbytes, flops) in runs:
+        ms, lib_ms = device_ms(kern, iters=QUEUED), device_ms(lib, iters=QUEUED)
+        b_ms, b_by = bound(nbytes, flops, dt)
+        print(f"[kernels] {name} long context ({label}, B=4 T=5 cur_len {LONG_CUR}, "
+              f"{LONG_PAGES} pages of 16): kernel {ms:.4f} ms ({time_ms(kern):.4f} ms as "
+              f"the host issues it), library {lib_ms:.4f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes), {ms / b_ms:.2f}x bound; "
+              f"{split_plan(q, kp, pt)}")
 
 
 # -- phases 4 and 5: serving -------------------------------------------------------

@@ -7,9 +7,12 @@
 // (q_len > 1, the speculative verify step), and their fused-dequant twins
 // paged_attention_quant / paged_attention_multi_quant.  There the page stream
 // was the sequential innermost grid axis and the online softmax state lived
-// in VMEM scratch across it; here blocks run in parallel and in no order, so
-// one thread block owns one (sequence b, kv head, tile of query rows) and
-// walks that sequence's pages in a loop, keeping m, l and acc in f32.
+// in VMEM scratch across it; here blocks run in parallel and in no order.
+// Two bodies share the arguments and the dtype dispatch: the single-token
+// entries run paged_attention_kernel (one block per sequence and kv head,
+// walking its pages), the draft-block entries run
+// paged_attention_split_kernel (split-KV on tensor cores; its note is
+// above it, further down).
 //
 //   q           (B, q_len, H, hd)          H = Hkv * g query heads
 //   k/v pool    (num_blocks, bs, Hkv, hd)  f32 / bf16 (the type of q), or
@@ -23,34 +26,31 @@
 // (token t, group member i); row r sits at position cur_len + r / g and sees
 // keys at positions <= cur_len + r / g (causal within the block) and, with a
 // window, cur_len + r / g - pos < window.  q is read in place as
-// q[b, t, kvh*g + i, :]: no transposed copy.  A block holds at most
-// kRowTile rows in registers; more rows (g > 16, or a long draft block) are
-// split into balanced tiles along grid z, each reading the pages again.
+// q[b, t, kvh*g + i, :]: no transposed copy.
 //
-// Pages.  A block walks pages j while j * bs <= its youngest row's position
-// (clamped to the table), and skips a page only when every row of the tile
-// masks it: behind the window of its oldest row.  It stages each page's
-// bs x hd slice of K and V for its kv head in f32 shared memory; for a
-// quantized pool it reads k_scale[page, kvh] and v_scale[page, kvh] once
-// per page, through the same page_table[b, j], and dequantizes while staging
-// (code * scale, in f32, as the TPU kernel does).  Positions are masked by
-// position, never by page id: table entries past a sequence's pages point
-// at trash block 0, whose contents are garbage, and a shielded or free slot
-// (cur_len 0, all-trash row) reads one page and comes out finite.  The output
-// divides by l, guarded l == 0 -> 1.
+// Masking is by position, never by page id: table entries past a sequence's
+// pages point at trash block 0, whose contents are garbage, and a shielded
+// or free slot (cur_len 0, all-trash row) reads one key and comes out
+// finite.  The output divides by l, guarded l == 0 -> 1.  A quantized pool's
+// k_scale[page, kvh] and v_scale[page, kvh] are read through the same
+// page_table[b, j] as the codes.
 //
-// What bounds it: memory.  Per (b, kv head) it must read the K and V bytes of
-// the live positions once and does 4 * q_len * g * hd flops per key, far
-// below the ~295 flops/byte the H100 needs before compute binds; int8 / fp8
-// codes halve the K/V bytes of bf16.  Known weakness: the grid is B x Hkv
-// (x row tiles) blocks, 32-64 at the serving shapes on 132 SMs, with four
-// barriers per page, so it is latency-bound at small batch; splitting each
-// sequence's pages over several blocks with a second reduction pass, and
-// 16-byte vector loads, are later work.
+// The single-token body.  One thread block owns one (sequence b, kv head)
+// and walks its pages in a loop, keeping m, l and acc in f32.  It walks
+// pages j while j * bs <= the row's position (clamped to the table), skips
+// pages behind the window, stages each page's bs x hd slice of K and V in
+// f32 shared memory (code * scale for a quantized pool), one warp per
+// (row, key) score, and the online softmax on one thread per row.  The
+// same body still serves q_len > 1 (row tiles of at most kRowTile along
+// grid z) but no entry sends it there.  What bounds it: memory (4 * g * hd
+// flops per key, far below the ~295 flops/byte at which the H100's compute
+// binds).  Known weakness: B x Hkv blocks (32 at the serving shape) on 132
+// SMs with four barriers per page, so it is latency-bound at small batch.
 
 #include <cuda_fp8.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -216,12 +216,538 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
+// ---- The draft-block body: split-KV on tensor cores ---------------------
+//
+// paged_attention_split_kernel serves paged_attention_multi and
+// paged_attention_multi_quant (the speculative verify step: q_len = k + 1
+// tokens, g query heads per kv head).  What it does about the single-token
+// body's limits at the verify shape (B = 4, T = 5, H = 32 / 8, hd 128, 9
+// pages of 16, where that body ran 64 blocks of 10 rows, each walking every
+// page in series, reading each page twice):
+//
+// * Split-KV.  Grid (B, Hkv, row tiles x splits): the page table is cut
+//   into splits of pages_per_split pages (the wrapper's plan_split picks it
+//   from the shape: about 528 blocks, at least 2 pages a split; 5 splits of
+//   2 pages, 160 blocks at the verify shape).  Each block writes its rows'
+//   unnormalized acc and their m and l, in f32, to a workspace; a second
+//   launch from the same C entry (combine_splits_kernel, launched as a
+//   programmatic dependent of the first so that its launch overlaps the
+//   first's tail) rescales the partials by exp(m - max m) and sums them.  A
+//   split none of whose keys a row may see leaves that row m = NEG_INF,
+//   l = 0, acc = 0, so it has no weight in the sum.  With one split the
+//   block writes the output itself.
+// * One block holds all q_len * g rows of its kv head, up to kMaxTileRows
+//   (64) rows, so each page is read once; beyond that the rows are cut into
+//   balanced tiles along grid z.
+// * Tensor cores for a bf16 q: Q K^T and P V run as mma.sync m16n8k16 bf16
+//   with f32 accumulators, fragments read by ldmatrix (V by
+//   ldmatrix.trans).  A warp takes one 16-row m-tile (20 rows pad to 2) and
+//   one column group of P V (see "Warps" below), so every warp of the block
+//   works and each holds a fraction of the accumulator.  wgmma is not used:
+//   its 64-row minimum would be two-thirds padding at 20 rows.  int8 codes
+//   (|x| <= 127) and fp8 e4m3 values are exact in bf16: the thread that
+//   copied a 16-byte chunk of codes converts it to bf16 in shared memory
+//   (double-buffered, before the tile's one barrier); the key's page k
+//   scale multiplies the f32 scores and its v scale is folded into P before
+//   P is rounded to bf16.  An f32 q (the card-vs-CPU checks) keeps the same
+//   tiling and fragment layout with f32 FMA products (not TF32).
+// * Pages in flight.  K and V arrive in their stored type (bf16 or 1-byte
+//   codes) in a ring of kStages = 3 tiles of kKeys = 16 key rows, by
+//   16-byte cp.async copies (a key row of one kv head is hd contiguous
+//   elements at a stride of Hkv * hd), so tiles i + 1 and i + 2 stream in
+//   while tile i computes; one barrier per tile.  Rows are addressed one by
+//   one through the table, so any block_size works.  Each thread owns one
+//   key row of every tile and fixed 16-byte columns of it, K and V share
+//   its address, and the row's page and in-page offset advance by kKeys a
+//   tile without a division.
+// * Softmax in registers, on the accumulator fragments: each quad of lanes
+//   holds two rows, whose max and sum are quad shuffles.
+//
+// What bounds it: memory, as for the single-token body (4 * q_len * g * hd
+// flops per key against 2 * hd bytes of K and V).  At the verify shape the
+// bound is under a microsecond, so the two launches and each block's chain
+// of latencies (table, then pages, then products) are the cost.  Integer
+// work is not free at these sizes: runtime divisions per copy address, or
+// byte-wise code conversion, cost more than the loads and the products
+// together, hence the fixed copy rows and the 16-code conversions.
+
+constexpr int kSplitThreads = 128;  // at most 4 warps
+constexpr int kMaxTileRows = 64;
+constexpr int kKeys = 16;           // key rows per tile: one k-step of P V
+constexpr int kKN = kKeys / 8;      // 8-wide n-tiles of a tile's scores
+constexpr int kStages = 3;          // tiles in the cp.async ring
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two values as packed bf16 (lo in the low half), the mma operand format.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// Programmatic dependent launch: the split kernel lets the combine pass
+// launch once its blocks are past their loads; the combine pass waits
+// for the split grid to finish (and its writes to be visible) before it
+// reads the workspace.
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Four 8 x 8 b16 matrices from shared memory, one row address a lane
+// (lanes 8i..8i+7 address matrix i); .trans hands each lane the transposed
+// fragment.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Fragment layout (m16n8, as mma.sync returns it): lane = 4 * gid + tig
+// holds rows gid and gid + 8, columns 2 * tig and 2 * tig + 1 of each 8-wide
+// n-tile: element c of a fragment is (row gid + 8 * (c / 2), column
+// 2 * tig + c % 2).  Scores s[nt][c] cover keys nt * 8 + 2 * tig + c % 2;
+// acc[n][c] covers head_dim columns (hc * kNT + n) * 8 + 2 * tig + c % 2.
+//
+// Warps.  Warp w takes m-tile w % nm (16 rows) and column group
+// hc = w / nm of P V: the block has nm * nc warps, nc = max(1, 4 / nm), and
+// each warp keeps kNT 8-wide column tiles of acc (kNT * nc * 8 >= hd).  The
+// warps of one m-tile each compute its (small) scores and softmax, then
+// their own columns of P V: all warps work, and acc takes a fraction of
+// the registers.
+template <typename T, typename C, bool kQuant, int kNT>
+__global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(
+    const T* __restrict__ q, const C* __restrict__ k_pool, const C* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ page_table, const int* __restrict__ cur_len, T* __restrict__ out,
+    float* __restrict__ ws, int q_len, int n_heads, int n_kv, int head_dim, int block_size,
+    int n_pages, int tile_rows, int pages_per_split, int n_splits, int window, float softcap,
+    float scale) {
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int tile = blockIdx.z / n_splits;
+  const int split = blockIdx.z - tile * n_splits;
+  const int g = n_heads / n_kv;
+  const int hd = head_dim;
+  const int bs = block_size;
+  const int rows = q_len * g;
+  const int r0 = tile * tile_rows;               // first row of this tile
+  const int nr = min(tile_rows, rows - r0);      // rows of this tile
+  const int nm = (tile_rows + 15) / 16;          // m-tiles
+  const int nthreads = blockDim.x;               // 32 * nm * nc
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int mt = warp % nm;                      // this warp's m-tile
+  const int n0 = (warp / nm) * kNT;              // and its first column tile
+
+  // Shared memory: Q (nm * 16 rows, zero past nr), the K/V ring, the ring's
+  // per-key scales, the split's page ids.  Rows are padded by 16 bytes so
+  // that the fragment loads of 8 rows fall in distinct banks.
+  const int qstride = hd + 16 / static_cast<int>(sizeof(T));
+  const int kvstride = hd + 16 / static_cast<int>(sizeof(C));
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  C* kv_s = reinterpret_cast<C*>(smem_raw + static_cast<size_t>(nm) * 16 * qstride * sizeof(T));
+  float* sc_s =
+      reinterpret_cast<float*>(kv_s + static_cast<size_t>(kStages) * 2 * kKeys * kvstride);
+  // Two tiles of codes converted to bf16 for the tensor cores (code pools):
+  // tile it is converted into buffer it % 2 while tile it - 1 may still be
+  // read from the other.
+  constexpr bool kCodes = kMma && !std::is_same<C, __nv_bfloat16>::value;
+  const int bstride = hd + 8;
+  __nv_bfloat16* kvb_s = reinterpret_cast<__nv_bfloat16*>(sc_s + kStages * 2 * kKeys);
+  int* pages_s = reinterpret_cast<int*>(kvb_s + (kCodes ? 2 * 2 * kKeys * bstride : 0));
+
+  auto row_offset = [&](int rr) -> size_t {  // of tile row rr in q and out
+    const int r = r0 + rr;
+    const int t = r / g;
+    return ((static_cast<size_t>(b) * q_len + t) * n_heads + kvh * g + (r - t * g)) * hd;
+  };
+
+  // Q by 16-byte copies, one warp per row (rows past nr zero-filled); they
+  // join the first tile's copy group.
+  constexpr int kQChunk = 16 / sizeof(T);
+  const int qcpr = hd / kQChunk;
+  for (int rr = warp; rr < nm * 16; rr += nthreads / 32) {
+    const bool ok = rr < nr;
+    const T* src = ok ? q + row_offset(rr) : q;
+    for (int ch = lane; ch < qcpr; ch += 32)
+      cp_async16(q_s + rr * qstride + ch * kQChunk, ok ? src + ch * kQChunk : q, ok);
+  }
+  // The split's page ids (they do not depend on cur_len: both loads fly
+  // together).
+  const int page0 = split * pages_per_split;
+  const int split_pages = min(pages_per_split, n_pages - page0);
+  for (int i = tid; i < split_pages; i += nthreads)
+    pages_s[i] = page_table[static_cast<size_t>(b) * n_pages + page0 + i];
+
+  // This block's keys: its split's positions, cut to what some row of the
+  // tile may see (behind the youngest row, inside the oldest row's window,
+  // inside the table).
+  const int cur = cur_len[b];
+  const int oldest = cur + r0 / g;
+  const int youngest = cur + (r0 + nr - 1) / g;
+  int k_lo = page0 * bs;
+  if (window > 0) k_lo = max(k_lo, oldest - window + 1);
+  const int k_hi = min((page0 + split_pages) * bs - 1, youngest);
+  const int n_tiles = k_hi >= k_lo ? (k_hi - k_lo) / kKeys + 1 : 0;
+
+  // Copies: thread tid owns key row my_kk of every tile, its 16-byte
+  // chunks my_ch0, my_ch0 + tpr, ... in K and in V alike (one address), and
+  // that row's two scales; the row's page (an index into pages_s) and
+  // in-page offset advance by kKeys positions a tile without a division.
+  constexpr int kChunk = 16 / sizeof(C);  // elements per 16-byte copy
+  const int cpr = hd / kChunk;            // copies per key row
+  const int tpr = nthreads / kKeys;       // threads per key row
+  const int my_kk = tid / tpr;
+  const int my_ch0 = tid - my_kk * tpr;
+  int my_pg = (k_lo + my_kk) / bs - page0;
+  int my_off = (k_lo + my_kk) % bs;
+  __syncthreads();  // pages_s ready
+
+  // Issue tile `it` (keys k_lo + it * kKeys ...) into ring stage it % kStages
+  // (tiles are issued in order, one a call); always commits a group, empty
+  // past the last tile.
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      const bool ok = k_lo + it * kKeys + my_kk <= k_hi;
+      const int st = it % kStages;
+      const size_t page = ok ? static_cast<size_t>(pages_s[my_pg]) : 0;
+      const size_t row = (page * bs + my_off) * n_kv + kvh;
+      C* k_dst = kv_s + (static_cast<size_t>(st) * 2 * kKeys + my_kk) * kvstride;
+      C* v_dst = k_dst + kKeys * kvstride;
+      for (int ch = my_ch0; ch < cpr; ch += tpr) {
+        cp_async16(k_dst + ch * kChunk, k_pool + row * hd + ch * kChunk, ok);
+        cp_async16(v_dst + ch * kChunk, v_pool + row * hd + ch * kChunk, ok);
+      }
+      if constexpr (kQuant) {
+        if (my_ch0 == 0) {
+          cp_async4(sc_s + st * 2 * kKeys + my_kk, k_scale + page * n_kv + kvh, ok);
+          cp_async4(sc_s + st * 2 * kKeys + kKeys + my_kk, v_scale + page * n_kv + kvh, ok);
+        }
+      }
+      my_off += kKeys;
+      while (my_off >= bs) {
+        my_off -= bs;
+        ++my_pg;
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int ra = mt * 16 + gid;  // this thread's two tile rows
+  const int rb = ra + 8;
+  const int qpos_a = ra < nr ? cur + (r0 + ra) / g : -1;  // -1: a pad row sees nothing
+  const int qpos_b = rb < nr ? cur + (r0 + rb) / g : -1;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;  // l: this thread's part
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) issue(it);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile it landed
+    if constexpr (kCodes) {
+      // Each thread converts the 16-byte chunks it copied: 16 codes, exact
+      // in bf16, into the tile's bf16 buffer.
+      const C* src = kv_s + (static_cast<size_t>(st) * 2 * kKeys + my_kk) * kvstride;
+      __nv_bfloat16* dst = kvb_s + ((it & 1) * 2 * kKeys + my_kk) * bstride;
+      for (int ch = my_ch0; ch < cpr; ch += tpr) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {  // K, then V
+          const uint4 raw = *reinterpret_cast<const uint4*>(src + m * kKeys * kvstride + ch * 16);
+          const C* c = reinterpret_cast<const C*>(&raw);
+          uint32_t o[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[e] = pack_bf16(to_f32(c[2 * e]), to_f32(c[2 * e + 1]));
+          uint4* d = reinterpret_cast<uint4*>(dst + m * kKeys * bstride + ch * 16);
+          d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+          d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+        }
+      }
+    }
+    __syncthreads();  // everyone's copies (and conversions) of tile it are in;
+                      // tile it - 1 is consumed
+    issue(it + kStages - 1);
+    const int base = k_lo + it * kKeys;
+    const C* k_t = kv_s + static_cast<size_t>(st) * 2 * kKeys * kvstride;
+    const C* v_t = k_t + kKeys * kvstride;
+    const float* ks_t = sc_s + st * 2 * kKeys;
+    const float* vs_t = ks_t + kKeys;
+    // The bf16 K and V tiles the tensor cores read: the ring's own for a
+    // bf16 pool, the converted buffer for codes.
+    const __nv_bfloat16* kb_t = nullptr;
+    if constexpr (kCodes) {
+      kb_t = kvb_s + (it & 1) * 2 * kKeys * bstride;
+    } else if constexpr (kMma) {
+      kb_t = k_t;
+    }
+
+    // Scores of rows ra, rb against the tile's kKeys keys (kKN n-tiles of 8).
+    float s[kKN][4];
+#pragma unroll
+    for (int nt = 0; nt < kKN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
+    if constexpr (kMma) {
+      // ldmatrix addresses: Q rows (lane & 15) at column half lane >> 4;
+      // K keys (lane & 7) + 8 * (lane >> 4) at column half (lane >> 3) & 1.
+      const T* qa = q_s + (mt * 16 + (lane & 15)) * qstride + (lane >> 4) * 8;
+      const int kbs = kCodes ? bstride : kvstride;
+      const __nv_bfloat16* ka = kb_t + ((lane & 7) + (lane >> 4) * 8) * kbs + ((lane >> 3) & 1) * 8;
+#pragma unroll 4
+      for (int kb = 0; kb < hd / 16; ++kb) {
+        uint32_t a[4], kf[4];
+        ldsm_x4(a, qa + kb * 16);
+        ldsm_x4(kf, ka + kb * 16);
+        mma_bf16(s[0], a, kf[0], kf[1]);
+        mma_bf16(s[1], a, kf[2], kf[3]);
+      }
+    } else {
+      const T* qa = q_s + ra * qstride;
+      const T* qb = qa + 8 * qstride;
+#pragma unroll
+      for (int nt = 0; nt < kKN; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const C* kr = k_t + (nt * 8 + 2 * tig + j) * kvstride;
+          float sa = 0.f, sb = 0.f;
+          for (int d = 0; d < hd; ++d) {
+            const float kv = to_f32(kr[d]);
+            sa += to_f32(qa[d]) * kv;
+            sb += to_f32(qb[d]) * kv;
+          }
+          s[nt][j] = sa;
+          s[nt][2 + j] = sb;
+        }
+    }
+
+    // Scale, softcap, mask by position; the online softmax on the fragments.
+    bool ok[kKN][4];
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int nt = 0; nt < kKN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = nt * 8 + 2 * tig + (c & 1);
+        const int pos = base + key;
+        const int qpos = c < 2 ? qpos_a : qpos_b;
+        float v = s[nt][c] * scale;
+        if constexpr (kQuant) v *= ks_t[key];
+        v = apply_softcap(v, softcap);
+        ok[nt][c] = pos <= k_hi && pos <= qpos && (window <= 0 || qpos - pos < window);
+        s[nt][c] = v;
+        if (ok[nt][c]) {
+          if (c < 2) mx_a = fmaxf(mx_a, v);
+          else mx_b = fmaxf(mx_b, v);
+        }
+      }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float alpha_a = expf(m_a - mn_a);
+    const float alpha_b = expf(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kKN; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = ok[nt][c] ? expf(s[nt][c] - (c < 2 ? mn_a : mn_b)) : 0.f;
+        if (c < 2) sum_a += p;
+        else sum_b += p;
+        // P as P V consumes it: the key's v scale folded in.
+        s[nt][c] = kQuant ? p * vs_t[nt * 8 + 2 * tig + (c & 1)] : p;
+      }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      acc[n][0] *= alpha_a;
+      acc[n][1] *= alpha_a;
+      acc[n][2] *= alpha_b;
+      acc[n][3] *= alpha_b;
+    }
+
+    // acc += P V over this warp's columns.  The score fragments of the
+    // tile's two key n-tiles are exactly the A fragment of a 16 x 16 P.
+    if constexpr (kMma) {
+      const uint32_t a[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                             pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      // V by ldmatrix.trans, two column tiles at a time: keys (lane & 7) +
+      // 8 * ((lane >> 3) & 1), column tile + (lane >> 4).
+      const int vbs = kCodes ? bstride : kvstride;
+      const __nv_bfloat16* va = kb_t + kKeys * vbs +
+                                ((lane & 7) + ((lane >> 3) & 1) * 8) * vbs + (lane >> 4) * 8;
+#pragma unroll
+      for (int n = 0; n < kNT; n += 2) {
+        if ((n0 + n) * 8 < hd) {  // head_dim % 16 == 0: column tiles come in pairs
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, va + (n0 + n) * 8);
+          mma_bf16(acc[n], a, vf[0], vf[1]);
+          mma_bf16(acc[n + 1], a, vf[2], vf[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kKeys; ++kk) {
+        const int src = (lane & ~3) | ((kk & 7) >> 1);  // the lane holding key kk
+        const float pa = __shfl_sync(0xffffffffu, s[kk >> 3][kk & 1], src);
+        const float pb = __shfl_sync(0xffffffffu, s[kk >> 3][2 + (kk & 1)], src);
+        const C* vr = v_t + kk * kvstride + 2 * tig;
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          if ((n0 + n) * 8 < hd) {
+            const float v0 = to_f32(vr[(n0 + n) * 8]);
+            const float v1 = to_f32(vr[(n0 + n) * 8 + 1]);
+            acc[n][0] += pa * v0;
+            acc[n][1] += pa * v1;
+            acc[n][2] += pb * v0;
+            acc[n][3] += pb * v1;
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  grid_dep_launch();
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = h ? rb : ra;
+    if (rr >= nr) continue;
+    const float m = h ? m_b : m_a;
+    const float l = h ? l_b : l_a;
+    if (n_splits == 1) {
+      const float inv = 1.f / (l == 0.f ? 1.f : l);
+      T* o = out + row_offset(rr);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const int d = (n0 + n) * 8 + 2 * tig;
+        if (d < hd) {
+          o[d] = from_f32<T>(acc[n][2 * h] * inv);
+          o[d + 1] = from_f32<T>(acc[n][2 * h + 1] * inv);
+        }
+      }
+    } else {
+      float* w = ws + ((static_cast<size_t>(b * n_kv + kvh) * n_splits + split) * rows + r0 + rr) *
+                          (hd + 2);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const int d = (n0 + n) * 8 + 2 * tig;
+        if (d < hd) *reinterpret_cast<float2*>(w + d) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+      if (n0 == 0 && tig == 0) *reinterpret_cast<float2*>(w + hd) = make_float2(m, l);
+    }
+  }
+}
+
+// The second pass of a split call: out = sum_s w_s acc_s / sum_s w_s l_s
+// with w_s = exp(m_s - max m), l == 0 -> 1.  Grid (B, Hkv, row column
+// pairs / kSplitThreads): one thread per output row and column pair, its
+// loop over the splits unrolled so that their loads are in flight together.
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads) combine_splits_kernel(
+    const float* __restrict__ ws, T* __restrict__ out, int q_len, int n_heads, int n_kv,
+    int head_dim, int n_splits) {
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int g = n_heads / n_kv;
+  const int hd = head_dim;
+  const int rows = q_len * g;
+  const int i = blockIdx.z * kSplitThreads + threadIdx.x;
+  grid_dep_wait();
+  if (i >= rows * (hd / 2)) return;
+  const int r = i / (hd / 2);
+  const int d = 2 * (i - r * (hd / 2));
+  const size_t step = static_cast<size_t>(rows) * (hd + 2);  // from one split to the next
+  const float* p = ws + (static_cast<size_t>(b * n_kv + kvh) * n_splits * rows + r) * (hd + 2);
+  float mx = NEG_INF;
+#pragma unroll 8
+  for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, p[s * step + hd]);
+  float l = 0.f, o0 = 0.f, o1 = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < n_splits; ++s) {
+    const float* ps = p + s * step;
+    const float w = expf(ps[hd] - mx);
+    const float2 a = *reinterpret_cast<const float2*>(ps + d);
+    l += w * ps[hd + 1];
+    o0 += w * a.x;
+    o1 += w * a.y;
+  }
+  if (l == 0.f) l = 1.f;
+  const int t = r / g;
+  T* o = out + ((static_cast<size_t>(b) * q_len + t) * n_heads + kvh * g + (r - t * g)) * hd + d;
+  o[0] = from_f32<T>(o0 / l);
+  o[1] = from_f32<T>(o1 / l);
+}
+
 struct Args {
   const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *page_table, *cur_len;
   void* out;
   int batch, q_len, n_heads, n_kv, head_dim, block_size, n_pages, window;
   float softcap, scale;
   cudaStream_t stream;
+  // The draft-block body's split (plan_split in the wrapper) and its f32
+  // workspace (null with one split).
+  int tile_rows = 0, pages_per_split = 0;
+  void* ws = nullptr;
 };
 
 template <typename T, typename C, bool kQuant>
@@ -243,6 +769,84 @@ cudaError_t launch(const Args& a) {
       static_cast<const int*>(a.cur_len), static_cast<T*>(a.out), a.q_len, a.n_heads,
       a.n_kv, a.head_dim, a.block_size, a.n_pages, tile_rows, a.window, a.softcap, a.scale);
   return cudaGetLastError();
+}
+
+template <typename T, typename C, bool kQuant, int kNT>
+cudaError_t launch_split(const Args& a, int nm, int nc) {
+  const int rows = a.q_len * (a.n_heads / a.n_kv);
+  const int tiles = (rows + a.tile_rows - 1) / a.tile_rows;
+  const int n_splits = (a.n_pages + a.pages_per_split - 1) / a.pages_per_split;
+  const size_t smem = static_cast<size_t>(nm) * 16 * (a.head_dim * sizeof(T) + 16) +
+                      static_cast<size_t>(kStages) * 2 * kKeys * (a.head_dim * sizeof(C) + 16) +
+                      sizeof(float) * kStages * 2 * kKeys + sizeof(int) * a.pages_per_split +
+                      (std::is_same<T, __nv_bfloat16>::value && !std::is_same<C, T>::value
+                           ? sizeof(__nv_bfloat16) * 2 * 2 * kKeys * (a.head_dim + 8)
+                           : 0);
+  auto kernel = paged_attention_split_kernel<T, C, kQuant, kNT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int threads = 32 * nm * nc;
+  kernel<<<dim3(a.batch, a.n_kv, tiles * n_splits), threads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k_pool),
+      static_cast<const C*>(a.v_pool), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.page_table),
+      static_cast<const int*>(a.cur_len), static_cast<T*>(a.out), static_cast<float*>(a.ws),
+      a.q_len, a.n_heads, a.n_kv, a.head_dim, a.block_size, a.n_pages, a.tile_rows,
+      a.pages_per_split, n_splits, a.window, a.softcap, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return err;
+  const int pairs = rows * (a.head_dim / 2);
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.batch, a.n_kv, (pairs + kSplitThreads - 1) / kSplitThreads);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.stream = a.stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, combine_splits_kernel<T>, static_cast<const float*>(a.ws),
+                            static_cast<T*>(a.out), a.q_len, a.n_heads, a.n_kv, a.head_dim,
+                            n_splits);
+}
+
+// The warps: nm m-tiles times nc = max(1, 4 / nm) column groups of P V,
+// each kNT 8-wide column tiles wide (the least of 4, 8, 16, 32 that
+// covers head_dim).
+template <typename T, typename C, bool kQuant>
+cudaError_t launch_split_hd(const Args& a) {
+  const int nm = (a.tile_rows + 15) / 16;
+  const int nc = nm >= 4 ? 1 : 4 / nm;
+  const int need = (a.head_dim / 8 + nc - 1) / nc;  // column tiles per warp
+  if (need <= 4) return launch_split<T, C, kQuant, 4>(a, nm, nc);
+  if (need <= 8) return launch_split<T, C, kQuant, 8>(a, nm, nc);
+  if (need <= 16) return launch_split<T, C, kQuant, 16>(a, nm, nc);
+  return launch_split<T, C, kQuant, 32>(a, nm, nc);
+}
+
+template <typename T>
+cudaError_t launch_split_codes(int code, const Args& a) {
+  switch (code) {
+    case DTYPE_INT8: return launch_split_hd<T, int8_t, true>(a);
+    case DTYPE_FP8: return launch_split_hd<T, __nv_fp8_e4m3, true>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The draft-block entries: dtype and code as for run().
+int run_split(int dtype, int code, const Args& a) {
+  if (a.n_kv <= 0 || a.n_heads % a.n_kv != 0 || a.head_dim < 16 || a.head_dim % 16 != 0 ||
+      a.head_dim > 256 || a.block_size < 1 || a.n_pages < 1 || a.batch < 1 || a.q_len < 1 ||
+      a.tile_rows < 1 || a.tile_rows > kMaxTileRows || a.pages_per_split < 1 ||
+      (a.pages_per_split < a.n_pages && a.ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == DTYPE_F32)
+    err = code < 0 ? launch_split_hd<float, float, false>(a) : launch_split_codes<float>(code, a);
+  else if (dtype == DTYPE_BF16)
+    err = code < 0 ? launch_split_hd<__nv_bfloat16, __nv_bfloat16, false>(a)
+                   : launch_split_codes<__nv_bfloat16>(code, a);
+  return static_cast<int>(err);
 }
 
 template <typename T>
@@ -284,15 +888,21 @@ extern "C" int paged_attention(int dtype, const void* q, const void* k_pool,
                              softcap, scale, static_cast<cudaStream_t>(stream)});
 }
 
+// The draft-block entries also take the split (tile_rows, pages_per_split)
+// and the f32 workspace of the wrapper's plan_split; one call launches the
+// split kernel and, with more than one split, the combine pass.
 extern "C" int paged_attention_multi(int dtype, const void* q, const void* k_pool,
                                      const void* v_pool, const void* page_table,
-                                     const void* cur_len, void* out, int batch, int q_len,
+                                     const void* cur_len, void* out, void* ws, int batch,
+                                     int q_len, int tile_rows, int pages_per_split,
                                      int n_heads, int n_kv, int head_dim, int block_size,
                                      int n_pages, int window, float softcap, float scale,
                                      void* stream) {
-  return run(dtype, -1, Args{q, k_pool, v_pool, nullptr, nullptr, page_table, cur_len, out,
-                             batch, q_len, n_heads, n_kv, head_dim, block_size, n_pages,
-                             window, softcap, scale, static_cast<cudaStream_t>(stream)});
+  return run_split(dtype, -1, Args{q, k_pool, v_pool, nullptr, nullptr, page_table, cur_len,
+                                   out, batch, q_len, n_heads, n_kv, head_dim, block_size,
+                                   n_pages, window, softcap, scale,
+                                   static_cast<cudaStream_t>(stream), tile_rows,
+                                   pages_per_split, ws});
 }
 
 extern "C" int paged_attention_quant(int dtype, int code, const void* q, const void* k_pool,
@@ -311,13 +921,15 @@ extern "C" int paged_attention_multi_quant(int dtype, int code, const void* q,
                                            const void* k_pool, const void* v_pool,
                                            const void* k_scale, const void* v_scale,
                                            const void* page_table, const void* cur_len,
-                                           void* out, int batch, int q_len, int n_heads,
+                                           void* out, void* ws, int batch, int q_len,
+                                           int tile_rows, int pages_per_split, int n_heads,
                                            int n_kv, int head_dim, int block_size,
                                            int n_pages, int window, float softcap,
                                            float scale, void* stream) {
   if (code < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run(dtype, code, Args{q, k_pool, v_pool, k_scale, v_scale, page_table, cur_len,
-                               out, batch, q_len, n_heads, n_kv, head_dim, block_size,
-                               n_pages, window, softcap, scale,
-                               static_cast<cudaStream_t>(stream)});
+  return run_split(dtype, code, Args{q, k_pool, v_pool, k_scale, v_scale, page_table, cur_len,
+                                     out, batch, q_len, n_heads, n_kv, head_dim, block_size,
+                                     n_pages, window, softcap, scale,
+                                     static_cast<cudaStream_t>(stream), tile_rows,
+                                     pages_per_split, ws});
 }

@@ -6,9 +6,11 @@ in each of its uses: single-token queries (``paged_attention``), a
 ``q_len > 1`` draft block per row (``paged_attention_multi``, the
 speculative verify step), and their fused-dequant twins over int8 / fp8
 pools with per-(page, kv head) f32 scales (``paged_attention_quant``,
-``paged_attention_multi_quant``).  One CUDA body serves all four; each
-entry has its own :class:`CudaKernel` and launch count.  The kernel's
-design and bound are in the CUDA source's header.
+``paged_attention_multi_quant``).  The single-token entries run one CUDA
+body, the draft-block entries another (split-KV on tensor cores, cut as
+:func:`plan_split` says); each entry has its own :class:`CudaKernel` and
+launch count, one per call.  The kernels' designs and bounds are in the
+CUDA source's notes.
 
 On a CPU tensor a wrapper runs its plain version (from ``kernels/ref.py``);
 on a CUDA tensor it launches the kernel or raises — it never falls back.
@@ -17,6 +19,7 @@ on a CUDA tensor it launches the kernel or raises — it never falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -37,12 +40,60 @@ _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _GEOM = [_I, _I, _I, _I, _I, _I, _F, _F, _P]
 KERNEL = CudaKernel("paged_attention.cu", "paged_attention",
                     [_I, *[_P] * 6, _I, *_GEOM])
+# The draft-block entries: ... out, workspace, batch, q_len, tile_rows,
+# pages_per_split, then the geometry.
 MULTI_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_multi",
-                          [_I, *[_P] * 6, _I, _I, *_GEOM])
+                          [_I, *[_P] * 7, _I, _I, _I, _I, *_GEOM])
 QUANT_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_quant",
                           [_I, _I, *[_P] * 8, _I, *_GEOM])
 MULTI_QUANT_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_multi_quant",
-                                [_I, _I, *[_P] * 8, _I, _I, *_GEOM])
+                                [_I, _I, *[_P] * 9, _I, _I, _I, _I, *_GEOM])
+
+
+MAX_TILE_ROWS = 64  # query rows one block of the draft-block kernel holds
+TARGET_BLOCKS = 4 * 132  # about four blocks on each of the H100's 132 SMs
+MIN_PAGES_PER_SPLIT = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the draft-block kernel cuts one call: the q_len * g rows of a
+    (sequence, kv head) into ``tiles`` balanced tiles of at most
+    ``tile_rows``, and the page table into ``n_splits`` ranges of
+    ``pages_per_split`` pages (the last may be shorter).  One block per
+    (sequence, kv head, tile, split); with more than one split each block
+    writes partial (m, l, acc) rows to an f32 workspace of
+    ``workspace_shape`` (acc in the first head_dim columns, then m and l)
+    and a combine pass sums them."""
+
+    tiles: int
+    tile_rows: int
+    pages_per_split: int
+    n_splits: int
+    grid: tuple[int, int, int]
+    workspace_shape: tuple[int, int] | None
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def plan_split(batch: int, n_kv: int, q_len: int, group: int, n_pages: int,
+               head_dim: int) -> SplitPlan:
+    """The draft-block kernel's split of a call, from its shape alone (the
+    host never reads cur_len): enough splits for about TARGET_BLOCKS blocks,
+    but at least MIN_PAGES_PER_SPLIT pages per split where the table has
+    them."""
+    rows = q_len * group
+    tiles = -(-rows // MAX_TILE_ROWS)
+    tile_rows = -(-rows // tiles)
+    pairs = batch * n_kv * tiles
+    max_splits = max(1, -(-n_pages // MIN_PAGES_PER_SPLIT))
+    splits = min(max(1, -(-TARGET_BLOCKS // pairs)), max_splits)
+    pps = -(-n_pages // splits)
+    n_splits = -(-n_pages // pps)
+    ws = (batch * n_kv * n_splits * rows, head_dim + 2) if n_splits > 1 else None
+    return SplitPlan(tiles, tile_rows, pps, n_splits, (batch, n_kv, tiles * n_splits), ws)
 
 
 def _check_inputs(q, k_pool, v_pool, page_table, cur_len, *, q_dims: int,
@@ -96,6 +147,24 @@ def _check_inputs(q, k_pool, v_pool, page_table, cur_len, *, q_dims: int,
         raise ValueError(f"{name}: inputs must be contiguous")
     if q.device.type == "cuda" and hd > MAX_HEAD_DIM:
         raise ValueError(f"{name} kernel: head_dim at most {MAX_HEAD_DIM}, got {hd}")
+    if q.device.type == "cuda" and q_dims == 4:
+        # The draft-block kernel: mma k-steps of 16 columns, 16-byte copies.
+        if hd % 16:
+            raise ValueError(f"{name} kernel: head_dim a multiple of 16, got {hd}")
+        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+            raise ValueError(f"{name} kernel: q and pools must start on a 16-byte boundary")
+
+
+def _split_args(q, k_pool, page_table) -> tuple[torch.Tensor | None, list]:
+    """The draft-block entries' workspace (kept alive by the caller across
+    the launch) and their workspace pointer, batch, q_len, tile_rows and
+    pages_per_split arguments, from :func:`plan_split`."""
+    b, t, h, hd = q.shape
+    hkv = k_pool.shape[2]
+    plan = plan_split(b, hkv, t, h // hkv, page_table.shape[1], hd)
+    ws = (torch.empty(plan.workspace_shape, dtype=torch.float32, device=q.device)
+          if plan.workspace_shape else None)
+    return ws, [None if ws is None else ptr(ws), b, t, plan.tile_rows, plan.pages_per_split]
 
 
 def _geometry(q, k_pool, page_table, window, softcap, scale) -> list:
@@ -142,8 +211,9 @@ def paged_attention_multi(
         return paged_attention_multi_plain(q, k_pool, v_pool, page_table, cur_len,
                                            window=window, softcap=softcap, scale=scale)
     out = torch.empty_like(q)
+    ws, split = _split_args(q, k_pool, page_table)
     MULTI_KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k_pool), ptr(v_pool),
-                        ptr(page_table), ptr(cur_len), ptr(out), q.shape[0], q.shape[1],
+                        ptr(page_table), ptr(cur_len), ptr(out), *split,
                         *_geometry(q, k_pool, page_table, window, softcap, scale))
     return out
 
@@ -195,8 +265,9 @@ def paged_attention_multi_quant(
             q, k_pool, v_pool, k_scale, v_scale, page_table, cur_len, window=window,
             softcap=softcap, scale=scale)
     out = torch.empty_like(q)
+    ws, split = _split_args(q, k_pool, page_table)
     MULTI_QUANT_KERNEL.launch(_DTYPES[q.dtype], _CODES[k_pool.dtype], ptr(q), ptr(k_pool),
                               ptr(v_pool), ptr(k_scale), ptr(v_scale), ptr(page_table),
-                              ptr(cur_len), ptr(out), q.shape[0], q.shape[1],
+                              ptr(cur_len), ptr(out), *split,
                               *_geometry(q, k_pool, page_table, window, softcap, scale))
     return out

@@ -121,6 +121,55 @@ def paged_attention_multi_quant_ref(q, k_pool, v_pool, k_scale, v_scale, page_ta
         page_table, cur_len, window=window, softcap=softcap, scale=scale)
 
 
+def paged_attention_multi_split_plain(q, k_pool, v_pool, page_table, cur_len, *,
+                                      pages_per_split: int, window: int = 0,
+                                      softcap: float = 0.0, scale: float | None = None,
+                                      k_scale=None, v_scale=None) -> torch.Tensor:
+    """The draft-block kernel's split-and-combine arithmetic in plain
+    PyTorch, for the tests (the main path never calls it).  The page table
+    is cut into splits of ``pages_per_split`` pages; each split keeps, per
+    row, the max m of the scores it may see, l = sum exp(s - m) and acc =
+    sum exp(s - m) v over those keys only (a split with none: m = NEG_INF,
+    l = 0, acc = 0); the combine weighs split s by exp(m_s - max m) and
+    divides the summed acc by the summed l (l == 0 -> 1).  With
+    ``k_scale``/``v_scale`` the pools hold codes, dequantized as
+    ``code * scale``.  Equal to :func:`paged_attention_multi_ref` up to f32
+    rounding wherever every row sees some key."""
+    if k_scale is not None:
+        k_pool, v_pool = _dequant_pool(k_pool, k_scale), _dequant_pool(v_pool, v_scale)
+    b, t, h, hd = q.shape
+    _, bs, hkv, _ = k_pool.shape
+    g = h // hkv
+    n_pages = page_table.shape[1]
+    n_splits = -(-n_pages // pages_per_split)
+    span = pages_per_split * bs
+    s_pad = n_splits * span
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    pt = page_table.long()
+    k = k_pool[pt].reshape(b, n_pages * bs, hkv, hd).float()
+    v = v_pool[pt].reshape(b, n_pages * bs, hkv, hd).float()
+    pad = s_pad - n_pages * bs  # the last split's missing pages: never seen
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.float().reshape(b, t, hkv, g, hd)
+    s = _softcap(torch.einsum("btngd,bknd->bngtk", qf, k) * scale, softcap)
+    pos = torch.arange(s_pad, device=q.device)[None, None, :]
+    qpos = cur_len.long()[:, None, None] + torch.arange(t, device=q.device)[None, :, None]
+    ok = (pos <= qpos) & (pos < n_pages * bs)
+    if window > 0:
+        ok = ok & (qpos - pos < window)
+    ok = ok[:, None, None].expand_as(s).reshape(*s.shape[:-1], n_splits, span)
+    s = s.reshape(ok.shape)
+    m = torch.where(ok, s, torch.full_like(s, NEG_INF)).amax(-1)  # (b, n, g, t, splits)
+    p = torch.where(ok, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    acc = torch.einsum("bngtsk,bsknd->bngtsd", p, v.reshape(b, n_splits, span, hkv, hd))
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    lsum = (w * l).sum(-1)
+    out = (w[..., None] * acc).sum(-2) / torch.where(lsum == 0, 1.0, lsum)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, Hkv, hd)

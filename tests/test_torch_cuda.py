@@ -131,6 +131,16 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         ops.paged_attention_quant(q, kp.half(), vp.half(), sc, sc, pt, cl)
     with pytest.raises(ValueError, match="num_blocks, Hkv"):
         ops.paged_attention_multi_quant(q[:, None], codes, codes, sc[1:], sc, pt, cl)
+    # The draft-block kernel takes head_dim in multiples of 16 (the
+    # single-token one any head_dim up to 256).
+    q24 = torch.zeros((4, 2, 32, 24), device=cuda)
+    pool24 = torch.zeros((*kp.shape[:3], 24), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.paged_attention_multi(q24, pool24, pool24, pt, cl)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.paged_attention_multi_quant(q24, pool24.to(torch.int8), pool24.to(torch.int8),
+                                        sc, sc, pt, cl)
+    assert ops.paged_attention(q24[:, 0].contiguous(), pool24, pool24, pt, cl).shape == (4, 32, 24)
 
 
 def _quantize(pool, kv_dtype):
@@ -145,12 +155,19 @@ MULTI_CASES = [
     dict(t=5, cur=[14, 30, 60, 141]),  # page edges; row 3 runs past the table
     dict(t=5, cur=[139, 111, 88, 0], window=32, softcap=30.0, trash_row=3),
     dict(t=5, cur=[7, 3, 12, 0], hd=64, g=2, bs=8),
-    dict(t=3, cur=[40, 7, 12, 21], g=8),  # 24 rows: two row tiles
+    dict(t=3, cur=[40, 7, 12, 21], g=8),  # 24 rows
+    dict(t=17, cur=[120, 100, 64, 3]),  # 68 rows: two row tiles of 34
+    dict(t=5, cur=[139, 111, 88, 76], g=1),
+    dict(t=5, cur=[139, 111, 88, 76], g=8),
+    dict(t=5, cur=[60, 33, 17, 0], hd=64),
+    dict(t=5, cur=[139, 111, 88, 76], hd=256),
+    dict(t=5, cur=[139, 130, 127, 100], window=16),  # whole splits behind the window
+    dict(t=5, cur=[2043, 2027, 2011, 1995], n_pages=128),  # 8 pages a split
 ]
 
 
 def _draft_inputs(dtype, case, cuda):
-    shape = {k: case[k] for k in ("hd", "g", "bs") if k in case}
+    shape = {k: case[k] for k in ("hd", "g", "bs", "n_pages") if k in case}
     t = case["t"]
     q, kp, vp, pt, cl = _paged(dtype, case["cur"], trash_row=case.get("trash_row"),
                                **shape)
