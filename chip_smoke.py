@@ -35,9 +35,12 @@ Phases (any failed check raises, and the script exits non-zero):
      calls queued behind a spin kernel (device time; the host's issue rate
      is printed beside), the plain versions with CUDA events as issued.  The
      draft-block entries are held over row tiles (68 rows), g = 1 and 8,
-     head_dim 64 and 256 and splits behind the window as well, print their
-     split plan and grid beside their times, and are timed again at a long
-     context (128 pages of 16) beside their bound and SDPA.
+     head_dim 64 and 256 and splits behind the window as well; the
+     quantized entries over V codes that cancel (bf16 q, q_len 1 and 5)
+     within 1e-4, which only P at f32 accuracy meets.  All four paged
+     entries run the split body, print its split plan and grid beside their
+     times, and are timed again at a long context (128 pages of 16) beside
+     their bound and SDPA.
   4. card vs CPU: qwen3-4b at full width cut to 2 layers, f32, 6 requests
      served on cuda (kernels) and on cpu (plain versions): admission logits
      allclose (atol 2e-3, rtol 1e-3) and greedy tokens identical per uid;
@@ -73,7 +76,8 @@ Phases (any failed check raises, and the script exits non-zero):
      H2D / D2H bandwidth of a 256 MB copy.  The improvement is reported,
      not asserted.
 With --profile, phases 5 and 6 add a torch.profiler breakdown (device busy
-time by kernel, idle share) of the plain, oracle-spec, int8 and mamba
+time by kernel and by group, the paged-attention group's split and combine
+launches together; idle share) of the plain, oracle-spec, int8 and mamba
 contiguous serves.  The last three lines of stdout are the card's name
 and power limit, the kernels JSON and the result JSON.
 """
@@ -109,6 +113,11 @@ PROMPT_LENS = (128, 100, 77, 128, 64, 33)
 NEW_TOKENS, SLOTS, CHUNK, BLOCK = 16, 4, 64, 16
 SPEC_K, SEGMENT = 4, 16  # draft tokens per verify step; tiled prompts' period
 QUANT_FLOOR = 0.5  # greedy agreement of quantized pages (the reference's floor)
+# The quantized paged entries on ref.cancelling_quant_case (bf16 q, V values
+# that cancel: output ~1e-7, sum |p v| / l ~2.5): ten times what P at f32
+# accuracy leaves (<= 8e-6 in the plain emulation), a thirtieth of what P
+# rounded once to bf16 leaves (>= 2.7e-3).
+P_CODES_TOL = 1e-4
 KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:40"),
@@ -368,7 +377,7 @@ def phase_kernels() -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ssd_chunk as SSD
 
@@ -411,6 +420,22 @@ def phase_kernels() -> dict:
                      ops.paged_attention_quant(q, kc, vc, ks, vs, pt, cl, **kw),
                      PA.paged_attention_quant_plain(q, kc, vc, ks, vs, pt, cl, scale=scale,
                                                     **kw))
+        if dtype == torch.bfloat16:  # P over code pools at f32 accuracy
+            for kd in ("int8", "fp8"):
+                for t in (1, 5):
+                    qc, kc, vc, ks, vs, ptc, clc = (
+                        x.cuda() for x in ref.cancelling_quant_case(3, t, kd))
+                    qc = qc.to(dtype)
+                    name, fn, plain = ("paged_attention_multi_quant",
+                                       ops.paged_attention_multi_quant,
+                                       PA.paged_attention_multi_quant_plain)
+                    if t == 1:
+                        qc = qc[:, 0].contiguous()
+                        name, fn, plain = ("paged_attention_quant", ops.paged_attention_quant,
+                                           PA.paged_attention_quant_plain)
+                    held(res, name, dtype, f"{kd} cancelling V codes, q_len {t}",
+                         fn(qc, kc, vc, ks, vs, ptc, clc),
+                         plain(qc, kc, vc, ks, vs, ptc, clc, scale=scale), P_CODES_TOL)
         for i, (sq, off, kw) in enumerate([(64, 0, {}), (64, 64, {}), (36, 64, {}),
                                            (64, 64, dict(window=32, softcap=30.0))]):
             q, k, v = flash_case(dtype, sq, off, seed=i)
@@ -503,49 +528,60 @@ def phase_kernels() -> dict:
               f"library {lib_ms}, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}, {nbytes} bytes, {flops:.0f} flops)"
               + (f"; fp8 codes: kernel {fp8_ms[name]:.4f} ms" if name in fp8_ms else "")
-              + (f"; {split_plan(qm, kpm, ptm)}" if "multi" in name else ""))
+              + (f"; {split_plan(qm if 'multi' in name else q, kp, pt)}"
+                 if name.startswith("paged") else ""))
     long_context(scale)
     return res
 
 
 def split_plan(q, kp, pt) -> str:
-    """The draft-block kernel's split count and grid for these inputs."""
+    """The split body's split count and grid for these inputs (q (B, H, hd)
+    of a single-token call, or (B, T, H, hd))."""
     from repro_torch.kernels import paged_attention as PA
 
-    p = PA.plan_split(q.shape[0], kp.shape[2], q.shape[1], q.shape[2] // kp.shape[2],
-                      pt.shape[1], q.shape[3])
+    t = q.shape[1] if q.dim() == 4 else 1
+    p = PA.plan_split(q.shape[0], kp.shape[2], t, q.shape[-2] // kp.shape[2], pt.shape[1],
+                      q.shape[-1])
     return (f"{p.n_splits} splits of {p.pages_per_split} pages, {p.tiles} row tile(s) of "
             f"{p.tile_rows}, grid {p.grid} = {p.blocks} blocks")
 
 
 def long_context(scale) -> None:
-    """Both draft-block entries at a long context, bf16: B = 4, T = 5 from
-    cur_len LONG_CUR over LONG_PAGES pages of 16 (bf16 pages, then int8 and
-    fp8 codes), each time beside its bound and the SDPA yardstick.  Printed
-    only: the kernels JSON keeps the verify shape's numbers."""
+    """The four paged entries at a long context, bf16: B = 4, one token
+    (single-token entries) or T = 5 (draft-block entries) from cur_len
+    LONG_CUR over LONG_PAGES pages of 16 (bf16 pages, then int8 and fp8
+    codes), each time beside its bound and the SDPA yardstick.  Printed
+    only: the kernels JSON keeps the serving shapes' numbers."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as PA
 
     dt = torch.bfloat16
-    q, kp, vp, pt, cl = draft_case(dt, LONG_CUR, 5, seed=8, n_pages=LONG_PAGES)
-    runs = [("paged_attention_multi", "bf16 pages",
-             lambda: ops.paged_attention_multi(q, kp, vp, pt, cl),
-             sdpa_paged(q, kp, vp, pt, cl, scale), paged_bytes_flops(q, kp, pt, cl, 0))]
-    for kd in ("int8", "fp8"):
-        (kc, ks), (vc, vs) = quantized(kp, kd), quantized(vp, kd)
-        runs.append(("paged_attention_multi_quant", f"{kd} codes",
-                     lambda kc=kc, vc=vc, ks=ks, vs=vs: ops.paged_attention_multi_quant(
-                         q, kc, vc, ks, vs, pt, cl),
-                     sdpa_paged(q, kc, vc, pt, cl, scale, ks, vs),
-                     paged_bytes_flops(q, kc, pt, cl, 0, scales=True)))
-    for name, label, kern, lib, (nbytes, flops) in runs:
+    runs = []
+    for t, entry in ((1, "paged_attention"), (5, "paged_attention_multi")):
+        q, kp, vp, pt, cl = draft_case(dt, LONG_CUR, t, seed=8, n_pages=LONG_PAGES)
+        if t == 1:
+            q = q[:, 0].contiguous()
+            fn, qfn = ops.paged_attention, ops.paged_attention_quant
+        else:
+            fn, qfn = ops.paged_attention_multi, ops.paged_attention_multi_quant
+        runs.append((entry, t, "bf16 pages", lambda q=q, kp=kp, vp=vp, pt=pt, cl=cl, fn=fn:
+                     fn(q, kp, vp, pt, cl), sdpa_paged(q, kp, vp, pt, cl, scale),
+                     paged_bytes_flops(q, kp, pt, cl, 0), split_plan(q, kp, pt)))
+        for kd in ("int8", "fp8"):
+            (kc, ks), (vc, vs) = quantized(kp, kd), quantized(vp, kd)
+            runs.append((entry + "_quant", t, f"{kd} codes",
+                         lambda q=q, kc=kc, vc=vc, ks=ks, vs=vs, pt=pt, cl=cl, qfn=qfn:
+                         qfn(q, kc, vc, ks, vs, pt, cl),
+                         sdpa_paged(q, kc, vc, pt, cl, scale, ks, vs),
+                         paged_bytes_flops(q, kc, pt, cl, 0, scales=True),
+                         split_plan(q, kp, pt)))
+    for name, t, label, kern, lib, (nbytes, flops), plan in runs:
         ms, lib_ms = device_ms(kern, iters=QUEUED), device_ms(lib, iters=QUEUED)
         b_ms, b_by = bound(nbytes, flops, dt)
-        print(f"[kernels] {name} long context ({label}, B=4 T=5 cur_len {LONG_CUR}, "
+        print(f"[kernels] {name} long context ({label}, B=4 T={t} cur_len {LONG_CUR}, "
               f"{LONG_PAGES} pages of 16): kernel {ms:.4f} ms ({time_ms(kern):.4f} ms as "
               f"the host issues it), library {lib_ms:.4f} ms, "
               f"bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes), {ms / b_ms:.2f}x bound; "
-              f"{split_plan(q, kp, pt)}")
+              f"{plan}")
 
 
 # -- phases 4 and 5: serving -------------------------------------------------------
@@ -751,7 +787,7 @@ def phase_profile(cfg, params, reqs, label="plain", **kw) -> None:
     groups: dict[str, float] = {}
     for name, ms, _ in kern:
         low = name.lower()
-        group = ("paged_attention" if "paged_attention" in low else
+        group = ("paged_attention" if "paged_attention" in low or "combine_splits" in low else
                  "flash_attention" if "flash_attention" in low else
                  "ssd" if "ssd_chunk" in low else
                  "matmul" if any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
@@ -759,8 +795,9 @@ def phase_profile(cfg, params, reqs, label="plain", **kw) -> None:
                  else "other")
         groups[group] = groups.get(group, 0.0) + ms
     print(f"[profile] {label} serve of {len(reqs)} requests: wall {wall * 1e3:.1f} ms, device "
-          f"busy {busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}; by group (ms) "
-          + json.dumps({k: round(v, 3) for k, v in sorted(groups.items())}))
+          f"busy {busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}; paged attention "
+          f"(split + combine launches) {groups.get('paged_attention', 0.0):.3f} ms; by group "
+          "(ms) " + json.dumps({k: round(v, 3) for k, v in sorted(groups.items())}))
     for name, ms, n in sorted(kern, key=lambda r: -r[1])[:10]:
         print(f"[profile]   {ms:9.3f} ms  {n:6d} x  {name[:100]}")
 

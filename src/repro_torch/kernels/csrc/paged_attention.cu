@@ -3,16 +3,26 @@
 // per sequence, over full-precision or quantized (int8 / fp8 e4m3) pages.
 //
 // Replaces the TPU kernel repro/kernels/paged_attention.py::_paged_kernel in
-// all four of its uses: ops.paged_attention (q_len 1), paged_attention_multi
-// (q_len > 1, the speculative verify step), and their fused-dequant twins
-// paged_attention_quant / paged_attention_multi_quant.  There the page stream
-// was the sequential innermost grid axis and the online softmax state lived
-// in VMEM scratch across it; here blocks run in parallel and in no order.
-// Two bodies share the arguments and the dtype dispatch: the single-token
-// entries run paged_attention_kernel (one block per sequence and kv head,
-// walking its pages), the draft-block entries run
-// paged_attention_split_kernel (split-KV on tensor cores; its note is
-// above it, further down).
+// all four of its uses: ops.paged_attention (q_len 1, the decode tick),
+// paged_attention_multi (q_len > 1, the speculative verify step), and their
+// fused-dequant twins paged_attention_quant / paged_attention_multi_quant.
+// There the page stream was the sequential innermost grid axis and the
+// online softmax state lived in VMEM scratch across it; here blocks run in
+// parallel and in no order.
+//
+// Two bodies share the arguments and the dtype dispatch:
+// * paged_attention_split_kernel + combine_splits_kernel (split-KV on
+//   tensor cores; its note is above it, further down) serves all four
+//   entries wherever head_dim is a multiple of 16: every configuration of
+//   the zoo (64, 128, 256) and the smoke configurations (16).  A
+//   single-token call is a call with q_len 1, whose rows are the g query
+//   heads of a kv head.
+// * paged_attention_walk_kernel serves the single-token entries for any
+//   other head_dim (no configuration has one): one block per (sequence,
+//   kv head) walks its pages in f32.
+// The wrapper (kernels/paged_attention.py) picks the body by shape
+// (single_token_body) and cuts the split (plan_split); a single-token
+// entry given pages_per_split 0 runs the walk body.
 //
 //   q           (B, q_len, H, hd)          H = Hkv * g query heads
 //   k/v pool    (num_blocks, bs, Hkv, hd)  f32 / bf16 (the type of q), or
@@ -35,17 +45,25 @@
 // k_scale[page, kvh] and v_scale[page, kvh] are read through the same
 // page_table[b, j] as the codes.
 //
-// The single-token body.  One thread block owns one (sequence b, kv head)
-// and walks its pages in a loop, keeping m, l and acc in f32.  It walks
-// pages j while j * bs <= the row's position (clamped to the table), skips
-// pages behind the window, stages each page's bs x hd slice of K and V in
-// f32 shared memory (code * scale for a quantized pool), one warp per
-// (row, key) score, and the online softmax on one thread per row.  The
-// same body still serves q_len > 1 (row tiles of at most kRowTile along
-// grid z) but no entry sends it there.  What bounds it: memory (4 * g * hd
-// flops per key, far below the ~295 flops/byte at which the H100's compute
-// binds).  Known weakness: B x Hkv blocks (32 at the serving shape) on 132
-// SMs with four barriers per page, so it is latency-bound at small batch.
+// Precision, as the reference's: scores and the softmax in f32; for a bf16
+// q, P V with P rounded to bf16 over bf16 pages (the reference's
+// p.astype(v.dtype)) and at f32 accuracy over code pages, whose dequantized
+// V is f32 there; for an f32 q, P in f32.
+//
+// What bounds both bodies: memory (4 * q_len * g * hd flops per key against
+// 2 * hd elements of K and V, far below the ~295 flops a byte at which the
+// H100's compute binds).  At the serving shapes the bound is under a
+// microsecond, so latency is the cost: launches and each block's chain of
+// loads.
+//
+// The walk body.  One thread block owns one (sequence b, kv head), holds its
+// g <= kWalkRows query heads (at one position, cur_len) and walks the pages
+// up to cur_len, skipping those behind the window; each page's bs x hd
+// slice of K and V is staged in f32 shared memory (code * scale for a
+// quantized pool), one warp per (row, key) score, the online softmax on one
+// thread per row, P V on one thread per column.  B x Hkv blocks (32 at the
+// serving shape) and four barriers a page: slow, and kept only for the
+// head_dims the split body cannot take.
 
 #include <cuda_fp8.h>
 
@@ -63,69 +81,55 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 16;       // query rows a block keeps in registers
+constexpr int kWalkRows = 16;      // query heads per kv head the walk body takes
 constexpr int kMaxDPerThread = 2;  // head_dim <= kThreads * 2 = 256
 
 // T: the type of q and out.  C: the pool's element type.  kQuant: C holds
 // codes to be multiplied by the per-(page, kv head) scales.
 template <typename T, typename C, bool kQuant>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
+__global__ void __launch_bounds__(kThreads) paged_attention_walk_kernel(
     const T* __restrict__ q, const C* __restrict__ k_pool, const C* __restrict__ v_pool,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ page_table, const int* __restrict__ cur_len,
-    T* __restrict__ out, int q_len, int n_heads, int n_kv, int head_dim, int block_size,
-    int n_pages, int tile_rows, int window, float softcap, float scale) {
+    T* __restrict__ out, int n_heads, int n_kv, int head_dim, int block_size, int n_pages,
+    int window, float softcap, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
-  const int g = n_heads / n_kv;
+  const int g = n_heads / n_kv;  // rows: this kv head's query heads
   const int hd = head_dim;
   const int bs = block_size;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int r0 = blockIdx.z * tile_rows;               // first row of this tile
-  const int nr = min(tile_rows, q_len * g - r0);       // rows of this tile
 
-  float* q_s = smem;                    // tile_rows * hd
-  float* k_s = q_s + tile_rows * hd;    // bs * hd
-  float* v_s = k_s + bs * hd;           // bs * hd
-  float* p_s = v_s + bs * hd;           // tile_rows * bs: scores, then probabilities
-  float* m_s = p_s + tile_rows * bs;    // tile_rows
-  float* l_s = m_s + tile_rows;         // tile_rows
-  float* alpha_s = l_s + tile_rows;     // tile_rows
-  int* qpos_s = reinterpret_cast<int*>(alpha_s + tile_rows);  // tile_rows: row positions
+  float* q_s = smem;           // g * hd
+  float* k_s = q_s + g * hd;   // bs * hd
+  float* v_s = k_s + bs * hd;  // bs * hd
+  float* p_s = v_s + bs * hd;  // g * bs: scores, then probabilities
+  float* m_s = p_s + g * bs;   // g
+  float* l_s = m_s + g;        // g
+  float* alpha_s = l_s + g;    // g
 
-  // Offset of tile row rr in q and out: token t = r / g, head kvh * g + r % g.
-  auto row_offset = [&](int rr) -> size_t {
-    const int r = r0 + rr;
-    const int t = r / g;
-    return ((static_cast<size_t>(b) * q_len + t) * n_heads + kvh * g + (r - t * g)) * hd;
-  };
-
-  for (int i = tid; i < nr * hd; i += kThreads) {
-    const int rr = i / hd;
-    q_s[i] = to_f32(q[row_offset(rr) + (i - rr * hd)]);
-  }
+  // The g rows are contiguous in q and out: heads kvh * g ... of sequence b.
+  const size_t q0 = (static_cast<size_t>(b) * n_heads + kvh * g) * hd;
+  for (int i = tid; i < g * hd; i += kThreads) q_s[i] = to_f32(q[q0 + i]);
   const int cur = cur_len[b];
-  if (tid < nr) {
+  if (tid < g) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
-    qpos_s[tid] = cur + (r0 + tid) / g;  // once here, not per score
   }
-  float acc[kRowTile][kMaxDPerThread];
+  float acc[kWalkRows][kMaxDPerThread];
 #pragma unroll
-  for (int r = 0; r < kRowTile; ++r)
+  for (int r = 0; r < kWalkRows; ++r)
 #pragma unroll
     for (int c = 0; c < kMaxDPerThread; ++c) acc[r][c] = 0.f;
 
-  const int oldest = cur + r0 / g;               // position of the tile's first row
-  const int youngest = cur + (r0 + nr - 1) / g;  // and of its last
-  const int last_page = min(n_pages - 1, youngest / bs);
+  const int last_page = min(n_pages - 1, cur / bs);
   const int* row = page_table + static_cast<size_t>(b) * n_pages;
 
   for (int j = 0; j <= last_page; ++j) {
-    if (window > 0 && oldest - (j * bs + bs - 1) >= window) continue;  // behind every window
+    if (window > 0 && cur - (j * bs + bs - 1) >= window) continue;  // behind the window
     const size_t page = static_cast<size_t>(row[j]);
     float ks = 1.f, vs = 1.f;
     if constexpr (kQuant) {
@@ -148,7 +152,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     __syncthreads();
 
     // Scores: one warp per (query row, key) pair, lanes split head_dim.
-    for (int idx = warp; idx < nr * bs; idx += kWarps) {
+    for (int idx = warp; idx < g * bs; idx += kWarps) {
       const int r = idx / bs;
       const int t = idx - r * bs;
       float part = 0.f;
@@ -157,16 +161,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       if (lane == 0) {
         const float s = apply_softcap(dot * scale, softcap);
         const int pos = j * bs + t;
-        const int qpos = qpos_s[r];
-        bool ok = pos <= qpos;
-        if (window > 0) ok = ok && (qpos - pos < window);
+        const bool ok = pos <= cur && (window <= 0 || cur - pos < window);
         p_s[idx] = ok ? s : NEG_INF;
       }
     }
     __syncthreads();
 
     // Online softmax update, one thread per query row.
-    if (tid < nr) {
+    if (tid < g) {
       const int r = tid;
       float mx = NEG_INF;
       for (int t = 0; t < bs; ++t) mx = fmaxf(mx, p_s[r * bs + t]);
@@ -191,13 +193,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const int d = tid + c * kThreads;
       if (d >= hd) continue;
 #pragma unroll
-      for (int r = 0; r < kRowTile; ++r)
-        if (r < nr) acc[r][c] *= alpha_s[r];
+      for (int r = 0; r < kWalkRows; ++r)
+        if (r < g) acc[r][c] *= alpha_s[r];
       for (int t = 0; t < bs; ++t) {
         const float vv = v_s[t * hd + d];
 #pragma unroll
-        for (int r = 0; r < kRowTile; ++r)
-          if (r < nr) acc[r][c] += p_s[r * bs + t] * vv;
+        for (int r = 0; r < kWalkRows; ++r)
+          if (r < g) acc[r][c] += p_s[r * bs + t] * vv;
       }
     }
   }
@@ -208,34 +210,38 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const int d = tid + c * kThreads;
     if (d >= hd) continue;
 #pragma unroll
-    for (int r = 0; r < kRowTile; ++r) {
-      if (r >= nr) continue;
+    for (int r = 0; r < kWalkRows; ++r) {
+      if (r >= g) continue;
       const float l = l_s[r] == 0.f ? 1.f : l_s[r];
-      out[row_offset(r) + d] = from_f32<T>(acc[r][c] / l);
+      out[q0 + r * hd + d] = from_f32<T>(acc[r][c] / l);
     }
   }
 }
 
-// ---- The draft-block body: split-KV on tensor cores ---------------------
+// ---- The split body: split-KV on tensor cores ---------------------------
 //
-// paged_attention_split_kernel serves paged_attention_multi and
-// paged_attention_multi_quant (the speculative verify step: q_len = k + 1
-// tokens, g query heads per kv head).  What it does about the single-token
-// body's limits at the verify shape (B = 4, T = 5, H = 32 / 8, hd 128, 9
-// pages of 16, where that body ran 64 blocks of 10 rows, each walking every
-// page in series, reading each page twice):
+// paged_attention_split_kernel serves all four entries (head_dim a multiple
+// of 16): the decode tick's single-token calls (q_len 1, rows = the g query
+// heads of a kv head) and the speculative verify step's draft blocks (q_len
+// = k + 1 tokens, q_len * g rows).  Two shapes set its design: the decode
+// tick (B = 4, q_len 1, H = 32 / 8, hd 128, 9 pages of 16), where the walk
+// body runs B x Hkv = 32 blocks on 132 SMs, each walking every page in
+// series with four barriers a page, and the verify step (q_len 5, 20 rows),
+// where a walk over row tiles of 10 would run 64 blocks and read each page
+// twice.
 //
 // * Split-KV.  Grid (B, Hkv, row tiles x splits): the page table is cut
 //   into splits of pages_per_split pages (the wrapper's plan_split picks it
 //   from the shape: about 528 blocks, at least 2 pages a split; 5 splits of
-//   2 pages, 160 blocks at the verify shape).  Each block writes its rows'
-//   unnormalized acc and their m and l, in f32, to a workspace; a second
-//   launch from the same C entry (combine_splits_kernel, launched as a
-//   programmatic dependent of the first so that its launch overlaps the
-//   first's tail) rescales the partials by exp(m - max m) and sums them.  A
-//   split none of whose keys a row may see leaves that row m = NEG_INF,
-//   l = 0, acc = 0, so it has no weight in the sum.  With one split the
-//   block writes the output itself.
+//   2 pages, 160 blocks, at both serving shapes; 16 splits of 8 pages, 512
+//   blocks, at 128 pages).  Each block writes its rows' unnormalized acc
+//   and their m and l, in f32, to a workspace; a second launch from the
+//   same C entry (combine_splits_kernel, launched as a programmatic
+//   dependent of the first so that its launch overlaps the first's tail)
+//   rescales the partials by exp(m - max m) and sums them.  A split none
+//   of whose keys a row may see leaves that row m = NEG_INF, l = 0,
+//   acc = 0, so it has no weight in the sum.  With one split the block
+//   writes the output itself.
 // * One block holds all q_len * g rows of its kv head, up to kMaxTileRows
 //   (64) rows, so each page is read once; beyond that the rows are cut into
 //   balanced tiles along grid z.
@@ -244,13 +250,26 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 //   ldmatrix.trans).  A warp takes one 16-row m-tile (20 rows pad to 2) and
 //   one column group of P V (see "Warps" below), so every warp of the block
 //   works and each holds a fraction of the accumulator.  wgmma is not used:
-//   its 64-row minimum would be two-thirds padding at 20 rows.  int8 codes
-//   (|x| <= 127) and fp8 e4m3 values are exact in bf16: the thread that
-//   copied a 16-byte chunk of codes converts it to bf16 in shared memory
-//   (double-buffered, before the tile's one barrier); the key's page k
-//   scale multiplies the f32 scores and its v scale is folded into P before
-//   P is rounded to bf16.  An f32 q (the card-vs-CPU checks) keeps the same
-//   tiling and fragment layout with f32 FMA products (not TF32).
+//   its 64-row minimum would be two-thirds padding at 20 rows.  At q_len 1
+//   the one m-tile holds g = 4 real rows and 12 zero rows; the tensor-core
+//   work they waste does not bind (all products of a decode call, padding
+//   included, are ~105 MFLOP: ~0.1 us at the H100's 989 TFLOP/s, against a
+//   bound of ~0.55 us for its bytes), and a tiling made for one
+//   token (keys as the mma's M, rows as its N) would need the score
+//   fragments transposed through shared memory before P V, one more
+//   barrier in the chain that does bind.  So q_len 1 is one more row count
+//   of the same body.
+// * Codes.  int8 codes (|x| <= 127) and fp8 e4m3 values are exact in bf16:
+//   the thread that copied a 16-byte chunk of codes converts it to bf16 in
+//   shared memory (double-buffered, before the tile's one barrier); the
+//   key's page k scale multiplies the f32 scores and its v scale is folded
+//   into P.  P V then keeps P at f32 accuracy, as the reference does over
+//   its f32-dequantized V: P is split into P_hi = bf16(P) and P_lo =
+//   bf16(P - P_hi), and both go through the tensor cores into the same f32
+//   accumulator against the exact codes, carrying ~16 bits of P.  Over bf16
+//   pages P is rounded to bf16 once, as the reference's p.astype(v.dtype).
+//   An f32 q (the card-vs-CPU checks) keeps the same tiling and fragment
+//   layout with f32 FMA products (not TF32).
 // * Pages in flight.  K and V arrive in their stored type (bf16 or 1-byte
 //   codes) in a ring of kStages = 3 tiles of kKeys = 16 key rows, by
 //   16-byte cp.async copies (a key row of one kv head is hd contiguous
@@ -263,13 +282,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 // * Softmax in registers, on the accumulator fragments: each quad of lanes
 //   holds two rows, whose max and sum are quad shuffles.
 //
-// What bounds it: memory, as for the single-token body (4 * q_len * g * hd
-// flops per key against 2 * hd bytes of K and V).  At the verify shape the
-// bound is under a microsecond, so the two launches and each block's chain
-// of latencies (table, then pages, then products) are the cost.  Integer
-// work is not free at these sizes: runtime divisions per copy address, or
-// byte-wise code conversion, cost more than the loads and the products
-// together, hence the fixed copy rows and the 16-code conversions.
+// What bounds it: memory (see the top), and at the serving shapes, whose
+// bound is under a microsecond, the two launches and each block's chain of
+// latencies (table, then pages, then products).  Integer work is not free
+// at these sizes: runtime divisions per copy address, or byte-wise code
+// conversion, cost more than the loads and the products together, hence
+// the fixed copy rows and the 16-code conversions.
 
 constexpr int kSplitThreads = 128;  // at most 4 warps
 constexpr int kMaxTileRows = 64;
@@ -304,6 +322,15 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+// x0, x1 as packed bf16 (the high part) and their remainders as packed
+// bf16 (the low part): high + low carries ~16 bits of each value.
+__device__ __forceinline__ void pack_bf16_split(float x0, float x1, uint32_t& hi,
+                                                uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 // Programmatic dependent launch: the split kernel lets the combine pass
 // launch once its blocks are past their loads; the combine pass waits
@@ -626,8 +653,15 @@ __global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(
     // acc += P V over this warp's columns.  The score fragments of the
     // tile's two key n-tiles are exactly the A fragment of a 16 x 16 P.
     if constexpr (kMma) {
-      const uint32_t a[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                             pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      // Over code pools P also as its bf16 remainder (a_lo): P at f32
+      // accuracy, as the reference's f32 dequantized V keeps it.
+      uint32_t a[4], a_lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* x = &s[i >> 1][(i & 1) * 2];
+        if constexpr (kQuant) pack_bf16_split(x[0], x[1], a[i], a_lo[i]);
+        else a[i] = pack_bf16(x[0], x[1]);
+      }
       // V by ldmatrix.trans, two column tiles at a time: keys (lane & 7) +
       // 8 * ((lane >> 3) & 1), column tile + (lane >> 4).
       const int vbs = kCodes ? bstride : kvstride;
@@ -640,6 +674,10 @@ __global__ void __launch_bounds__(kSplitThreads) paged_attention_split_kernel(
           ldsm_x4_trans(vf, va + (n0 + n) * 8);
           mma_bf16(acc[n], a, vf[0], vf[1]);
           mma_bf16(acc[n + 1], a, vf[2], vf[3]);
+          if constexpr (kQuant) {
+            mma_bf16(acc[n], a_lo, vf[0], vf[1]);
+            mma_bf16(acc[n + 1], a_lo, vf[2], vf[3]);
+          }
         }
       }
     } else {
@@ -744,30 +782,29 @@ struct Args {
   int batch, q_len, n_heads, n_kv, head_dim, block_size, n_pages, window;
   float softcap, scale;
   cudaStream_t stream;
-  // The draft-block body's split (plan_split in the wrapper) and its f32
-  // workspace (null with one split).
+  // The split body's split (plan_split in the wrapper) and its f32
+  // workspace (null with one split); pages_per_split 0 selects the walk
+  // body.
   int tile_rows = 0, pages_per_split = 0;
   void* ws = nullptr;
 };
 
 template <typename T, typename C, bool kQuant>
-cudaError_t launch(const Args& a) {
-  const int rows = a.q_len * (a.n_heads / a.n_kv);
-  const int tiles = (rows + kRowTile - 1) / kRowTile;
-  const int tile_rows = (rows + tiles - 1) / tiles;  // balanced tiles
-  const size_t smem = sizeof(float) * (static_cast<size_t>(tile_rows) * a.head_dim +
+cudaError_t launch_walk(const Args& a) {
+  const int g = a.n_heads / a.n_kv;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(g) * a.head_dim +
                                        2u * a.block_size * a.head_dim +
-                                       static_cast<size_t>(tile_rows) * a.block_size +
-                                       4u * tile_rows);  // m, l, alpha, qpos
-  auto kernel = paged_attention_kernel<T, C, kQuant>;
+                                       static_cast<size_t>(g) * a.block_size +
+                                       3u * g);  // m, l, alpha
+  auto kernel = paged_attention_walk_kernel<T, C, kQuant>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.batch, a.n_kv, tiles), kThreads, smem, a.stream>>>(
+  kernel<<<dim3(a.batch, a.n_kv), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const C*>(a.k_pool),
       static_cast<const C*>(a.v_pool), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.page_table),
-      static_cast<const int*>(a.cur_len), static_cast<T*>(a.out), a.q_len, a.n_heads,
-      a.n_kv, a.head_dim, a.block_size, a.n_pages, tile_rows, a.window, a.softcap, a.scale);
+      static_cast<const int*>(a.cur_len), static_cast<T*>(a.out), a.n_heads, a.n_kv,
+      a.head_dim, a.block_size, a.n_pages, a.window, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
@@ -824,73 +861,75 @@ cudaError_t launch_split_hd(const Args& a) {
   return launch_split<T, C, kQuant, 32>(a, nm, nc);
 }
 
-template <typename T>
-cudaError_t launch_split_codes(int code, const Args& a) {
-  switch (code) {
-    case DTYPE_INT8: return launch_split_hd<T, int8_t, true>(a);
-    case DTYPE_FP8: return launch_split_hd<T, __nv_fp8_e4m3, true>(a);
-    default: return cudaErrorInvalidValue;
+// One body's launch for q's type (dtype: DTYPE_F32 or DTYPE_BF16, also the
+// pools' type when code < 0) and the pools' code type (code: DTYPE_INT8 or
+// DTYPE_FP8, or -1 for a full-precision pool).
+template <template <typename, typename, bool> class Body>
+cudaError_t dispatch(int dtype, int code, const Args& a) {
+  if (dtype == DTYPE_F32) {
+    if (code < 0) return Body<float, float, false>::launch(a);
+    if (code == DTYPE_INT8) return Body<float, int8_t, true>::launch(a);
+    if (code == DTYPE_FP8) return Body<float, __nv_fp8_e4m3, true>::launch(a);
+  } else if (dtype == DTYPE_BF16) {
+    if (code < 0) return Body<__nv_bfloat16, __nv_bfloat16, false>::launch(a);
+    if (code == DTYPE_INT8) return Body<__nv_bfloat16, int8_t, true>::launch(a);
+    if (code == DTYPE_FP8) return Body<__nv_bfloat16, __nv_fp8_e4m3, true>::launch(a);
   }
+  return cudaErrorInvalidValue;
 }
 
-// The draft-block entries: dtype and code as for run().
+template <typename T, typename C, bool kQuant>
+struct Split {
+  static cudaError_t launch(const Args& a) { return launch_split_hd<T, C, kQuant>(a); }
+};
+template <typename T, typename C, bool kQuant>
+struct Walk {
+  static cudaError_t launch(const Args& a) { return launch_walk<T, C, kQuant>(a); }
+};
+
+bool shape_ok(const Args& a) {
+  return a.n_kv > 0 && a.n_heads % a.n_kv == 0 && a.head_dim >= 1 && a.head_dim <= 256 &&
+         a.block_size >= 1 && a.n_pages >= 1 && a.batch >= 1 && a.q_len >= 1;
+}
+
+// The split body: head_dim a multiple of 16, the wrapper's split.
 int run_split(int dtype, int code, const Args& a) {
-  if (a.n_kv <= 0 || a.n_heads % a.n_kv != 0 || a.head_dim < 16 || a.head_dim % 16 != 0 ||
-      a.head_dim > 256 || a.block_size < 1 || a.n_pages < 1 || a.batch < 1 || a.q_len < 1 ||
-      a.tile_rows < 1 || a.tile_rows > kMaxTileRows || a.pages_per_split < 1 ||
+  if (!shape_ok(a) || a.head_dim % 16 != 0 || a.tile_rows < 1 ||
+      a.tile_rows > kMaxTileRows || a.pages_per_split < 1 ||
       (a.pages_per_split < a.n_pages && a.ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == DTYPE_F32)
-    err = code < 0 ? launch_split_hd<float, float, false>(a) : launch_split_codes<float>(code, a);
-  else if (dtype == DTYPE_BF16)
-    err = code < 0 ? launch_split_hd<__nv_bfloat16, __nv_bfloat16, false>(a)
-                   : launch_split_codes<__nv_bfloat16>(code, a);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch<Split>(dtype, code, a));
 }
 
-template <typename T>
-cudaError_t launch_codes(int code, const Args& a) {
-  switch (code) {
-    case DTYPE_INT8: return launch<T, int8_t, true>(a);
-    case DTYPE_FP8: return launch<T, __nv_fp8_e4m3, true>(a);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// dtype: the type of q, out (and of the pools when code < 0).  code: the
-// quantized pool's code type, or -1 for a full-precision pool.
-int run(int dtype, int code, const Args& a) {
-  if (a.n_kv <= 0 || a.n_heads % a.n_kv != 0 || a.head_dim < 1 ||
-      a.head_dim > kThreads * kMaxDPerThread || a.block_size < 1 || a.n_pages < 1 ||
-      a.batch < 1 || a.q_len < 1)
+// A single-token entry: the split body, or with pages_per_split 0 the walk
+// body (one token, at most kWalkRows query heads per kv head).
+int run_single(int dtype, int code, const Args& a) {
+  if (a.pages_per_split > 0) return run_split(dtype, code, a);
+  if (!shape_ok(a) || a.n_heads / a.n_kv > kWalkRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == DTYPE_F32)
-    err = code < 0 ? launch<float, float, false>(a) : launch_codes<float>(code, a);
-  else if (dtype == DTYPE_BF16)
-    err = code < 0 ? launch<__nv_bfloat16, __nv_bfloat16, false>(a)
-                   : launch_codes<__nv_bfloat16>(code, a);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch<Walk>(dtype, code, a));
 }
 
 }  // namespace
 
-// Each entry launches on `stream` and returns cudaGetLastError() (0 on success).
+// Each entry launches on `stream` and returns cudaGetLastError() (0 on
+// success).  The split arguments (workspace, tile_rows, pages_per_split)
+// come from the wrapper's plan_split; a single-token entry given
+// pages_per_split 0 runs the walk body.
 
 extern "C" int paged_attention(int dtype, const void* q, const void* k_pool,
                                const void* v_pool, const void* page_table,
-                               const void* cur_len, void* out, int batch, int n_heads,
-                               int n_kv, int head_dim, int block_size, int n_pages,
-                               int window, float softcap, float scale, void* stream) {
-  return run(dtype, -1, Args{q, k_pool, v_pool, nullptr, nullptr, page_table, cur_len, out,
-                             batch, 1, n_heads, n_kv, head_dim, block_size, n_pages, window,
-                             softcap, scale, static_cast<cudaStream_t>(stream)});
+                               const void* cur_len, void* out, void* ws, int batch,
+                               int tile_rows, int pages_per_split, int n_heads, int n_kv,
+                               int head_dim, int block_size, int n_pages, int window,
+                               float softcap, float scale, void* stream) {
+  return run_single(dtype, -1, Args{q, k_pool, v_pool, nullptr, nullptr, page_table, cur_len,
+                                    out, batch, 1, n_heads, n_kv, head_dim, block_size,
+                                    n_pages, window, softcap, scale,
+                                    static_cast<cudaStream_t>(stream), tile_rows,
+                                    pages_per_split, ws});
 }
 
-// The draft-block entries also take the split (tile_rows, pages_per_split)
-// and the f32 workspace of the wrapper's plan_split; one call launches the
-// split kernel and, with more than one split, the combine pass.
 extern "C" int paged_attention_multi(int dtype, const void* q, const void* k_pool,
                                      const void* v_pool, const void* page_table,
                                      const void* cur_len, void* out, void* ws, int batch,
@@ -908,13 +947,16 @@ extern "C" int paged_attention_multi(int dtype, const void* q, const void* k_poo
 extern "C" int paged_attention_quant(int dtype, int code, const void* q, const void* k_pool,
                                      const void* v_pool, const void* k_scale,
                                      const void* v_scale, const void* page_table,
-                                     const void* cur_len, void* out, int batch, int n_heads,
+                                     const void* cur_len, void* out, void* ws, int batch,
+                                     int tile_rows, int pages_per_split, int n_heads,
                                      int n_kv, int head_dim, int block_size, int n_pages,
                                      int window, float softcap, float scale, void* stream) {
   if (code < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run(dtype, code, Args{q, k_pool, v_pool, k_scale, v_scale, page_table, cur_len,
-                               out, batch, 1, n_heads, n_kv, head_dim, block_size, n_pages,
-                               window, softcap, scale, static_cast<cudaStream_t>(stream)});
+  return run_single(dtype, code, Args{q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                      cur_len, out, batch, 1, n_heads, n_kv, head_dim,
+                                      block_size, n_pages, window, softcap, scale,
+                                      static_cast<cudaStream_t>(stream), tile_rows,
+                                      pages_per_split, ws});
 }
 
 extern "C" int paged_attention_multi_quant(int dtype, int code, const void* q,

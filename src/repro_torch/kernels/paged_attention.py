@@ -2,14 +2,16 @@
 ``csrc/paged_attention.cu``.
 
 Replaces the TPU kernel ``repro/kernels/paged_attention.py::_paged_kernel``
-in each of its uses: single-token queries (``paged_attention``), a
-``q_len > 1`` draft block per row (``paged_attention_multi``, the
+in each of its uses: single-token queries (``paged_attention``, the decode
+tick), a ``q_len > 1`` draft block per row (``paged_attention_multi``, the
 speculative verify step), and their fused-dequant twins over int8 / fp8
 pools with per-(page, kv head) f32 scales (``paged_attention_quant``,
-``paged_attention_multi_quant``).  The single-token entries run one CUDA
-body, the draft-block entries another (split-KV on tensor cores, cut as
-:func:`plan_split` says); each entry has its own :class:`CudaKernel` and
-launch count, one per call.  The kernels' designs and bounds are in the
+``paged_attention_multi_quant``).  All four run one CUDA body, split-KV on
+tensor cores, cut as :func:`plan_split` says (a single-token call is a
+call with q_len 1); only a single-token call whose head_dim is not a
+multiple of 16 runs the page-walking body instead
+(:func:`single_token_body`).  Each entry has its own :class:`CudaKernel`
+and launch count, one per call.  The bodies' designs and bounds are in the
 CUDA source's notes.
 
 On a CPU tensor a wrapper runs its plain version (from ``kernels/ref.py``);
@@ -38,26 +40,35 @@ MAX_HEAD_DIM = 256
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # n_heads, n_kv, head_dim, block_size, n_pages, window, softcap, scale, stream
 _GEOM = [_I, _I, _I, _I, _I, _I, _F, _F, _P]
+# Every entry: dtype, [code,] q, pools, [scales,] table, lengths, out,
+# workspace, batch, [q_len,] tile_rows, pages_per_split, then the geometry.
 KERNEL = CudaKernel("paged_attention.cu", "paged_attention",
-                    [_I, *[_P] * 6, _I, *_GEOM])
-# The draft-block entries: ... out, workspace, batch, q_len, tile_rows,
-# pages_per_split, then the geometry.
+                    [_I, *[_P] * 7, _I, _I, _I, *_GEOM])
 MULTI_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_multi",
                           [_I, *[_P] * 7, _I, _I, _I, _I, *_GEOM])
 QUANT_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_quant",
-                          [_I, _I, *[_P] * 8, _I, *_GEOM])
+                          [_I, _I, *[_P] * 9, _I, _I, _I, *_GEOM])
 MULTI_QUANT_KERNEL = CudaKernel("paged_attention.cu", "paged_attention_multi_quant",
                                 [_I, _I, *[_P] * 9, _I, _I, _I, _I, *_GEOM])
 
 
-MAX_TILE_ROWS = 64  # query rows one block of the draft-block kernel holds
+def single_token_body(head_dim: int) -> str:
+    """The CUDA body a single-token entry runs: ``"split"`` (split-KV on
+    tensor cores, mma k-steps of 16 columns) for head_dim a multiple of 16,
+    as in every configuration; ``"walk"`` (one block per sequence and kv
+    head walking its pages) for any other."""
+    return "split" if head_dim % 16 == 0 else "walk"
+
+
+MAX_TILE_ROWS = 64  # query rows one block of the split body holds
+WALK_MAX_GROUP = 16  # query heads per kv head the walk body holds
 TARGET_BLOCKS = 4 * 132  # about four blocks on each of the H100's 132 SMs
 MIN_PAGES_PER_SPLIT = 2
 
 
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
-    """How the draft-block kernel cuts one call: the q_len * g rows of a
+    """How the split body cuts one call: the q_len * g rows of a
     (sequence, kv head) into ``tiles`` balanced tiles of at most
     ``tile_rows``, and the page table into ``n_splits`` ranges of
     ``pages_per_split`` pages (the last may be shorter).  One block per
@@ -80,7 +91,7 @@ class SplitPlan:
 
 def plan_split(batch: int, n_kv: int, q_len: int, group: int, n_pages: int,
                head_dim: int) -> SplitPlan:
-    """The draft-block kernel's split of a call, from its shape alone (the
+    """The split body's cut of a call, from its shape alone (the
     host never reads cur_len): enough splits for about TARGET_BLOCKS blocks,
     but at least MIN_PAGES_PER_SPLIT pages per split where the table has
     them."""
@@ -145,26 +156,39 @@ def _check_inputs(q, k_pool, v_pool, page_table, cur_len, *, q_dims: int,
             f"B={b}, got {tuple(page_table.shape)}, {tuple(cur_len.shape)}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if q.device.type == "cuda" and hd > MAX_HEAD_DIM:
+    if q.device.type != "cuda":
+        return
+    if hd > MAX_HEAD_DIM:
         raise ValueError(f"{name} kernel: head_dim at most {MAX_HEAD_DIM}, got {hd}")
-    if q.device.type == "cuda" and q_dims == 4:
-        # The draft-block kernel: mma k-steps of 16 columns, 16-byte copies.
-        if hd % 16:
-            raise ValueError(f"{name} kernel: head_dim a multiple of 16, got {hd}")
-        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-            raise ValueError(f"{name} kernel: q and pools must start on a 16-byte boundary")
+    if q_dims == 3 and single_token_body(hd) == "walk":
+        if h // hkv > WALK_MAX_GROUP:
+            raise ValueError(
+                f"{name} kernel: head_dim {hd} (not a multiple of 16) takes at most "
+                f"{WALK_MAX_GROUP} query heads per kv head, got {h // hkv}")
+        return
+    # The split body: mma k-steps of 16 columns, 16-byte copies.
+    if hd % 16:
+        raise ValueError(f"{name} kernel: head_dim a multiple of 16, got {hd}")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError(f"{name} kernel: q and pools must start on a 16-byte boundary")
 
 
 def _split_args(q, k_pool, page_table) -> tuple[torch.Tensor | None, list]:
-    """The draft-block entries' workspace (kept alive by the caller across
-    the launch) and their workspace pointer, batch, q_len, tile_rows and
-    pages_per_split arguments, from :func:`plan_split`."""
-    b, t, h, hd = q.shape
+    """An entry's workspace (kept alive by the caller across the launch)
+    and its workspace pointer, batch, q_len (draft-block entries only),
+    tile_rows and pages_per_split arguments, from :func:`plan_split`; for
+    the walk body no workspace and pages_per_split 0."""
+    b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    multi = q.dim() == 4
+    if not multi and single_token_body(hd) == "walk":
+        return None, [None, b, 0, 0]
+    t = q.shape[1] if multi else 1
     hkv = k_pool.shape[2]
     plan = plan_split(b, hkv, t, h // hkv, page_table.shape[1], hd)
     ws = (torch.empty(plan.workspace_shape, dtype=torch.float32, device=q.device)
           if plan.workspace_shape else None)
-    return ws, [None if ws is None else ptr(ws), b, t, plan.tile_rows, plan.pages_per_split]
+    return ws, [None if ws is None else ptr(ws), b, *([t] if multi else []), plan.tile_rows,
+                plan.pages_per_split]
 
 
 def _geometry(q, k_pool, page_table, window, softcap, scale) -> list:
@@ -189,8 +213,9 @@ def paged_attention(
         return paged_attention_plain(q, k_pool, v_pool, page_table, cur_len,
                                      window=window, softcap=softcap, scale=scale)
     out = torch.empty_like(q)
+    ws, split = _split_args(q, k_pool, page_table)
     KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k_pool), ptr(v_pool), ptr(page_table),
-                  ptr(cur_len), ptr(out), q.shape[0],
+                  ptr(cur_len), ptr(out), *split,
                   *_geometry(q, k_pool, page_table, window, softcap, scale))
     return out
 
@@ -238,9 +263,10 @@ def paged_attention_quant(
                                            cur_len, window=window, softcap=softcap,
                                            scale=scale)
     out = torch.empty_like(q)
+    ws, split = _split_args(q, k_pool, page_table)
     QUANT_KERNEL.launch(_DTYPES[q.dtype], _CODES[k_pool.dtype], ptr(q), ptr(k_pool),
                         ptr(v_pool), ptr(k_scale), ptr(v_scale), ptr(page_table),
-                        ptr(cur_len), ptr(out), q.shape[0],
+                        ptr(cur_len), ptr(out), *split,
                         *_geometry(q, k_pool, page_table, window, softcap, scale))
     return out
 

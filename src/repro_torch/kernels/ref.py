@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground truth):
 the attention entries, the SSD chunk scan, and the paper kernels (matmul,
-Walsh-Hadamard transform, Needleman-Wunsch tiles; numpy NW oracles).
+Walsh-Hadamard transform, Needleman-Wunsch tiles; numpy NW oracles); with
+them, the plain emulation of the paged split body and the inputs on which
+its precision over quantized pages shows.
 
 They compute in float32 whatever the input type and return the query's
 type, as the reference's ``kernels/ref.py`` oracles do.  The CPU path of
@@ -121,22 +123,38 @@ def paged_attention_multi_quant_ref(q, k_pool, v_pool, k_scale, v_scale, page_ta
         page_table, cur_len, window=window, softcap=softcap, scale=scale)
 
 
+def _pv_operand(p: torch.Tensor, p_bits: str) -> torch.Tensor:
+    """P as a product P V takes it: f32, rounded once to bf16, or split
+    into a bf16 high part and a bf16 remainder (their sum is exact in f32)."""
+    if p_bits == "f32":
+        return p
+    hi = p.to(torch.bfloat16).float()
+    if p_bits == "bf16":
+        return hi
+    if p_bits == "bf16x2":
+        return hi + (p - hi).to(torch.bfloat16).float()
+    raise ValueError(f"p_bits must be f32, bf16 or bf16x2, got {p_bits!r}")
+
+
 def paged_attention_multi_split_plain(q, k_pool, v_pool, page_table, cur_len, *,
                                       pages_per_split: int, window: int = 0,
                                       softcap: float = 0.0, scale: float | None = None,
-                                      k_scale=None, v_scale=None) -> torch.Tensor:
-    """The draft-block kernel's split-and-combine arithmetic in plain
-    PyTorch, for the tests (the main path never calls it).  The page table
-    is cut into splits of ``pages_per_split`` pages; each split keeps, per
-    row, the max m of the scores it may see, l = sum exp(s - m) and acc =
-    sum exp(s - m) v over those keys only (a split with none: m = NEG_INF,
-    l = 0, acc = 0); the combine weighs split s by exp(m_s - max m) and
-    divides the summed acc by the summed l (l == 0 -> 1).  With
-    ``k_scale``/``v_scale`` the pools hold codes, dequantized as
-    ``code * scale``.  Equal to :func:`paged_attention_multi_ref` up to f32
-    rounding wherever every row sees some key."""
-    if k_scale is not None:
-        k_pool, v_pool = _dequant_pool(k_pool, k_scale), _dequant_pool(v_pool, v_scale)
+                                      k_scale=None, v_scale=None,
+                                      p_bits: str = "f32") -> torch.Tensor:
+    """The split body's split-and-combine arithmetic in plain PyTorch, for
+    the tests (the main path never calls it); q is (B, T, H, hd), T = 1 for
+    a single-token call.  The page table is cut into splits of
+    ``pages_per_split`` pages; each split keeps, per row, the max m of the
+    scores it may see, l = sum exp(s - m) and acc = sum exp(s - m) v over
+    those keys only (a split with none: m = NEG_INF, l = 0, acc = 0); the
+    combine weighs split s by exp(m_s - max m) and divides the summed acc by
+    the summed l (l == 0 -> 1).  With ``k_scale``/``v_scale`` the pools hold
+    codes: K is dequantized as ``code * scale`` and each key's v scale is
+    folded into P, which then meets the V codes, as in the kernel.
+    ``p_bits`` is that P as P V takes it (see :func:`_pv_operand`): "f32",
+    "bf16" (the kernel's tensor cores over bf16 pages) or "bf16x2" (over
+    code pages).  Equal to :func:`paged_attention_multi_ref` up to f32
+    rounding wherever every row sees some key, with ``p_bits`` "f32"."""
     b, t, h, hd = q.shape
     _, bs, hkv, _ = k_pool.shape
     g = h // hkv
@@ -144,11 +162,17 @@ def paged_attention_multi_split_plain(q, k_pool, v_pool, page_table, cur_len, *,
     n_splits = -(-n_pages // pages_per_split)
     span = pages_per_split * bs
     s_pad = n_splits * span
+    pad = s_pad - n_pages * bs  # the last split's missing pages: never seen
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     pt = page_table.long()
+    if k_scale is not None:
+        k_pool = _dequant_pool(k_pool, k_scale)
+        vs = v_scale[pt].repeat_interleave(bs, dim=1)  # (b, n_pages * bs, hkv): per key
+        vs = torch.nn.functional.pad(vs, (0, 0, 0, pad)).permute(0, 2, 1)
+    else:
+        vs = torch.ones((b, hkv, s_pad), device=q.device)
     k = k_pool[pt].reshape(b, n_pages * bs, hkv, hd).float()
     v = v_pool[pt].reshape(b, n_pages * bs, hkv, hd).float()
-    pad = s_pad - n_pages * bs  # the last split's missing pages: never seen
     k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     qf = q.float().reshape(b, t, hkv, g, hd)
@@ -163,11 +187,52 @@ def paged_attention_multi_split_plain(q, k_pool, v_pool, page_table, cur_len, *,
     m = torch.where(ok, s, torch.full_like(s, NEG_INF)).amax(-1)  # (b, n, g, t, splits)
     p = torch.where(ok, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(-1)
-    acc = torch.einsum("bngtsk,bsknd->bngtsd", p, v.reshape(b, n_splits, span, hkv, hd))
+    pv = _pv_operand(p * vs.reshape(b, hkv, 1, 1, n_splits, span), p_bits)
+    acc = torch.einsum("bngtsk,bsknd->bngtsd", pv, v.reshape(b, n_splits, span, hkv, hd))
     w = torch.exp(m - m.amax(-1, keepdim=True))
     lsum = (w * l).sum(-1)
     out = (w[..., None] * acc).sum(-2) / torch.where(lsum == 0, 1.0, lsum)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
+
+
+def cancelling_quant_case(seed: int, t: int, kv_dtype: str):
+    """Inputs of the quantized entries on which the precision of P in P V
+    shows, for the tests and the chip smoke (CPU tensors, from ``seed``
+    with numpy), at the serving shape (B 4, H 32 / 8, hd 128, 9 pages of
+    16): q (B, t, H, hd) f32 with bf16 values, int8 or fp8 (``kv_dtype``)
+    K and V codes, their scales, table and lengths.
+
+    Logical pages 2j and 2j + 1 of a row hold the same K codes under one k
+    scale, so each key of one has the score of its partner in the other;
+    their V codes are +96 and -32 (signs at random) under v scales s and
+    3 s, so each pair's values cancel exactly, and page 8 holds V codes 0.
+    Every row sees all of pages 0-7 (cur_len + t - 1 in 127..143), so the
+    output is ~1e-7 while sum |p v| / l is ~2.5: rounding p v to bf16
+    leaves errors of ~3e-3, P at f32 accuracy ~1e-5 or less."""
+    b, hkv, g, hd, bs, n_pages = 4, 8, 4, 128, 16, 9
+    rng = np.random.default_rng(seed)
+    nb = 1 + b * n_pages
+    q = torch.from_numpy(rng.standard_normal((b, t, hkv * g, hd)).astype(np.float32))
+    pt = (rng.permutation(nb - 1)[: b * n_pages] + 1).reshape(b, n_pages).astype(np.int32)
+    if kv_dtype == "int8":
+        kc = rng.integers(-127, 128, (nb, bs, hkv, hd)).astype(np.float32)
+        k_scale = 0.02
+    else:
+        normal = np.clip(64 * rng.standard_normal((nb, bs, hkv, hd)), -448, 448)
+        kc = torch.from_numpy(normal.astype(np.float32)).to(torch.float8_e4m3fn).float().numpy()
+        k_scale = 1 / 32
+    vc = np.zeros((nb, bs, hkv, hd), np.float32)
+    vs = rng.uniform(0.01, 0.03, (nb, hkv)).astype(np.float32)
+    for i in range(b):
+        for j in range(0, n_pages - 1, 2):
+            a, c = pt[i, j], pt[i, j + 1]
+            sign = rng.choice([-1.0, 1.0], size=(bs, hkv, hd))
+            kc[c], vc[a], vc[c], vs[c] = kc[a], 96 * sign, -32 * sign, 3 * vs[a]
+    code = torch.int8 if kv_dtype == "int8" else torch.float8_e4m3fn
+    return (q.to(torch.bfloat16).float(), torch.from_numpy(kc).to(code),
+            torch.from_numpy(vc).to(code), torch.full((nb, hkv), k_scale),
+            torch.from_numpy(vs), torch.from_numpy(pt),
+            torch.tensor([139, 133, 131, 127], dtype=torch.int32))
 
 
 def flash_attention_ref(

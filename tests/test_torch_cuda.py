@@ -16,7 +16,10 @@ for its SSD kernel), bf16 2e-2.  The paper kernels, relative to the plain
 output's largest magnitude (at least 1): matmul f32 1e-5 (k-long f32 sums
 in another order), bf16 2e-2 (one bf16 ulp); FWT f32 1e-5 (the
 reference's), bf16 2e-2; NW exact (the same f32 operations as the plain
-version).
+version).  P over code pools (``ref.cancelling_quant_case``, bf16 q, output
+~1e-7 while sum |p v| / l is ~2.5): 1e-4, ten times what P at f32 accuracy
+leaves there (<= 8e-6 in the plain emulation) and a thirtieth of what P
+rounded once to bf16 leaves (>= 2.7e-3).
 """
 
 import math
@@ -72,6 +75,23 @@ def _paged(dtype, cur, *, trash_row=None, b=4, hkv=8, g=4, hd=128, bs=16, n_page
             cl.to(torch.int32))
 
 
+MULTI_CASES = [
+    dict(t=5, cur=[139, 111, 88, 76]),  # the verify step's shapes
+    dict(t=2, cur=[0, 15, 16, 100], trash_row=0),
+    dict(t=5, cur=[14, 30, 60, 141]),  # page edges; row 3 runs past the table
+    dict(t=5, cur=[139, 111, 88, 0], window=32, softcap=30.0, trash_row=3),
+    dict(t=5, cur=[7, 3, 12, 0], hd=64, g=2, bs=8),
+    dict(t=3, cur=[40, 7, 12, 21], g=8),  # 24 rows
+    dict(t=17, cur=[120, 100, 64, 3]),  # 68 rows: two row tiles of 34
+    dict(t=5, cur=[139, 111, 88, 76], g=1),
+    dict(t=5, cur=[139, 111, 88, 76], g=8),
+    dict(t=5, cur=[60, 33, 17, 0], hd=64),
+    dict(t=5, cur=[139, 111, 88, 76], hd=256),
+    dict(t=5, cur=[139, 130, 127, 100], window=16),  # whole splits behind the window
+    dict(t=5, cur=[2043, 2027, 2011, 1995], n_pages=128),  # 8 pages a split
+]
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("case", [
     dict(cur=[0, 15, 16, 100], trash_row=0),
@@ -79,10 +99,14 @@ def _paged(dtype, cur, *, trash_row=None, b=4, hkv=8, g=4, hd=128, bs=16, n_page
     dict(cur=[143, 100, 15, 16], window=32),
     dict(cur=[143, 100, 15, 0], softcap=30.0, trash_row=3),
     dict(cur=[7, 3, 12, 0], hd=64, g=2, bs=8),
+    *({k: v for k, v in c.items() if k != "t"} for c in MULTI_CASES),
 ], ids=str)
 def test_paged_kernel_matches_plain(cuda, dtype, case):
+    """Also at the draft-block cases' shapes with one token: 128 pages,
+    head_dim 64 and 256, g 1 and 8, block size 8, whole splits behind the
+    window."""
     kw = {k: case[k] for k in ("window", "softcap") if k in case}
-    shape = {k: case[k] for k in ("hd", "g", "bs") if k in case}
+    shape = {k: case[k] for k in ("hd", "g", "bs", "n_pages") if k in case}
     q, kp, vp, pt, cl = (t.to(cuda) for t in _paged(
         dtype, case["cur"], trash_row=case.get("trash_row"), **shape))
     n0 = PA.KERNEL.launches
@@ -141,29 +165,22 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         ops.paged_attention_multi_quant(q24, pool24.to(torch.int8), pool24.to(torch.int8),
                                         sc, sc, pt, cl)
     assert ops.paged_attention(q24[:, 0].contiguous(), pool24, pool24, pt, cl).shape == (4, 32, 24)
+    # The walk body (head_dim 24) holds at most 16 query heads per kv head;
+    # the split body (head_dim 128) needs q and pools on 16-byte boundaries.
+    pool24_1 = torch.zeros((kp.shape[0], kp.shape[1], 1, 24), device=cuda)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        ops.paged_attention(q24[:, 0].contiguous(), pool24_1, pool24_1, pt, cl)
+    q_off = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.paged_attention(q_off, kp, vp, pt, cl)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.paged_attention_quant(q_off, codes, codes, sc, sc, pt, cl)
 
 
 def _quantize(pool, kv_dtype):
     """(codes, scales) of a full-precision pool, the port's own quantizer."""
     scale = quant.scales_of(pool, kv_dtype)
     return quant.quantize(pool, scale, kv_dtype), scale
-
-
-MULTI_CASES = [
-    dict(t=5, cur=[139, 111, 88, 76]),  # the verify step's shapes
-    dict(t=2, cur=[0, 15, 16, 100], trash_row=0),
-    dict(t=5, cur=[14, 30, 60, 141]),  # page edges; row 3 runs past the table
-    dict(t=5, cur=[139, 111, 88, 0], window=32, softcap=30.0, trash_row=3),
-    dict(t=5, cur=[7, 3, 12, 0], hd=64, g=2, bs=8),
-    dict(t=3, cur=[40, 7, 12, 21], g=8),  # 24 rows
-    dict(t=17, cur=[120, 100, 64, 3]),  # 68 rows: two row tiles of 34
-    dict(t=5, cur=[139, 111, 88, 76], g=1),
-    dict(t=5, cur=[139, 111, 88, 76], g=8),
-    dict(t=5, cur=[60, 33, 17, 0], hd=64),
-    dict(t=5, cur=[139, 111, 88, 76], hd=256),
-    dict(t=5, cur=[139, 130, 127, 100], window=16),  # whole splits behind the window
-    dict(t=5, cur=[2043, 2027, 2011, 1995], n_pages=128),  # 8 pages a split
-]
 
 
 def _draft_inputs(dtype, case, cuda):
@@ -203,7 +220,7 @@ def test_paged_multi_kernel_matches_plain(cuda, dtype, case):
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("case", [dict(t=1, cur=[143, 100, 15, 16]),
                                   dict(t=1, cur=[0, 15, 16, 100], trash_row=0, window=32),
-                                  *MULTI_CASES], ids=str)
+                                  *MULTI_CASES, *(dict(c, t=1) for c in MULTI_CASES)], ids=str)
 def test_paged_quant_kernels_match_plain(cuda, dtype, kv_dtype, case):
     kw = {k: case[k] for k in ("window", "softcap") if k in case}
     q, kp, vp, pt, cl = _draft_inputs(dtype, case, cuda)
@@ -222,6 +239,31 @@ def test_paged_quant_kernels_match_plain(cuda, dtype, kv_dtype, case):
     assert kern.launches == n0 + 1
     assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+P_CODES_ATOL = 1e-4  # see the module docstring
+
+
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quant_kernels_keep_p_at_f32_accuracy(cuda, kv_dtype, t):
+    """bf16 q over code pools whose V values cancel: the kernel's P V must
+    keep P at f32 accuracy, as the reference's f32 dequantized V does."""
+    q, kc, vc, ks, vs, pt, cl = (x.to(cuda) for x in ref.cancelling_quant_case(3, t, kv_dtype))
+    q = q.to(torch.bfloat16)
+    if t == 1:
+        q, kern = q[:, 0].contiguous(), PA.QUANT_KERNEL
+        fn, plain = ops.paged_attention_quant, PA.paged_attention_quant_plain
+    else:
+        kern = PA.MULTI_QUANT_KERNEL
+        fn, plain = ops.paged_attention_multi_quant, PA.paged_attention_multi_quant_plain
+    n0 = kern.launches
+    got = fn(q, kc, vc, ks, vs, pt, cl)
+    want = plain(q, kc, vc, ks, vs, pt, cl, scale=1 / math.sqrt(q.shape[-1]))
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= P_CODES_ATOL, err
 
 
 def test_engine_on_card_matches_cpu(cuda):

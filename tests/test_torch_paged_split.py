@@ -1,22 +1,33 @@
-"""What surrounds the draft-block paged-attention kernel, on the CPU: the
-plain emulation of its split-and-combine arithmetic
+"""What surrounds the split body of the paged-attention kernel, on the CPU:
+the plain emulation of its split-and-combine arithmetic
 (``ref.paged_attention_multi_split_plain``) against the port's plain
-version and the JAX package's Pallas kernels (interpret mode), including
-splits that every row masks, and the wrapper's split planner.  The kernel
-itself runs only on a card: ``tests/test_torch_cuda.py``.
+versions and the JAX package's Pallas kernels (interpret mode), for draft
+blocks and single-token calls (q_len 1), including splits that every row
+masks; the wrapper's split planner and its choice of body; and the
+precision of P over code pools.  The kernel itself runs only on a card:
+``tests/test_torch_cuda.py``.
 
 Tolerances, max abs error relative to the expected output's largest
 magnitude (at least 1): split emulation vs ``paged_attention_multi_ref``,
 both f32 in PyTorch, 1e-6 (the same sums regrouped by split); vs the JAX
 package 2e-5, as ``tests/test_torch_kernels.py`` (sums in another order).
 Relative to the magnitude because a shielded row attends only trash keys,
-whose garbage here is 100 times the data: its output is in the hundreds."""
+whose garbage here is 100 times the data: its output is in the hundreds.
+
+P over code pools (``ref.cancelling_quant_case``: the output is ~1e-7
+while sum |p v| / l is ~2.5): the emulation with P (times the v scale)
+rounded once to bf16 before the tensor cores misses the JAX quantized
+reference by more than 2e-5, and with P split into P_hi + P_lo, as the
+kernel does, meets 2e-5.  2e-5 is the file's JAX tolerance: one bf16
+rounding of P leaves ~3e-3 on this case, the split ~8e-6 (2^-18 of each
+|p v| term) plus f32 sums in another order."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as rconfigs
 from repro.kernels import ops as rops
 from repro.kernels import quant as rquant
 from repro_torch.kernels import paged_attention as PA
@@ -62,6 +73,16 @@ MASKED_SPLIT_CASES = [
     dict(t=5, cur=[0, 40, 139, 7], trash_row=0),
     dict(t=5, cur=[141, 142, 143, 140]),
 ]
+# Single-token calls (q_len 1): the decode tick's positions, a trash row,
+# window plus softcap, splits wholly behind the window, and splits past
+# cur_len (their table entries at trash).
+SINGLE_CASES = [
+    dict(t=1, cur=[143, 115, 92, 80]),
+    dict(t=1, cur=[0, 15, 16, 100], trash_row=0),
+    dict(t=1, cur=[139, 111, 88, 0], window=32, softcap=30.0, trash_row=3),
+    dict(t=1, cur=[143, 143, 143, 143], window=32),
+    dict(t=1, cur=[0, 40, 139, 7], trash_row=0),
+]
 
 
 def _close(got, want, tol):
@@ -80,7 +101,7 @@ def _torch(*arrs):
 
 
 @pytest.mark.parametrize("pps", range(1, N_PAGES + 1))
-@pytest.mark.parametrize("case", CASES + MASKED_SPLIT_CASES, ids=str)
+@pytest.mark.parametrize("case", CASES + MASKED_SPLIT_CASES + SINGLE_CASES, ids=str)
 def test_split_plain_matches_multi_ref(case, pps):
     arrs = _case(1, case["t"], case["cur"], trash_row=case.get("trash_row"),
                  g=case.get("g", 2))
@@ -138,6 +159,62 @@ def test_split_plain_quant_matches_pallas_kernel(case, kv_dtype):
     _close(got.numpy(), oracle.numpy(), SPLIT_TOL)
 
 
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("case", SINGLE_CASES, ids=str)
+def test_split_plain_single_token_matches_pallas_kernel(case, kv_dtype):
+    """q_len 1 through the split arithmetic, as the single-token entries run
+    it, against the JAX package's single-token kernel (full-precision or
+    quantized pools)."""
+    q, kp, vp, pt, cl = _case(6, 1, case["cur"], trash_row=case.get("trash_row"))
+    pps = PA.plan_split(4, 2, 1, 2, N_PAGES, 16).pages_per_split
+    if kv_dtype is None:
+        got = ref.paged_attention_multi_split_plain(*_torch(q, kp, vp, pt, cl),
+                                                    pages_per_split=pps, **_kw(case))
+        want = rops.paged_attention(*map(jnp.asarray, (q[:, 0], kp, vp, pt, cl)), **_kw(case))
+    else:
+        kc, vc, ks, vs = _quantized(kp, vp, kv_dtype)
+        got = ref.paged_attention_multi_split_plain(
+            torch.from_numpy(q), _torch_codes(kc), _torch_codes(vc), *_torch(pt, cl),
+            pages_per_split=pps, k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs),
+            **_kw(case))
+        want = rops.paged_attention_quant(*map(jnp.asarray, (q[:, 0], kc, vc, ks, vs, pt, cl)),
+                                          **_kw(case))
+    _close(got[:, 0].numpy(), np.asarray(want), JAX_TOL)
+
+
+def _jax_codes(t):
+    """Torch int8 / fp8 codes as a JAX array of the same type."""
+    if t.dtype == torch.int8:
+        return jnp.asarray(t.numpy())
+    return jnp.asarray(t.view(torch.uint8).numpy().view(jnp.float8_e4m3fn))
+
+
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_p_over_code_pools_needs_f32_accuracy(kv_dtype, t):
+    """The kernel's P V over code pools in plain PyTorch: on a case whose V
+    codes cancel, P rounded once to bf16 misses the JAX quantized
+    reference, P_hi + P_lo meets it."""
+    q, kc, vc, ks, vs, pt, cl = ref.cancelling_quant_case(7, t, kv_dtype)
+    jargs = (jnp.asarray(q.numpy()), _jax_codes(kc), _jax_codes(vc), jnp.asarray(ks.numpy()),
+             jnp.asarray(vs.numpy()), jnp.asarray(pt.numpy()), jnp.asarray(cl.numpy()))
+    if t == 1:
+        want = np.asarray(rops.paged_attention_quant(jargs[0][:, 0], *jargs[1:]))[:, None]
+    else:
+        want = np.asarray(rops.paged_attention_multi_quant(*jargs))
+    assert np.abs(want).max() < 1e-5  # the values cancel ...
+    weight = ref.paged_attention_multi_quant_ref(q, kc, vc.float().abs().to(vc.dtype), ks, vs,
+                                                 pt, cl)
+    assert weight.abs().max() > 1.0  # ... out of sum |p v| / l of order 1
+    err = {}
+    for bits in ("bf16", "bf16x2"):
+        got = ref.paged_attention_multi_split_plain(q, kc, vc, pt, cl, pages_per_split=2,
+                                                    k_scale=ks, v_scale=vs, p_bits=bits)
+        err[bits] = np.abs(got.numpy() - want).max()
+    assert err["bf16"] > JAX_TOL, err
+    assert err["bf16x2"] <= JAX_TOL, err
+
+
 def test_a_split_behind_the_window_has_no_keys():
     """With window 32 at cur_len 139 the first splits of 2 pages hold no key
     any row may see, and the result still equals the reference."""
@@ -163,6 +240,8 @@ def test_a_split_behind_the_window_has_no_keys():
     ((4, 8, 2, 4, 1, 64), (1, 8, 1, 1, (4, 8, 1), None)),  # one page: no split
     ((64, 8, 5, 4, 9, 128), (1, 20, 5, 2, (64, 8, 2), (64 * 8 * 2 * 20, 130))),
     ((128, 8, 5, 4, 9, 128), (1, 20, 9, 1, (128, 8, 1), None)),  # 1024 pairs: no split
+    ((4, 8, 1, 4, 9, 128), (1, 4, 2, 5, (4, 8, 5), (640, 130))),  # decode tick
+    ((4, 8, 1, 4, 128, 128), (1, 4, 8, 16, (4, 8, 16), (4 * 8 * 16 * 4, 130))),  # long
 ], ids=str)
 def test_plan_split(shape, want):
     p = PA.plan_split(*shape)
@@ -183,3 +262,12 @@ def test_plan_split_rules(b, n_pages):
     assert p.pages_per_split >= min(PA.MIN_PAGES_PER_SPLIT, n_pages)
     pairs = b * 8 * p.tiles
     assert p.n_splits == 1 or pairs * (p.n_splits - 1) < PA.TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("arch", rconfigs.list_archs())
+def test_every_config_runs_the_split_body(arch):
+    """Every configuration's head_dim, full and smoke, goes to the split
+    body; a head_dim that is not a multiple of 16 to the walk body."""
+    for cfg in (rconfigs.get_config(arch), rconfigs.get_smoke_config(arch)):
+        assert PA.single_token_body(cfg.head_dim) == "split", (arch, cfg.head_dim)
+    assert PA.single_token_body(24) == "walk"
