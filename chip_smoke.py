@@ -40,7 +40,12 @@ Phases (any failed check raises, and the script exits non-zero):
      within 1e-4, which only P at f32 accuracy meets.  All four paged
      entries run the split body, print its split plan and grid beside their
      times, and are timed again at a long context (128 pages of 16) beside
-     their bound and SDPA.
+     their bound and SDPA.  The prefill kernel prints its plan and is timed
+     at the serve's chunk and at a long context (Sq 64 at q_offset 1984)
+     beside SDPA and its bound, at the plan's tiling and the body's other
+     two; the matmul prints its plan, and its bound counts the three TF32
+     products of its f32 accuracy at the TF32 peak (the one-product f32 FMA
+     bound beside it).
   4. card vs CPU: qwen3-4b at full width cut to 2 layers, f32, 6 requests
      served on cuda (kernels) and on cpu (plain versions): admission logits
      allclose (atol 2e-3, rtol 1e-3) and greedy tokens identical per uid;
@@ -86,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -100,7 +106,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
+# dense, no sparsity; "tf32": the tensor cores' TF32 rate (3xTF32 matmul)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # kernel vs plain, max abs
 # The SSD scan, relative to the plain output's largest magnitude (at least
 # 1): inside a chunk of up to 256 tokens the cumulative log-decay reaches
@@ -141,6 +148,7 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
 # tolerance, one bf16 ulp; NW is exact (the same f32 operations).
 PAPER_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SNAP_HEAD = 64  # tokens every snapshot-serve prompt longer than it starts with
+LONG_Q_OFFSET = 1984  # the prefill kernel's long context: Sq 64 at Sk 2048
 
 
 def check(cond: bool, msg: str) -> None:
@@ -374,8 +382,6 @@ def sdpa_paged(q, kp, vp, pt, cl, scale, k_scale=None, v_scale=None):
 
 
 def phase_kernels() -> dict:
-    import torch.nn.functional as F
-
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as PA
@@ -437,7 +443,9 @@ def phase_kernels() -> dict:
                          fn(qc, kc, vc, ks, vs, ptc, clc),
                          plain(qc, kc, vc, ks, vs, ptc, clc, scale=scale), P_CODES_TOL)
         for i, (sq, off, kw) in enumerate([(64, 0, {}), (64, 64, {}), (36, 64, {}),
-                                           (64, 64, dict(window=32, softcap=30.0))]):
+                                           (64, 64, dict(window=32, softcap=30.0)),
+                                           (64, LONG_Q_OFFSET, {}),
+                                           (37, LONG_Q_OFFSET, dict(window=700))]):
             q, k, v = flash_case(dtype, sq, off, seed=i)
             held(res, "flash_attention", dtype, f"Sq={sq} q_offset={off} {kw}",
                  ops.flash_attention(q, k, v, q_offset=off, **kw),
@@ -501,15 +509,10 @@ def phase_kernels() -> dict:
             fp8_ms = {name: device_ms(fns[0], iters=QUEUED) for name, fns in entries.items()}
 
     qf, kf, vf = flash_case(dt, 64, 64, seed=9)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qf, kf, vf))
-    fmask = torch.arange(64, 128, device="cuda")[:, None] >= torch.arange(
-        128, device="cuda")[None, :]
     timed["flash_attention"] = (
         lambda: ops.flash_attention(qf, kf, vf, q_offset=64),
         lambda: FA.flash_attention_plain(qf, kf, vf, scale=scale, q_offset=64),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask, scale=scale,
-                                               enable_gqa=True),
-        flash_bytes_flops(qf, kf, 64, 0))
+        sdpa_prefill(qf, kf, vf, 64, scale), flash_bytes_flops(qf, kf, 64, 0))
     # The SSD scan as a prefill chunk of the serve runs it: b=1, a 64-token
     # chunk, the carried state in; no single PyTorch call computes it.
     xs, dts, as_, bs_, cs_, sts = ssd_case(dt, 1, 64, init=True, seed=9)
@@ -529,8 +532,10 @@ def phase_kernels() -> dict:
               f"({r['bound_by']}, {nbytes} bytes, {flops:.0f} flops)"
               + (f"; fp8 codes: kernel {fp8_ms[name]:.4f} ms" if name in fp8_ms else "")
               + (f"; {split_plan(qm if 'multi' in name else q, kp, pt)}"
-                 if name.startswith("paged") else ""))
+                 if name.startswith("paged") else "")
+              + (f"; {flash_plan(qf, kf)}" if name == "flash_attention" else ""))
     long_context(scale)
+    prefill_long_context(scale)
     return res
 
 
@@ -544,6 +549,56 @@ def split_plan(q, kp, pt) -> str:
                       q.shape[-1])
     return (f"{p.n_splits} splits of {p.pages_per_split} pages, {p.tiles} row tile(s) of "
             f"{p.tile_rows}, grid {p.grid} = {p.blocks} blocks")
+
+
+def sdpa_prefill(q, k, v, q_offset, scale):
+    """SDPA over a prefill chunk (the yardstick of the prefill kernel): q
+    at positions q_offset.., the causal mask as a boolean matrix, GQA by
+    SDPA's own enable_gqa, heads-first copies made once outside the call."""
+    import torch.nn.functional as F
+
+    sq, sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = (torch.arange(q_offset, q_offset + sq, device="cuda")[:, None]
+            >= torch.arange(sk, device="cuda")[None, :])
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+
+
+def flash_plan(q, k) -> str:
+    """The prefill kernel's plan for these inputs: body, tiling, grid."""
+    from repro_torch.kernels import flash_attention as FA
+
+    p = FA.plan_flash(q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], q.dtype)
+    return (f"plan: {p.body} body, {p.key_splits} key split(s) a block of {p.warps} warps, "
+            f"{p.key_tile}-key softmax steps, grid {p.grid} = {p.blocks} blocks")
+
+
+def prefill_long_context(scale) -> None:
+    """The prefill kernel, bf16, at the serve's chunk (Sq 64 at q_offset 64)
+    and at a long context (Sq 64 at q_offset LONG_Q_OFFSET), beside SDPA and
+    the bound, each first held against the plain version.  Printed only:
+    the kernels JSON keeps the serve shape's numbers."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    dt = torch.bfloat16
+    for off in (64, LONG_Q_OFFSET):
+        q, k, v = flash_case(dt, 64, off, seed=7)
+        want = FA.flash_attention_plain(q, k, v, scale=scale, q_offset=off)
+        nbytes, flops = flash_bytes_flops(q, k, off, 0)
+        b_ms, b_by = bound(nbytes, flops, dt)
+        lib_ms = device_ms(sdpa_prefill(q, k, v, off, scale), iters=QUEUED)
+        kern = functools.partial(ops.flash_attention, q, k, v, scale=scale, q_offset=off)
+        got = kern()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= TOL[dt], f"flash_attention q_offset {off}: {err}")
+        ms = device_ms(kern, iters=QUEUED)
+        print(f"[kernels] flash_attention Sq=64 q_offset={off} (Sk {off + 64}): "
+              f"kernel {ms:.4f} ms, library {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), "
+              f"bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes, {flops:.0f} flops), "
+              f"{ms / b_ms:.1f}x bound; max abs err {err:.3e}; {flash_plan(q, k)}")
 
 
 def long_context(scale) -> None:
@@ -1079,7 +1134,8 @@ def phase_paper_kernels(res: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(40)
     f32, bf16 = torch.float32, torch.bfloat16
     for dx, dy in ((f32, f32), (bf16, bf16), (f32, bf16)):
-        for m, k, n in ((2048, 2048, 2048), (129, 257, 130), (1, 1000, 3)):
+        for m, k, n in ((2048, 2048, 2048), (129, 257, 130), (1, 1000, 3),
+                        (2047, 33, 2049)):
             x = torch.randn((m, k), generator=g, device="cuda").to(dx)
             y = torch.randn((k, n), generator=g, device="cuda").to(dy)
             got = ops.matmul(x, y)
@@ -1145,14 +1201,30 @@ def phase_paper_kernels(res: dict) -> None:
         r["ms"] = (device_ms(kern) if slow else time_ms(kern)) / per
         r["plain_ms"] = time_ms(plain, iters=2 if slow else 20, warmup=1) / per
         r["library_ms"] = time_ms(lib) if lib is not None else None
-        r["bound_ms"], r["bound_by"] = bound(nbytes / per, flops / per, torch.float32)
+        # The matmul's f32-accurate work on the tensor cores is three TF32
+        # products (3xTF32): its bound counts them at the TF32 peak.
+        r["bound_ms"], r["bound_by"] = (
+            bound(nbytes, 3 * flops, "tf32") if name == "streamed_matmul"
+            else bound(nbytes / per, flops / per, torch.float32))
         lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernels] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib_ms}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}, "
               f"{nbytes / per:.0f} bytes, {flops / per:.0f} flops)"
+              + (f"; 3xTF32 bound (3 x {flops:.0f} flops at 495 TFLOP/s, the JSON's), f32 "
+                 f"FMA bound {bound(nbytes, flops, torch.float32)[0]:.6f} ms (one product "
+                 f"at 67 TFLOP/s); kernel {r['library_ms'] / r['ms']:.2f}x the library's "
+                 f"speed; {matmul_plan(x, y)}" if name == "streamed_matmul" else "")
               + (f" per launch; {n_diag} launches a task: kernel {r['ms'] * per:.3f} ms "
                  f"queued ahead, {time_ms(kern, iters=10):.3f} ms as the host issues them, "
                  f"plain {r['plain_ms'] * per:.3f} ms" if per > 1 else ""))
+
+
+def matmul_plan(x, y) -> str:
+    from repro_torch.kernels import streamed_matmul as MM
+
+    p = MM.plan_matmul(x.shape[0], y.shape[1], x.shape[1], x.dtype, y.dtype)
+    return (f"plan: {p.body} body, {p.products} product(s) a k-step, grid {p.grid} of "
+            f"{MM.BLOCK} tiles")
 
 
 def phase_card_vs_cpu_streams() -> None:

@@ -3,8 +3,12 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
 (``flash_attention_kernel``) and covers what the reference model runs as
 ``attention.flash_attention_ref`` for a prefill chunk: ``q_offset``, GQA
-without a broadcast copy, and lengths that are not tile multiples.  The
-kernel's design and bound are in the CUDA source's header.
+without a broadcast copy, and lengths that are not tile multiples.  Two
+CUDA bodies, as :func:`plan_flash` picks them: bf16 with head_dim a multiple
+of 16 runs on the tensor cores (``"tc"``), f32 or any other head_dim on the
+SIMT body (``"simt"``).  The bodies' designs and bounds are in the CUDA
+source's header; ``ref.flash_attention_tc_plain`` emulates the tensor-core
+body's rounding for the tests.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`flash_attention_plain`, from ``kernels/ref.py``); on a CUDA tensor
@@ -14,6 +18,7 @@ it launches the kernel or raises — it never falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -27,7 +32,41 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
     "flash_attention.cu", "flash_attention",
     [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, ctypes.c_float, _P])
+     ctypes.c_float, ctypes.c_float, _I, _P])
+
+TC_WARPS = 4  # warps a block of the tensor-core body
+KEY_TILE = 16  # keys of one softmax step of the tensor-core body
+SIMT_ROWS, SIMT_KEYS = 16, 32  # the SIMT body's query and key tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How one call runs.  ``body`` "tc": grid (m-tiles, Hkv, B) of ``warps``
+    warps, each block one m-tile of 16 of the Sq * g rows of a (b, kv head),
+    its ``key_splits`` = ``warps`` warps sharing each staged K/V tile and
+    splitting its 16-key softmax steps (``key_tile``) among them.  ``body``
+    "simt": grid (B * H, Sq / 16) of 4 warps, one query head a block, key
+    tiles of 32."""
+
+    body: str
+    grid: tuple[int, int, int]
+    warps: int
+    key_splits: int
+    key_tile: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def plan_flash(batch: int, sq: int, n_heads: int, n_kv: int, head_dim: int,
+               dtype: torch.dtype) -> FlashPlan:
+    """The body and tiling of a call, from its shape and type alone: the
+    tensor-core body for bf16 with head_dim % 16 == 0, else the SIMT body."""
+    if dtype != torch.bfloat16 or head_dim % 16:
+        return FlashPlan("simt", (batch * n_heads, -(-sq // SIMT_ROWS), 1), 4, 1, SIMT_KEYS)
+    m_tiles = -(-sq * (n_heads // n_kv) // 16)
+    return FlashPlan("tc", (m_tiles, n_kv, batch), TC_WARPS, TC_WARPS, KEY_TILE)
 
 
 def _check_inputs(q, k, v) -> None:
@@ -75,9 +114,13 @@ def flash_attention(
     sk, hkv = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel: head_dim {hd} > {MAX_HEAD_DIM}")
+    plan = plan_flash(b, sq, h, hkv, hd, q.dtype)
+    if plan.body == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: the tensor-core body copies q, k and v "
+                         "in 16-byte chunks; they must start on 16-byte boundaries")
     out = torch.empty_like(q)
     KERNEL.launch(
         _DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), b, sq, sk, h, hkv,
         hd, int(q_offset), int(bool(causal)), int(window), float(softcap),
-        float(scale), ctypes.c_void_p(stream_of(q)))
+        float(scale), int(plan.body == "tc"), ctypes.c_void_p(stream_of(q)))
     return out

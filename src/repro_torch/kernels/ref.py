@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground truth):
 the attention entries, the SSD chunk scan, and the paper kernels (matmul,
 Walsh-Hadamard transform, Needleman-Wunsch tiles; numpy NW oracles); with
-them, the plain emulation of the paged split body and the inputs on which
-its precision over quantized pages shows.
+them, the plain emulations of the tensor-core bodies' arithmetic (the paged
+split body, the prefill body, the 3xTF32 matmul) and the inputs on which the
+paged body's precision over quantized pages shows.  The emulations serve
+the tests only.
 
 They compute in float32 whatever the input type and return the query's
 type, as the reference's ``kernels/ref.py`` oracles do.  The CPU path of
@@ -268,6 +270,108 @@ def flash_attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bngqk,bknd->bqngd", p, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def flash_attention_tc_plain(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,  # (B, Sk, Hkv, hd)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float | None = None,
+    q_offset: int = 0,
+    key_tile: int = 16,
+    key_splits: int = 1,
+) -> torch.Tensor:
+    """The prefill kernel's tensor-core body in plain PyTorch, for the tests
+    (the main path never calls it): scores of the (bf16) q and k as exact
+    products summed in f32, then an online softmax over key tiles of
+    ``key_tile`` keys at multiples of it, P rounded to bf16 before P V per
+    tile (l summed from the f32 P), f32 l and acc.  ``key_splits`` > 1: tile
+    j goes to split j % key_splits, each split keeps its own (m, l, acc)
+    over its tiles in order, and the splits are combined with weights
+    exp(m_s - max m) at the end, as the kernel's warps do.  Masked keys
+    take no part (p = 0, not in the max); a row that sees no key gives 0.
+    ``key_splits`` 1 is the reference's ``flash_attention_ref`` at chunk =
+    ``key_tile`` up to f32 sums in another order."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    n_tiles = -(-sk // key_tile)
+    pad = n_tiles * key_tile - sk
+    qf = q.float().reshape(b, sq, hkv, g, hd)
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    s = _softcap(torch.einsum("bqngd,bknd->bngqk", qf, kf) * scale, softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(n_tiles * key_tile, device=q.device)[None, :]
+    ok = kpos < sk
+    if causal:
+        ok = ok & (kpos <= qpos)
+    if window > 0:
+        ok = ok & (qpos - kpos < window)
+    ok = ok.expand(sq, -1)
+    shape = s.shape[:-1]  # (b, hkv, g, sq)
+    m_s, l_s, acc_s = [], [], []
+    for split in range(key_splits):
+        m = torch.full(shape, NEG_INF, device=q.device)
+        l = torch.zeros(shape, device=q.device)
+        acc = torch.zeros((*shape, hd), device=q.device)
+        for j in range(split, n_tiles, key_splits):
+            cols = slice(j * key_tile, (j + 1) * key_tile)
+            st, okt = s[..., cols], ok[:, cols]
+            m_new = torch.maximum(m, torch.where(okt, st, NEG_INF).amax(-1))
+            p = torch.where(okt, torch.exp(st - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1)
+            pv = torch.einsum("bngqk,bknd->bngqd", p.to(torch.bfloat16).float(), vf[:, cols])
+            acc = alpha[..., None] * acc + pv
+            m = m_new
+        m_s.append(m)
+        l_s.append(l)
+        acc_s.append(acc)
+    m_all = torch.stack(m_s)
+    w = torch.exp(m_all - m_all.amax(0))
+    lsum = (w * torch.stack(l_s)).sum(0)
+    out = (w[..., None] * torch.stack(acc_s)).sum(0) / torch.where(lsum == 0, 1.0, lsum)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to
+    the magnitude's bit pattern and clear them.  Inf and NaN stay."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    rounded = ((bits + 0x1000) & ~0x1FFF) & 0xFFFFFFFF
+    rounded = torch.where(rounded >= 2**31, rounded - 2**32, rounded)
+    out = torch.where(finite, rounded, bits).to(torch.int32).view(torch.float32)
+    return out.reshape(x.shape)
+
+
+def matmul_tf32_plain(x: torch.Tensor, y: torch.Tensor, *, products: int = 3) -> torch.Tensor:
+    """The matmul kernel's tensor-core arithmetic in plain PyTorch, for the
+    tests (the main path never calls it), in ``result_type(x, y)``: each
+    f32 operand a split into big = tf32(a) and small = tf32(a - big) (a
+    bf16 operand is exact in TF32: small = 0), and with ``products`` 3 the
+    sum x_small y_big + x_big y_small + x_big y_big in f32 (3xTF32); with
+    ``products`` 1 the single TF32 product x_big y_big.  The sums are f32
+    matmuls, rounded: the tensor cores' truncating accumulation, which the
+    kernel bounds by summing each 32-deep k stage apart, is not modelled."""
+    def split(a):
+        big = tf32_round(a.float()) if a.dtype == torch.float32 else a.float()
+        return big, tf32_round(a.float() - big)
+
+    (xb, xs), (yb, ys) = split(x), split(y)
+    out = xb @ yb
+    if products == 3:
+        out = xs @ yb + xb @ ys + out
+    elif products != 1:
+        raise ValueError(f"products must be 1 or 3, got {products}")
+    return out.to(torch.result_type(x, y))
 
 
 def ssd_chunked_ref(

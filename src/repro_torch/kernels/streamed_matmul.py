@@ -5,7 +5,11 @@ Replaces the TPU kernel ``repro/kernels/streamed_matmul.py::streamed_matmul``
 accumulator over the k stream, output in ``result_type(x, y)``.  The TPU
 kernel needs every dimension to divide by its VMEM block sizes; the CUDA
 kernel masks its edges, so it takes no block arguments and any ``(m, k) @
-(k, n)``.  The kernel's design and bound are in the CUDA source's header.
+(k, n)``.  It runs on the tensor cores as :func:`plan_matmul` says: f32 x
+f32 as three TF32 products (3xTF32, f32 accuracy), f32 x bf16 as two, bf16
+x bf16 as one bf16 product; ``ref.matmul_tf32_plain`` emulates those
+products for the tests.  The kernel's design and bound are in the CUDA
+source's header.
 
 On a CPU tensor the wrapper runs the plain version (:func:`matmul_plain`,
 from ``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises
@@ -15,6 +19,7 @@ from ``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -26,6 +31,31 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _P = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel("streamed_matmul.cu", "streamed_matmul",
                     [_I, _I, _P, _P, _P, _I, _I, _I, _P])
+
+BLOCK = (128, 128, 32)  # a block's (m, n) tile of out and its k stage
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """How one call runs: ``body`` "tf32" (wgmma m64n128k8, ``products``
+    TF32 products a k-step: 3 for f32 x f32, 2 with one bf16 operand) or
+    "bf16" (mma.sync m16n8k16, one product); a grid of (n, m) tiles of
+    ``BLOCK``.  Which operands go by cp.async the C entry decides from
+    their pointers and rows (see its note)."""
+
+    body: str
+    products: int
+    grid: tuple[int, int]
+
+
+def plan_matmul(m: int, n: int, k: int, x_dtype: torch.dtype,
+                y_dtype: torch.dtype) -> MatmulPlan:
+    """The kernel's body for x (m, k) @ y (k, n) of these types."""
+    bf16 = torch.bfloat16
+    both = x_dtype == bf16 and y_dtype == bf16
+    products = 1 if both else 3 - (x_dtype == bf16) - (y_dtype == bf16)
+    grid = (-(-n // BLOCK[1]), -(-m // BLOCK[0]))
+    return MatmulPlan("bf16" if both else "tf32", products, grid)
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -119,26 +119,64 @@ def test_paged_kernel_matches_plain(cuda, dtype, case):
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("case", [
+FLASH_CASES = [
     dict(sq=64, q_offset=0), dict(sq=64, q_offset=64), dict(sq=36, q_offset=64),
     dict(sq=5, q_offset=0, g=1), dict(sq=64, q_offset=64, window=32, softcap=30.0),
     dict(sq=13, q_offset=6, window=5, hd=16, b=2),
-], ids=str)
-def test_flash_kernel_matches_plain(cuda, dtype, case):
-    kw = {k: case[k] for k in ("window", "softcap") if k in case}
+    # the long context; head_dim 64 and 256, g 1 and 8, Sq not a multiple
+    # of 16; longer prefill chunks; a head_dim that is not a multiple of 16
+    # (the SIMT body in bf16 too)
+    dict(sq=64, q_offset=1984), dict(sq=37, q_offset=1984, hd=64, g=8),
+    dict(sq=21, q_offset=100, hd=256, g=1), dict(sq=13, q_offset=5, hd=256, g=8, window=7,
+                                                  softcap=20.0),
+    dict(sq=50, q_offset=30, hd=64, g=1, b=3, window=40), dict(sq=512, q_offset=0),
+    dict(sq=160, q_offset=32, window=100), dict(sq=19, q_offset=9, hd=24, g=1),
+]
+
+
+def _flash_case(cuda, dtype, case):
+    """q, k, v on the card for a FLASH_CASES entry, its window / softcap
+    keywords, and the tensor-core body's plan for it."""
     gen = torch.Generator().manual_seed(1)
     b, hd, hkv, g = case.get("b", 1), case.get("hd", 128), 8, case.get("g", 4)
     sq, off = case["sq"], case["q_offset"]
     q = torch.randn((b, sq, hkv * g, hd), generator=gen).to(cuda, dtype)
     k = torch.randn((b, off + sq, hkv, hd), generator=gen).to(cuda, dtype)
     v = torch.randn((b, off + sq, hkv, hd), generator=gen).to(cuda, dtype)
+    kw = {k: case[k] for k in ("window", "softcap") if k in case}
+    return (q, k, v), kw, FA.plan_flash(b, sq, hkv * g, hkv, hd, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain(cuda, dtype, case):
+    (q, k, v), kw, plan = _flash_case(cuda, dtype, case)
+    hd, off = q.shape[-1], case["q_offset"]
+    # bf16 with head_dim % 16 == 0 runs the tensor-core body, all else SIMT
+    assert plan.body == ("tc" if dtype == torch.bfloat16 and hd % 16 == 0 else "simt")
     n0 = FA.KERNEL.launches
     got = ops.flash_attention(q, k, v, q_offset=off, **kw)
     want = FA.flash_attention_plain(q, k, v, scale=1 / math.sqrt(hd), q_offset=off, **kw)
     torch.cuda.synchronize()
     assert FA.KERNEL.launches == n0 + 1
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if c.get("hd", 128) % 16 == 0],
+                         ids=str)
+def test_flash_tc_kernel_matches_its_emulation(cuda, case):
+    """The tensor-core body computes what ``ref.flash_attention_tc_plain``
+    models (bf16 P per 16-key tile, the plan's key splits; run on the CPU):
+    within 2 bf16 ulps of the output's largest magnitude, the tolerance the
+    CPU tests hold the emulation's key splits to against JAX."""
+    (q, k, v), kw, plan = _flash_case(cuda, torch.bfloat16, case)
+    assert plan.body == "tc"
+    got = ops.flash_attention(q, k, v, q_offset=case["q_offset"], **kw).float().cpu()
+    want = ref.flash_attention_tc_plain(
+        q.cpu(), k.cpu(), v.cpu(), q_offset=case["q_offset"], key_tile=plan.key_tile,
+        key_splits=plan.key_splits, **kw).float()
+    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    assert (got - want).abs().max().item() <= 2 * ulp
 
 
 def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
@@ -175,6 +213,11 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         ops.paged_attention(q_off, kp, vp, pt, cl)
     with pytest.raises(ValueError, match="16-byte"):
         ops.paged_attention_quant(q_off, codes, codes, sc, sc, pt, cl)
+    # The prefill kernel's tensor-core body copies q, k, v in 16-byte chunks.
+    kf = torch.zeros((1, 8, 8, 128), device=cuda, dtype=torch.bfloat16)
+    qf = torch.zeros(8 * 32 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(qf.view(1, 8, 32, 128), kf, kf, scale=1.0)
 
 
 def _quantize(pool, kv_dtype):
@@ -414,7 +457,8 @@ def _close(got, want, rtol):
                                     (torch.float32, torch.bfloat16),
                                     (torch.bfloat16, torch.float32)], ids=str)
 @pytest.mark.parametrize("mkn", [(256, 256, 256), (512, 384, 640), (37, 53, 29),
-                                 (129, 257, 130), (1, 1000, 1), (2048, 2048, 2048)], ids=str)
+                                 (129, 257, 130), (1, 1000, 1), (2048, 2048, 2048),
+                                 (2047, 33, 2049), (2049, 33, 2047)], ids=str)
 def test_matmul_kernel_matches_plain(cuda, dtypes, mkn):
     m, k, n = mkn
     g = torch.Generator(device="cuda").manual_seed(m + k + n)
