@@ -27,10 +27,13 @@ Phases (any failed check raises, and the script exits non-zero):
      the paper kernels at the streaming path's shapes: the streamed matmul
      (f32 2048^3, bf16, mixed and ragged) within 1e-5 (f32) / 2e-2 (bf16)
      of the plain output's largest magnitude, the FWT passes (4096, 1024)
-     and (1024, 4096) within 1e-5 of it, NW tiles and a 512 x 384 wavefront
-     bit-equal to the plain version and to nw_full_ref (integer scores);
-     kernel, plain, library (SDPA; torch.matmul for the matmul; none for
-     the SSD scan, FWT and NW) times and the memory/compute bound.  The
+     and (1024, 4096) within 1e-5 of it, NW tiles and 512 x 384 wavefronts
+     bit-equal to nw_full_ref (integer scores) and to the plain version
+     (normal scores, gap 0.5), and a 2048^2 task, one launch or one
+     nw_diagonal launch a diagonal, bit-equal to the plain version; kernel,
+     plain, library (SDPA; torch.matmul for the matmul; none for the SSD
+     scan, FWT and NW) times and the memory/compute bound (NW: one launch a
+     2048^2 task, with the 127-launch diagonal path's time beside).  The
      attention and SSD kernels and their library calls are timed with the
      calls queued behind a spin kernel (device time; the host's issue rate
      is printed beside), the plain versions with CUDA events as issued.  The
@@ -77,7 +80,7 @@ Phases (any failed check raises, and the script exits non-zero):
      multi walls, measured and modeled improvement, the H2D/KEX overlap
      from CUDA events; outputs equal to the plain version, multi-stream
      outputs equal to single-stream outputs, overlap > 0, and exactly 1
-     matmul, 2 FWT and 127 NW launches per task run; then the pinned
+     matmul, 2 FWT and 1 NW launch per task run; then the pinned
      H2D / D2H bandwidth of a 256 MB copy.  The improvement is reported,
      not asserted.
 With --profile, phases 5 and 6 add a torch.profiler breakdown (device busy
@@ -1094,7 +1097,7 @@ def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
 
 # -- phases 3, 4 and 7: the paper's streaming path ------------------------------------
 
-NW_N, NW_BLOCK = 2048, 32  # the path's NW task: 64 x 64 tiles of 32, 127 diagonals
+NW_N, NW_BLOCK = 2048, 32  # the path's NW task: 64 x 64 tiles of 32, one launch
 
 
 def dna_scores(n: int, m: int, seed: int) -> np.ndarray:
@@ -1107,25 +1110,10 @@ def paper_held(res, name, dtype, label, got, want, rtol) -> None:
     held(res, name, dtype, label, got, want, rtol * max(1.0, want.float().abs().max().item()))
 
 
-def nw_state(scores, block):
-    """A fresh wavefront state and its diagonals for ``scores`` (the
-    boundary of ops.nw_wavefront), to time the diagonal launches alone."""
-    from repro_torch.core import wavefront
-    from repro_torch.kernels import nw_tile as NW
-
-    n, m = scores.shape
-    rows, cols = n // block, m // block
-    north, west, corner = NW.boundary(rows, cols, block, device=scores.device)
-    out = torch.empty((n, m), device=scores.device)
-    state = wavefront.WavefrontState.create(
-        rows=rows, cols=cols, block=block, north_init=north, west_init=west,
-        corner_init=corner, tiles=out.view(rows, block, cols, block).permute(0, 2, 1, 3))
-    return state, wavefront.diagonal_tiles(rows, cols)
-
-
 def phase_paper_kernels(res: dict) -> None:
-    """The streamed matmul, the FWT passes and the NW diagonal against
+    """The streamed matmul, the FWT passes and the NW tile kernel against
     their plain versions at the streaming path's shapes, and their times."""
+    from repro_torch.core import wavefront
     from repro_torch.kernels import fwt as FWT
     from repro_torch.kernels import nw_tile as NW
     from repro_torch.kernels import ops, ref
@@ -1162,61 +1150,79 @@ def phase_paper_kernels(res: dict) -> None:
     got = ops.nw_wavefront(torch.from_numpy(sc).cuda(), block=32)
     held(res, "nw_tile", f32, "wavefront 512 x 384 vs nw_full_ref", got,
          torch.from_numpy(ref.nw_full_ref(sc)).cuda(), 0.0)
+    sc = np.random.default_rng(44).normal(size=(512, 384)).astype(np.float32)
+    got = ops.nw_wavefront(torch.from_numpy(sc).cuda(), block=32, gap=0.5)
+    held(res, "nw_tile", f32, "wavefront 512 x 384, normal scores, gap 0.5, vs plain", got,
+         NW.nw_wavefront_plain(torch.from_numpy(sc), block=32, gap=0.5).cuda(), 0.0)
     scores = torch.from_numpy(dna_scores(NW_N, NW_N, 43)).cuda()
     full = ops.nw_wavefront(scores, block=NW_BLOCK)
-    held(res, "nw_tile", f32, f"wavefront {NW_N} x {NW_N} vs plain", full,
-         NW.nw_wavefront_plain(scores, block=NW_BLOCK), 0.0)
+    plain_full = NW.nw_wavefront_plain(scores, block=NW_BLOCK)
+    held(res, "nw_tile", f32, f"wavefront {NW_N} x {NW_N} vs plain", full, plain_full, 0.0)
+    # The same task one nw_diagonal launch a diagonal (the comparison path).
+    state, sc_d, out_d = NW.initial_state(scores, NW_BLOCK)
+    diags = wavefront.diagonal_tiles(NW_N // NW_BLOCK, NW_N // NW_BLOCK)
+    for d in diags:
+        NW.nw_diagonal(state, sc_d, d)
+    held(res, "nw_tile", f32, f"{len(diags)} nw_diagonal launches {NW_N} x {NW_N} vs plain",
+         out_d, plain_full, 0.0)
 
     # Times at the path's shapes.  Matmul: one f32 2048^3 task, library one
-    # torch.matmul (TF32 off).  FWT: both passes of one 2^22 task.  NW: the
-    # 127 diagonal launches of one 2048^2 task, reported per launch.
+    # torch.matmul (TF32 off).  FWT: both passes of one 2^22 task.  NW: one
+    # 2048^2 task, the kernel's one launch over the whole grid (nw_run on a
+    # prepared boundary state; its zeroed link buffer included), queued.
     x, y = (torch.randn((2048, 2048), generator=g, device="cuda") for _ in range(2))
     p1 = torch.randn((4096, 1024), generator=g, device="cuda")
     p2 = torch.randn((1024, 4096), generator=g, device="cuda")
-    state, diags = nw_state(scores, NW_BLOCK)
-
-    def nw_all(step):
-        for d in diags:
-            step(state, scores, d)
     n_diag = len(diags)
     cells = NW_N * NW_N
+
+    def per_diagonal():
+        for d in diags:
+            NW.nw_diagonal(state, sc_d, d)
     timed = {
         "streamed_matmul": (lambda: ops.matmul(x, y), lambda: MM.matmul_plain(x, y),
-                            lambda: torch.matmul(x, y), 1,
-                            (3 * x.numel() * 4, 2.0 * 2048 ** 3)),
+                            lambda: torch.matmul(x, y), (3 * x.numel() * 4, 2.0 * 2048 ** 3)),
         "fwt": (lambda: (FWT.fwt_block(p1), FWT.fwt_block(p2)),
-                lambda: (FWT.fwt_plain(p1), FWT.fwt_plain(p2)), None, 1,
+                lambda: (FWT.fwt_plain(p1), FWT.fwt_plain(p2)), None,
                 (2 * 2 * p1.numel() * 4, p1.numel() * (10 + 12))),
         # per cell: the diagonal and upper terms (2 ops), their max, the west
         # fold on column 0 (ignored), and log2(B) = 5 ladder steps of 2 ops
-        "nw_tile": (lambda: nw_all(NW.nw_diagonal), lambda: nw_all(NW.nw_diagonal_plain),
-                    None, n_diag, (2 * cells * 4, cells * (3 + 2 * 5))),
+        "nw_tile": (lambda: NW.nw_run(state, sc_d, 0, n_diag),
+                    lambda: NW.nw_wavefront_plain(scores, block=NW_BLOCK), None,
+                    (2 * cells * 4, cells * (3 + 2 * 5))),
     }
-    for name, (kern, plain, lib, per, (nbytes, flops)) in timed.items():
+    for name, (kern, plain, lib, (nbytes, flops)) in timed.items():
         r = res[name]
-        slow = name == "nw_tile"  # the plain wavefront is ~0.5 s a run
-        # NW: the host issues a diagonal slower than the card runs it, so the
-        # kernel's time is taken with the launches queued ahead (device_ms);
-        # time_ms gives the issue-bound rate, printed beside it.
-        r["ms"] = (device_ms(kern) if slow else time_ms(kern)) / per
-        r["plain_ms"] = time_ms(plain, iters=2 if slow else 20, warmup=1) / per
+        slow = name == "nw_tile"  # the plain wavefront takes over a second a run
+        # NW: device time with the task's launches queued ahead (device_ms);
+        # the host's rate for ops.nw_wavefront is printed beside it.
+        r["ms"] = device_ms(kern, iters=20) if slow else time_ms(kern)
+        r["plain_ms"] = time_ms(plain, iters=2 if slow else 20, warmup=1)
         r["library_ms"] = time_ms(lib) if lib is not None else None
         # The matmul's f32-accurate work on the tensor cores is three TF32
         # products (3xTF32): its bound counts them at the TF32 peak.
         r["bound_ms"], r["bound_by"] = (
             bound(nbytes, 3 * flops, "tf32") if name == "streamed_matmul"
-            else bound(nbytes / per, flops / per, torch.float32))
+            else bound(nbytes, flops, torch.float32))
         lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        extra = ""
+        if name == "streamed_matmul":
+            extra = (f"; 3xTF32 bound (3 x {flops:.0f} flops at 495 TFLOP/s, the JSON's), "
+                     f"f32 FMA bound {bound(nbytes, flops, torch.float32)[0]:.6f} ms (one "
+                     f"product at 67 TFLOP/s); kernel {r['library_ms'] / r['ms']:.2f}x the "
+                     f"library's speed; {matmul_plan(x, y)}")
+        elif slow:
+            # The comparison path: the host issues a diagonal slower than the
+            # card runs it, so its device time is taken queued (device_ms).
+            issued = time_ms(lambda: ops.nw_wavefront(scores, block=NW_BLOCK), iters=20)
+            extra = (f" a task, one launch; ops.nw_wavefront as the host issues it "
+                     f"{issued:.4f} ms; the same task as {n_diag} nw_diagonal launches: "
+                     f"{device_ms(per_diagonal):.4f} ms queued ahead, "
+                     f"{time_ms(per_diagonal, iters=5, warmup=1):.4f} ms as the host "
+                     f"issues them")
         print(f"[kernels] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib_ms}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}, "
-              f"{nbytes / per:.0f} bytes, {flops / per:.0f} flops)"
-              + (f"; 3xTF32 bound (3 x {flops:.0f} flops at 495 TFLOP/s, the JSON's), f32 "
-                 f"FMA bound {bound(nbytes, flops, torch.float32)[0]:.6f} ms (one product "
-                 f"at 67 TFLOP/s); kernel {r['library_ms'] / r['ms']:.2f}x the library's "
-                 f"speed; {matmul_plan(x, y)}" if name == "streamed_matmul" else "")
-              + (f" per launch; {n_diag} launches a task: kernel {r['ms'] * per:.3f} ms "
-                 f"queued ahead, {time_ms(kern, iters=10):.3f} ms as the host issues them, "
-                 f"plain {r['plain_ms'] * per:.3f} ms" if per > 1 else ""))
+              f"{nbytes:.0f} bytes, {flops:.0f} flops){extra}")
 
 
 def matmul_plan(x, y) -> str:
@@ -1278,7 +1284,7 @@ def phase_streams(res: dict) -> list[dict]:
     results = S.run(device="cuda", n_tasks=8, streams=4)
     launches = {name: c.launches for name, c in counters.items()}
     per_task = {"matmul": ("streamed_matmul", 1), "fwt": ("fwt", 2),
-                "nw": ("nw_tile", 2 * NW_N // NW_BLOCK - 1)}
+                "nw": ("nw_tile", 1)}
     want = {name: 0 for name in counters}
     for r in results:
         print(S.format_line(r))

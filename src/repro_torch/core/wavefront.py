@@ -10,8 +10,9 @@ The port's copy of the reference ``core/wavefront.py``.  Its
 The boundary handoff (south row, east column, corner scalar of every tile)
 lives in a :class:`WavefrontState` on the tensors' device, and one call of
 ``step`` runs every tile of a diagonal as one batch: the counterpart of the
-reference's masked ``vmap`` lanes, and on the card one kernel launch whose
-blocks are the diagonal's tiles (``kernels/nw_tile.py``).
+reference's masked ``vmap`` lanes.  On the card the NW tile kernel
+(``kernels/nw_tile.py``) takes the state as its boundary I/O and walks a
+whole run of diagonals in one launch instead.
 """
 
 from __future__ import annotations

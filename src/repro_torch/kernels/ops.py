@@ -183,7 +183,8 @@ def nw_tile(north: torch.Tensor, west: torch.Tensor, corner: torch.Tensor | floa
 
 
 def nw_wavefront(seq_scores: torch.Tensor, *, block: int, gap: float = 1.0) -> torch.Tensor:
-    """The full (n, m) NW DP matrix via the wavefront scheduler and the tile
-    kernel, one launch per anti-diagonal of the (n / block, m / block) tile
-    grid (the paper's Fig. 8 pipeline)."""
+    """The full (n, m) NW DP matrix of the paper's Fig. 8 pipeline: on the
+    card one launch of the tile kernel walks the whole (n / block, m /
+    block) tile grid, strip by strip; on the CPU the plain tile runs one
+    anti-diagonal at a time through the wavefront scheduler."""
     return _nw.nw_wavefront(seq_scores, block=block, gap=gap)

@@ -431,6 +431,56 @@ def ssd_chunked_ref(
     return y.to(x.dtype), state
 
 
+def ssd_chunked_tc_plain(
+    x: torch.Tensor,  # (B, S, H, P) bf16
+    dt: torch.Tensor,  # (B, S, H) f32
+    a: torch.Tensor,  # (H,) f32
+    b_: torch.Tensor,  # (B, S, N) bf16
+    c_: torch.Tensor,  # (B, S, N) bf16
+    *,
+    chunk: int = 64,
+    init_state: torch.Tensor | None = None,  # (B, H, P, N) f32
+    split: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of the SSD tensor-core body (``csrc/ssd_chunk.cu``,
+    ``ssd_tc_kernel``) on the CPU: per chunk (the reference's grid) S = C
+    B^T from the bf16 inputs in f32; A_y = bf16(S_ij exp(cs_i - cs_j) dt_j)
+    masked to j <= i; y = bf16(A_y x + exp(cs_i) C bf16(state)^T); and the
+    state update exp(cs_last) state + (w o x)^T B with w_j = exp(cs_last -
+    cs_j) dt_j, the operand w o x split into bf16 hi + lo (``split``, the
+    kernel's), or rounded once to bf16 (``split=False``).  Products of bf16
+    values are exact in f32, as on the tensor cores; sums are f32 in
+    another order.  Returns (y in x's type, final state f32)."""
+    bsz, s, h, p = x.shape
+    n = b_.shape[-1]
+    chunk = min(chunk, s)
+    rb = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    xf, bf, cf = x.float(), b_.float(), c_.float()
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32) if init_state is None
+             else init_state.float().clone())
+    ys = []
+    for t0 in range(0, s, chunk):
+        q = min(chunk, s - t0)
+        xq, bq, cq = xf[:, t0:t0 + q], bf[:, t0:t0 + q], cf[:, t0:t0 + q]
+        dq = dt[:, t0:t0 + q].float()  # (B, Q, H)
+        cs = torch.cumsum(dq * a.float()[None, None, :], dim=1)
+        idx = torch.arange(q)
+        tri = (idx[:, None] >= idx[None, :])[None, :, :, None]  # (1, Q, Q, 1)
+        scores = torch.einsum("bqn,bkn->bqk", cq, bq)
+        ldiff = torch.where(tri, cs[:, :, None, :] - cs[:, None, :, :], float("-inf"))
+        v = scores[..., None] * torch.exp(ldiff) * dq[:, None, :, :]  # (B, Q, Q, H)
+        y_diag = torch.einsum("bqkh,bkhp->bqhp", rb(torch.where(tri, v, 0.0)), xq)
+        y_off = torch.einsum("bqn,bhpn->bqhp", cq, rb(state))
+        ys.append(y_diag + torch.exp(cs)[..., None] * y_off)
+        w = torch.exp(cs[:, -1:, :] - cs) * dq  # (B, Q, H)
+        wx = w[..., None] * xq
+        hi = rb(wx)
+        op = hi + rb(wx - hi) if split else hi
+        state = (torch.exp(cs[:, -1, :])[:, :, None, None] * state
+                 + torch.einsum("bqhp,bqn->bhpn", op, bq))
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
 def ssd_ref(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_: torch.Tensor,
     c_: torch.Tensor, *, init_state: torch.Tensor | None = None,
@@ -483,29 +533,112 @@ def fwt_ref(x: torch.Tensor) -> torch.Tensor:
 NW_NEG = -1e9  # the shift-max ladder's fill (the reference's NEG)
 
 
+def _nw_rows(prev_row: torch.Tensor, prev_west: torch.Tensor, west: torch.Tensor,
+             sub: torch.Tensor, gap: float) -> torch.Tensor:
+    """Row i of a batch of NW tiles: prev_row (T, B) = H[i-1] (the north
+    row for i = 0), prev_west (T,) = west[i-1] (the corner for i = 0),
+    west (T,) = west[i], sub (T, B) = sub[i].  ``max(diag + sub, up - gap)``
+    with the west neighbour folded into column 0, then the left-to-right
+    chain ``H[j] = max_{j'<=j}(tmp[j'] - (j - j') gap)`` as a log-step
+    shift-max ladder."""
+    t, b = sub.shape
+    diag = torch.cat([prev_west[:, None], prev_row[:, :-1]], dim=1)
+    tmp = torch.maximum(diag + sub, prev_row - gap)
+    tmp = torch.cat([torch.maximum(tmp[:, :1], west[:, None] - gap), tmp[:, 1:]], dim=1)
+    h, shift = tmp, 1
+    while shift < b:
+        fill = torch.full((t, shift), NW_NEG, dtype=h.dtype, device=h.device)
+        h = torch.maximum(h, torch.cat([fill, h[:, :-shift] - gap * shift], dim=1))
+        shift *= 2
+    return h
+
+
 def nw_tiles_ref(north: torch.Tensor, west: torch.Tensor, corner: torch.Tensor,
                  sub: torch.Tensor, *, gap: float = 1.0) -> torch.Tensor:
     """A batch of NW DP tiles: north / west (T, B), corner (T,), sub (T, B, B)
-    -> (T, B, B) f32.  The reference kernel's algorithm: rows in order, row
-    i from ``max(diag + sub[i], up - gap)`` with the west neighbour folded
-    into column 0, then the left-to-right chain ``H[j] = max_{j'<=j}(tmp[j']
-    - (j - j') gap)`` as a log-step shift-max ladder."""
-    t, b = sub.shape[0], sub.shape[-1]
+    -> (T, B, B) f32.  The reference kernel's algorithm: rows in order
+    (:func:`_nw_rows`)."""
+    b = sub.shape[-1]
     north, west, sub = north.float(), west.float(), sub.float()
     prev_row, prev_west = north, corner.float()
     rows = []
     for i in range(b):
-        diag = torch.cat([prev_west[:, None], prev_row[:, :-1]], dim=1)
-        tmp = torch.maximum(diag + sub[:, i], prev_row - gap)
-        tmp = torch.cat([torch.maximum(tmp[:, :1], west[:, i:i + 1] - gap), tmp[:, 1:]], dim=1)
-        h, shift = tmp, 1
-        while shift < b:
-            fill = torch.full((t, shift), NW_NEG, dtype=h.dtype, device=h.device)
-            h = torch.maximum(h, torch.cat([fill, h[:, :-shift] - gap * shift], dim=1))
-            shift *= 2
-        rows.append(h)
-        prev_row, prev_west = h, west[:, i]
+        prev_row = _nw_rows(prev_row, prev_west, west[:, i], sub[:, i], gap)
+        rows.append(prev_row)
+        prev_west = west[:, i]
     return torch.stack(rows, dim=1)
+
+
+def nw_strips_plain(state, scores: torch.Tensor, d0: int, d1: int, *, gap: float = 1.0,
+                    blocks: int, i0: int = 0, i1: int | None = None
+                    ) -> list[tuple[int, int, int, int]]:
+    """The tiles (i, j) with d0 <= i + j < d1 and i0 <= i < i1 of an NW
+    wavefront (``core/wavefront.WavefrontState``, earlier diagonals done) in
+    the strip kernel's order (``csrc/nw_tile.cu``): ``blocks`` blocks take
+    strips (tile columns, the run's first one first) from a ticket and walk
+    them row after row, top to bottom; a row's west value comes from the
+    strip on the left, which publishes each row, when the run computes that
+    tile (j >= 1 and i + j - 1 >= d0), else from the state.  The blocks step
+    in turn, one row each.  Raises ``AssertionError`` unless every input a
+    row takes outside its own strip was written before the run (north and
+    corner at the strip's first row, west values not published by the run)
+    or published by it, and ``RuntimeError`` if a step stalls every block.
+    Returns the (block, i, j, row) steps in order."""
+    rows, cols, b = state.south.shape[0] - 1, state.south.shape[1] - 1, state.south.shape[2]
+    i1 = rows if i1 is None else i1
+    j_lo, j_hi = max(0, d0 - (i1 - 1)), min(cols - 1, d1 - 1 - i0)
+    before = lambda i, j: i < 0 or j < 0 or i + j < d0  # noqa: E731  tile done before the run
+    published: dict[tuple[int, int], torch.Tensor] = {}  # (strip, global row) -> east value
+    held: list[dict | None] = [None] * blocks
+    ticket, order = 0, []
+    while ticket <= j_hi - j_lo or any(h is not None for h in held):
+        moved = False
+        for k in range(blocks):
+            if held[k] is None:
+                if ticket > j_hi - j_lo:
+                    continue
+                j = j_lo + ticket
+                ticket += 1
+                i_beg, i_end = max(i0, d0 - j), min(i1, d1 - j)
+                if not (before(i_beg - 1, j) and before(i_beg - 1, j - 1)):
+                    raise AssertionError(f"nw strips: strip {j} starts at tile {i_beg} "
+                                         f"before its north or corner tile is done")
+                held[k] = dict(j=j, g=i_beg * b, g_end=i_end * b, east=[],
+                               up=state.south[i_beg, j + 1].float(),
+                               west=state.corners[i_beg, j].float())
+                moved = True
+                continue
+            h = held[k]
+            j, g = h["j"], h["g"]
+            i, r = divmod(g, b)
+            if j >= 1 and i + j - 1 >= d0:
+                if (j - 1, g) not in published:
+                    continue  # the kernel polls the left strip's link word
+                w = published[(j - 1, g)]
+            else:
+                if not before(i, j - 1):
+                    raise AssertionError(f"nw strips: tile ({i}, {j}) reads a west column "
+                                         f"this run has not computed")
+                w = state.east[i + 1, j, r].float()
+            row = _nw_rows(h["up"][None], h["west"][None], w[None],
+                           scores[g, j * b:(j + 1) * b].float()[None], gap)[0]
+            state.tiles[i, j, r] = row
+            published[(j, g)] = row[-1]
+            h["east"].append(row[-1])
+            h["up"], h["west"] = row, w
+            if r == b - 1:  # the tile's boundary out
+                state.south[i + 1, j + 1] = row
+                state.east[i + 1, j + 1] = torch.stack(h["east"])
+                state.corners[i + 1, j + 1] = row[-1]
+                h["east"] = []
+            h["g"] = g + 1
+            if h["g"] == h["g_end"]:
+                held[k] = None
+            order.append((k, i, j, r))
+            moved = True
+        if not moved:
+            raise RuntimeError(f"nw strips: every block waits (held {held}, ticket {ticket})")
+    return order
 
 
 def nw_ref(north: np.ndarray, west: np.ndarray, corner: float, sub: np.ndarray, *,

@@ -5,7 +5,9 @@ Replaces the TPU kernel ``repro/kernels/ssd_chunk.py::_ssd_kernel``
 reference model runs as the jnp ``models/mamba.ssd_chunked``: an initial
 state in, the final state out, the reference's chunk grid with a ragged
 tail, and one B/C group shared by every head without a broadcast copy.
-The kernel's design and bound are in the CUDA source's header.
+The kernel has two bodies: bf16 inputs of the serve's shapes run on the
+tensor cores (``mma.sync``), f32 and other shapes on an f32 FMA body; their
+design, choice and bound are in the CUDA source's header.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`ssd_chunked_plain`, from ``kernels/ref.py``); on a CUDA tensor it

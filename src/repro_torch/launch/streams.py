@@ -13,7 +13,8 @@ numpy (pinned on a card), and on one ``HostStreamExecutor`` runs a warm-up,
     and (1024, 4096)).
   * True-dependent (paper: nw, Rodinia's default 2048): the NW wavefront
     over the +-1 match scores of two random DNA sequences of 2048, gap 1,
-    tiles of 32 (64 x 64 tiles, 127 diagonals, one launch each).
+    tiles of 32 (64 x 64 tiles, 127 diagonals; on the card one launch a
+    task walks them all).
 
 One line per category: R, the ``plan_streaming`` decision and stream count,
 the stage times, the single and multi walls, the measured improvement

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import streams
+from repro_torch.core import streams, wavefront
 from repro_torch.kernels import fwt as FWT
 from repro_torch.kernels import nw_tile as NW
 from repro_torch.kernels import ref
@@ -403,6 +403,35 @@ def test_ssd_kernel_matches_plain(cuda, dtype, case):
     assert (f - f_p).abs().max().item() <= SSD_RTOL[torch.float32] * fmax
 
 
+SSD_TC_CASES = [dict(b=1, s=64, chunk=256, init=True), dict(b=1, s=36, chunk=256),
+                dict(b=2, s=13, chunk=256, init=True), dict(b=2, s=512, chunk=256, init=True),
+                dict(b=1, s=300, chunk=256), dict(b=2, s=100, chunk=64, init=True),
+                dict(b=1, s=64, chunk=64, init=True, n=32), dict(b=1, s=64, chunk=64, n=64),
+                dict(b=1, s=130, chunk=256, init=True, n=256), dict(b=1, s=64, chunk=64, p=128)]
+SSD_TC_ULPS = 4  # y: bf16 ulps of the emulation's largest magnitude
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES, ids=str)
+def test_ssd_bf16_kernel_matches_tc_emulation(cuda, case):
+    """The tensor-core body against its arithmetic on the CPU
+    (``ref.ssd_chunked_tc_plain``: the same bf16 rounding points and the
+    hi + lo split of the state update): y within a few bf16 ulps of the
+    emulation's largest magnitude, the final state within SSD_RTOL[f32]."""
+    x, dt, a, bm, cm, st = _ssd_inputs(torch.bfloat16, case, cuda, seed=3)
+    n0 = SSD.KERNEL.launches
+    y, f = SSD.ssd_chunked(x, dt, a, bm, cm, chunk=case["chunk"], init_state=st)
+    torch.cuda.synchronize()
+    assert SSD.KERNEL.launches == n0 + 1
+    y_e, f_e = ref.ssd_chunked_tc_plain(
+        *(t.cpu() for t in (x, dt, a, bm, cm)), chunk=case["chunk"],
+        init_state=None if st is None else st.cpu())
+    ymax = max(1.0, y_e.float().abs().max().item())
+    ulp = 2.0 ** (math.floor(math.log2(ymax)) - 7)
+    assert (y.cpu().float() - y_e.float()).abs().max().item() <= SSD_TC_ULPS * ulp
+    fmax = max(1.0, f_e.abs().max().item())
+    assert (f.cpu() - f_e).abs().max().item() <= SSD_RTOL[torch.float32] * fmax
+
+
 def test_ops_ssd_launches_the_kernel(cuda):
     x, dt, a, bm, cm, _ = _ssd_inputs(torch.float32, dict(b=1, s=48, chunk=16), cuda)
     n0 = SSD.KERNEL.launches
@@ -531,10 +560,81 @@ def test_nw_wavefront_on_card_bit_equal(cuda, n, m, block):
     scores = np.where(a[:, None] == b[None, :], 1.0, -1.0).astype(np.float32)
     n0 = NW.KERNEL.launches
     got = ops.nw_wavefront(torch.from_numpy(scores).to(cuda), block=block).cpu().numpy()
-    assert NW.KERNEL.launches - n0 == n // block + m // block - 1  # one per diagonal
+    assert NW.KERNEL.launches - n0 == 1  # one launch walks the whole tile grid
     np.testing.assert_array_equal(got, ref.nw_full_ref(scores))
     plain = NW.nw_wavefront_plain(torch.from_numpy(scores).to(cuda), block=block)
     np.testing.assert_array_equal(got, plain.cpu().numpy())
+
+
+def _nw_scores(n, m, seed, integer=True):
+    rng = np.random.default_rng(seed)
+    if integer:
+        a, b = rng.integers(0, 4, n), rng.integers(0, 4, m)
+        return np.where(a[:, None] == b[None, :], 1.0, -1.0).astype(np.float32)
+    return rng.normal(size=(n, m)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,m,block,integer", [(64, 8192, 1, True), (32, 16384, 2, False)],
+                         ids=str)
+def test_nw_wavefront_more_strips_than_blocks(cuda, n, m, block, integer):
+    """A wide grid: more strips (tile columns) than the card holds blocks
+    of B threads (at most 32 a SM), so blocks take several strips from the
+    ticket; bit-equal to the plain version."""
+    scores = _nw_scores(n, m, n + m + block, integer)
+    plan = NW.plan_strips(n // block, m // block, 0, n // block + m // block - 1)
+    assert plan.n_strips > 32 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    gap = 1.0 if integer else 0.5
+    got = ops.nw_wavefront(torch.from_numpy(scores).to(cuda), block=block, gap=gap)
+    want = NW.nw_wavefront_plain(torch.from_numpy(scores), block=block, gap=gap)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if integer:
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.nw_full_ref(scores))
+
+
+def test_nw_wavefront_four_tasks_on_four_streams(cuda):
+    """Four 2048^2 tasks launched on four streams at once (the streaming
+    path's overlap): each bit-equal to the plain version."""
+    tasks = [torch.from_numpy(_nw_scores(2048, 2048, 50 + k)).to(cuda) for k in range(4)]
+    side = [torch.cuda.Stream(cuda) for _ in tasks]
+    torch.cuda.synchronize()
+    n0 = NW.KERNEL.launches
+    outs = []
+    for st, t in zip(side, tasks):
+        with torch.cuda.stream(st):
+            outs.append(ops.nw_wavefront(t, block=32))
+    torch.cuda.synchronize()
+    assert NW.KERNEL.launches - n0 == 4
+    for t, got in zip(tasks, outs):
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      NW.nw_wavefront_plain(t, block=32).cpu().numpy())
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_nw_diagonal_and_run_on_card_over_partial_runs(cuda, integer):
+    """nw_diagonal over each diagonal cut into two runs of its tiles, and
+    nw_run over [0, 5), [5, 17) and the rest: bit-equal to the plain
+    version, one launch a call."""
+    n, m, block = 256, 384, 32
+    scores = torch.from_numpy(_nw_scores(n, m, 7, integer))
+    gap = 1.0 if integer else 0.5
+    want = NW.nw_wavefront_plain(scores, block=block, gap=gap).numpy()
+    rows, cols = n // block, m // block
+    state, sc, out = NW.initial_state(scores.to(cuda), block, gap=gap)
+    n0 = NW.KERNEL.launches
+    for diag in [d for d in wavefront.diagonal_tiles(rows, cols)]:
+        half = (len(diag) + 1) // 2
+        for run in (diag[:half], diag[half:]):
+            if run:
+                NW.nw_diagonal(state, sc, run, gap=gap)
+    calls = sum(1 + (len(d) > 1) for d in wavefront.diagonal_tiles(rows, cols))
+    assert NW.KERNEL.launches - n0 == calls
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+    state, sc, out = NW.initial_state(scores.to(cuda), block, gap=gap)
+    n0 = NW.KERNEL.launches
+    for d0, d1 in ((0, 5), (5, 17), (17, rows + cols - 1)):
+        NW.nw_run(state, sc, d0, d1, gap=gap)
+    assert NW.KERNEL.launches - n0 == 3
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
 
 
 def test_paper_wrappers_raise_on_unsupported_cuda_inputs(cuda):

@@ -223,6 +223,107 @@ def test_nw_rejects():
         nw_k.nw_diagonal(state, z(16, 16, dtype=torch.float64), [(0, 0)])
 
 
+# -- the NW kernel's strip schedule (ref.nw_strips_plain) ---------------------------
+
+
+def _nw_case(n, m, integer):
+    rng = np.random.default_rng(n * 7 + m + integer)
+    if integer:
+        a, b = rng.integers(0, 4, n), rng.integers(0, 4, m)
+        return np.where(a[:, None] == b[None, :], 1.0, -1.0).astype(np.float32), 1.0
+    return rng.normal(size=(n, m)).astype(np.float32), 0.5
+
+
+_JAX_NW: dict = {}
+
+
+def _jax_nw(n, m, block, integer):
+    key = (n, m, block, integer)
+    if key not in _JAX_NW:
+        scores, gap = _nw_case(n, m, integer)
+        _JAX_NW[key] = np.asarray(rops.nw_wavefront(jnp.asarray(scores), block=block, gap=gap,
+                                                    interpret=True))
+    return _JAX_NW[key]
+
+
+def _strip_runs(rows, cols, kind):
+    """The runs [(d0, d1, i0, i1)] of one wavefront: the whole grid, one
+    diagonal's tiles in two runs of rows, or a partial run of diagonals;
+    the diagonals around them run the plain diagonal."""
+    last = rows + cols - 1
+    if kind == "full":
+        return [(0, last, 0, rows)]
+    if kind == "diagonal":
+        d = min(rows, cols) - 1
+        i_lo, i_hi = max(0, d - cols + 1), min(rows - 1, d)
+        mid = (i_lo + i_hi + 1) // 2
+        return [(d, d + 1, i_lo, mid), (d, d + 1, mid, i_hi + 1)]
+    return [(1, last - 2, 0, rows)]
+
+
+@pytest.mark.parametrize("blocks", ["plan", 1, 2])
+@pytest.mark.parametrize("kind", ["full", "diagonal", "partial"])
+@pytest.mark.parametrize("n,m,block,integer", [(64, 48, 16, True), (64, 48, 16, False),
+                                               (32, 96, 8, True), (48, 32, 8, False)],
+                         ids=str)
+def test_nw_strip_schedule_matches_reference(n, m, block, integer, kind, blocks):
+    """The plain rows in the kernel's order: blocks take strips (tile
+    columns) from the ticket, and a row waits only for the left strip's
+    same row when the run computes that tile; every input is ready when a
+    row runs (asserted inside).  Bit-equal to the JAX package's wavefront
+    (its Pallas tile in interpret mode) and, with integer scores, to
+    nw_full_ref; one step per row of the run's tiles."""
+    scores, gap = _nw_case(n, m, integer)
+    rows, cols = n // block, m // block
+    state, sc, out = nw_k.initial_state(torch.from_numpy(scores), block, gap=gap)
+    runs = _strip_runs(rows, cols, kind)
+    diags = wavefront.diagonal_tiles(rows, cols)
+    for d in range(runs[0][0]):
+        nw_k.nw_diagonal_plain(state, sc, diags[d], gap=gap)
+    for d0, d1, i0, i1 in runs:
+        plan = nw_k.plan_strips(rows, cols, d0, d1, i0, i1)
+        order = ref.nw_strips_plain(state, sc, d0, d1, gap=gap, i0=i0, i1=i1,
+                                    blocks=plan.n_strips if blocks == "plan" else blocks)
+        tiles = {(i, j) for i in range(i0, i1) for j in range(cols) if d0 <= i + j < d1}
+        assert len({(i, j, r) for _, i, j, r in order}) == len(order)  # each row once
+        assert {(i, j) for _, i, j, _ in order} == tiles and len(order) == block * len(tiles)
+        assert {j for _, _, j, _ in order} == set(range(plan.j_lo, plan.j_lo + plan.n_strips))
+    for d in range(runs[-1][1], rows + cols - 1):
+        nw_k.nw_diagonal_plain(state, sc, diags[d], gap=gap)
+    np.testing.assert_array_equal(out.numpy(), _jax_nw(n, m, block, integer))
+    if integer:
+        np.testing.assert_array_equal(out.numpy(), rref.nw_full_ref(scores, gap=gap))
+
+
+def test_nw_run_on_cpu_is_the_strip_schedule():
+    """nw_run on CPU tensors runs the plain rows in the kernel's strip
+    order; over [0, 3), [3, 9) and the rest it equals the whole wavefront."""
+    scores, gap = _nw_case(64, 48, False)
+    state, sc, out = nw_k.initial_state(torch.from_numpy(scores), 16, gap=gap)
+    n0 = nw_k.KERNEL.launches
+    for d0, d1 in ((0, 3), (3, 5), (5, 6)):
+        nw_k.nw_run(state, sc, d0, d1, gap=gap)
+    assert nw_k.KERNEL.launches == n0  # a CPU tensor never launches
+    np.testing.assert_array_equal(out.numpy(), _jax_nw(64, 48, 16, False))
+    np.testing.assert_array_equal(
+        ops.nw_wavefront(torch.from_numpy(scores), block=16, gap=gap).numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("args", [(4, 3, 0, 7, 0, 4), (4, 3, 2, 4, 0, 4), (4, 3, 2, 3, 1, 5),
+                                  (4, 3, 3, 4, 3, 4), (4, 3, 0, 0, 0, 4)], ids=str)
+def test_plan_strips(args):
+    rows, cols, d0, d1, i0, i1 = args
+    if not (0 <= d0 < d1 <= rows + cols - 1 and 0 <= i0 < i1 <= rows
+            and (d1 == d0 + 1 or (i0, i1) == (0, rows))):
+        with pytest.raises(ValueError):
+            nw_k.plan_strips(*args)
+        return
+    plan = nw_k.plan_strips(*args)
+    js = {j for i in range(i0, i1) for j in range(cols) if d0 <= i + j < d1}
+    assert (plan.j_lo, plan.n_strips) == (min(js), len(js))
+    assert js == set(range(plan.j_lo, plan.j_lo + plan.n_strips))
+
+
 # -- plain versions against the reference's oracles ------------------------------------
 
 
