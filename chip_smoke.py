@@ -16,7 +16,7 @@ Phases (any failed check raises, and the script exits non-zero):
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
      TF32 off for matmuls and cuDNN so f32 means f32.
   2. build: every kernel from src/repro_torch/kernels/csrc, timed.
-  3. kernels: each of the nine kernels (paged decode, its draft-block,
+  3. kernels: each of the ten kernels (paged decode, its draft-block,
      fused-dequant and draft-block fused-dequant entries, prefill, SSD
      chunk scan) against its plain version in f32 (atol 1e-5) and bf16
      (atol 2e-2), over int8 and fp8 codes for the quantized entries, at the
@@ -26,14 +26,19 @@ Phases (any failed check raises, and the script exits non-zero):
      SSD_RTOL), bf16 2e-2;
      the paper kernels at the streaming path's shapes: the streamed matmul
      (f32 2048^3, bf16, mixed and ragged) within 1e-5 (f32) / 2e-2 (bf16)
-     of the plain output's largest magnitude, the FWT passes (4096, 1024)
-     and (1024, 4096) within 1e-5 of it, NW tiles and 512 x 384 wavefronts
+     of the plain output's largest magnitude, the FWT row pass (rows of
+     1 to 2^15, (4096, 1024) and (1024, 4096) among them) and column pass
+     ((4096, 1024), ragged, narrow and tall, in place) and ops.fwt of a 2^22
+     task bit-equal to their plain versions, NW tiles and 512 x 384 wavefronts
      bit-equal to nw_full_ref (integer scores) and to the plain version
      (normal scores, gap 0.5), and a 2048^2 task, one launch or one
      nw_diagonal launch a diagonal, bit-equal to the plain version; kernel,
-     plain, library (SDPA; torch.matmul for the matmul; none for the SSD
-     scan, FWT and NW) times and the memory/compute bound (NW: one launch a
-     2048^2 task, with the 127-launch diagonal path's time beside).  The
+     plain, library (SDPA; torch.matmul for the matmul; an f32 product with
+     the Sylvester Hadamard matrix for each FWT pass; none for the SSD scan
+     and NW) times and the memory/compute bound (NW: one launch a 2048^2
+     task, with the 127-launch diagonal path's time beside; FWT: each pass
+     of a 2^22 task and the whole ops.fwt, cold over a rotation of 8 tasks
+     and warm, queued behind a spin kernel).  The
      attention and SSD kernels and their library calls are timed with the
      calls queued behind a spin kernel (device time; the host's issue rate
      is printed beside), the plain versions with CUDA events as issued.  The
@@ -59,8 +64,8 @@ Phases (any failed check raises, and the script exits non-zero):
      snapshots (prompts sharing a 64-token head): admission logits allclose
      (atol 2e-3, rtol 1e-3), greedy tokens and snapshot hits identical.
      The streaming path (launch/streams --small, 2 tasks a category) on the
-     card and on the CPU: matmul and FWT outputs within 1e-5 of the
-     largest magnitude, NW identical.
+     card and on the CPU: matmul outputs within 1e-5 of the largest
+     magnitude, FWT and NW identical.
   5. main path: full qwen3-4b (36 layers, bf16, random weights from a seed)
      serves the same 6 requests plain, with speculative decode (oracle
      drafter, then n-gram drafts on tiled prompts), over int8 and fp8 pages,
@@ -80,7 +85,8 @@ Phases (any failed check raises, and the script exits non-zero):
      multi walls, measured and modeled improvement, the H2D/KEX overlap
      from CUDA events; outputs equal to the plain version, multi-stream
      outputs equal to single-stream outputs, overlap > 0, and exactly 1
-     matmul, 2 FWT and 1 NW launch per task run; then the pinned
+     matmul, 2 FWT (1 row pass, 1 column pass) and 1 NW launch per task
+     run; then the pinned
      H2D / D2H bandwidth of a 256 MB copy.  The improvement is reported,
      not asserted.
 With --profile, phases 5 and 6 add a torch.profiler breakdown (device busy
@@ -95,6 +101,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import subprocess
@@ -144,11 +151,13 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "streamed_matmul": ("src/repro_torch/kernels/csrc/streamed_matmul.cu",
                         "src/repro/kernels/streamed_matmul.py:25"),
     "fwt": ("src/repro_torch/kernels/csrc/fwt.cu", "src/repro/kernels/fwt.py:32"),
+    # ops.fwt's second pass: the same TPU kernel over the transposed layout
+    "fwt_columns": ("src/repro_torch/kernels/csrc/fwt.cu", "src/repro/kernels/fwt.py:32"),
     "nw_tile": ("src/repro_torch/kernels/csrc/nw_tile.cu", "src/repro/kernels/nw_tile.py:42"),
 }
-# The paper kernels, relative to the plain output's largest magnitude (at
-# least 1): k-long f32 sums in another order (matmul), the reference's FWT
-# tolerance, one bf16 ulp; NW is exact (the same f32 operations).
+# The streamed matmul, relative to the plain output's largest magnitude (at
+# least 1): k-long f32 sums in another order, one bf16 ulp.  FWT and NW are
+# exact (the same f32 operations in the same order).
 PAPER_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SNAP_HEAD = 64  # tokens every snapshot-serve prompt longer than it starts with
 LONG_Q_OFFSET = 1984  # the prefill kernel's long context: Sq 64 at Sk 2048
@@ -872,7 +881,8 @@ def kernel_counters() -> dict:
             "paged_attention_quant": PA.QUANT_KERNEL,
             "paged_attention_multi_quant": PA.MULTI_QUANT_KERNEL,
             "flash_attention": FA.KERNEL, "ssd": SSD.KERNEL,
-            "streamed_matmul": MM.KERNEL, "fwt": FWT.KERNEL, "nw_tile": NW.KERNEL}
+            "streamed_matmul": MM.KERNEL, "fwt": FWT.KERNEL,
+            "fwt_columns": FWT.COLUMNS_KERNEL, "nw_tile": NW.KERNEL}
 
 
 def counted_serve(cfg, params, reqs, **kw):
@@ -1130,13 +1140,28 @@ def phase_paper_kernels(res: dict) -> None:
             check(got.dtype == torch.result_type(x, y), f"matmul out dtype {got.dtype}")
             paper_held(res, "streamed_matmul", got.dtype, f"{dx}@{dy} ({m},{k})@({k},{n})",
                        got, MM.matmul_plain(x, y), PAPER_RTOL[got.dtype])
+    # FWT: every body runs the plain version's f32 operations in its order,
+    # so each launch is held bit-equal (tolerance 0).
     for dt in (f32, bf16):
-        for shape in ((4096, 1024), (1024, 4096), (3, 8), (2, 1 << 15)):
+        for shape in ((4096, 1024), (1024, 4096), (3, 8), (5, 1), (33, 32), (2, 1 << 15)):
             x = torch.randn(shape, generator=g, device="cuda").to(dt)
-            paper_held(res, "fwt", dt, f"rows x block {shape}", FWT.fwt_block(x),
-                       FWT.fwt_plain(x), PAPER_RTOL[dt])
+            held(res, "fwt", dt, f"rows x block {shape}", FWT.fwt_block(x), FWT.fwt_plain(x),
+                 0.0)
+        for shape in ((4096, 1024), (4096, 1020), (64, 3), (1 << 15, 2)):
+            y = torch.randn(shape, generator=g, device="cuda").to(dt)
+            held(res, "fwt_columns", dt, f"columns of {shape}", FWT.fwt_columns(y),
+                 FWT.fwt_columns_plain(y), 0.0)
+        y = torch.randn((4096, 1024), generator=g, device="cuda").to(dt)
+        want = FWT.fwt_columns_plain(y)
+        held(res, "fwt_columns", dt, "columns of (4096, 1024) in place",
+             FWT.fwt_columns(y, out=y), want, 0.0)
     xf = torch.randn(1 << 22, generator=g, device="cuda")
-    paper_held(res, "fwt", f32, "ops.fwt 2^22 (two passes)", ops.fwt(xf), ref.fwt_ref(xf), 1e-5)
+    for name in ("fwt", "fwt_columns"):
+        held(res, name, f32, "ops.fwt 2^22 (two passes) vs the whole-vector plain version",
+             ops.fwt(xf), ref.fwt_ref(xf), 0.0)
+    xb = xf.bfloat16()
+    held(res, "fwt_columns", bf16, "ops.fwt 2^22 vs the plain passes (bf16 between)",
+         ops.fwt(xb), FWT.fwt_columns_plain(FWT.fwt_plain(xb.view(4096, 1024))).view(-1), 0.0)
     rng = np.random.default_rng(41)
     for b in (8, 16, 32, 64, 1024):
         nw_in = [rng.integers(-b, b, b).astype(np.float32) for _ in range(2)]
@@ -1167,12 +1192,11 @@ def phase_paper_kernels(res: dict) -> None:
          out_d, plain_full, 0.0)
 
     # Times at the path's shapes.  Matmul: one f32 2048^3 task, library one
-    # torch.matmul (TF32 off).  FWT: both passes of one 2^22 task.  NW: one
-    # 2048^2 task, the kernel's one launch over the whole grid (nw_run on a
-    # prepared boundary state; its zeroed link buffer included), queued.
+    # torch.matmul (TF32 off).  FWT: time_fwt.  NW: one 2048^2 task, the
+    # kernel's one launch over the whole grid (nw_run on a prepared boundary
+    # state; its zeroed link buffer included), queued.
+    time_fwt(res, g)
     x, y = (torch.randn((2048, 2048), generator=g, device="cuda") for _ in range(2))
-    p1 = torch.randn((4096, 1024), generator=g, device="cuda")
-    p2 = torch.randn((1024, 4096), generator=g, device="cuda")
     n_diag = len(diags)
     cells = NW_N * NW_N
 
@@ -1182,9 +1206,6 @@ def phase_paper_kernels(res: dict) -> None:
     timed = {
         "streamed_matmul": (lambda: ops.matmul(x, y), lambda: MM.matmul_plain(x, y),
                             lambda: torch.matmul(x, y), (3 * x.numel() * 4, 2.0 * 2048 ** 3)),
-        "fwt": (lambda: (FWT.fwt_block(p1), FWT.fwt_block(p2)),
-                lambda: (FWT.fwt_plain(p1), FWT.fwt_plain(p2)), None,
-                (2 * 2 * p1.numel() * 4, p1.numel() * (10 + 12))),
         # per cell: the diagonal and upper terms (2 ops), their max, the west
         # fold on column 0 (ignored), and log2(B) = 5 ladder steps of 2 ops
         "nw_tile": (lambda: NW.nw_run(state, sc_d, 0, n_diag),
@@ -1225,6 +1246,64 @@ def phase_paper_kernels(res: dict) -> None:
               f"{nbytes:.0f} bytes, {flops:.0f} flops){extra}")
 
 
+FWT_TASKS = 8  # 2^22 f32 tasks in time_fwt's cold rotation: 128 MB, past the 50 MB L2
+
+
+def hadamard(n: int) -> torch.Tensor:
+    """The n x n Sylvester Hadamard matrix on the card, f32: ``x @ H`` is the
+    unnormalized WHT of each row of ``x``."""
+    h = torch.ones((1, 1), device="cuda")
+    while h.shape[0] < n:
+        h = torch.cat([torch.cat([h, h], 1), torch.cat([h, -h], 1)], 0)
+    return h
+
+
+def time_fwt(res: dict, g: torch.Generator) -> None:
+    """The two FWT passes of the streaming path's 2^22 f32 task, (4096,
+    1024), and the whole ``ops.fwt``: device time queued behind a spin
+    kernel, cold (a rotation of FWT_TASKS tasks, past the L2, so that the
+    device-memory bound is a fair yardstick) and warm (one task again and
+    again); the plain versions as the host issues them; the library
+    yardstick, one f32 product a pass with the Sylvester Hadamard matrix
+    (TF32 off; sums in another order; the port never calls it)."""
+    from repro_torch.kernels import fwt as FWT
+    from repro_torch.kernels import ops
+
+    xs = [torch.randn((4096, 1024), generator=g, device="cuda") for _ in range(FWT_TASKS)]
+    ys = [FWT.fwt_block(x) for x in xs]
+    h1, h2 = hadamard(1024), hadamard(4096)
+    turn = itertools.count()
+
+    def cold(fn):
+        return device_ms(lambda: fn(next(turn) % FWT_TASKS), iters=64)
+
+    # name -> (kernel on task i, plain version, library call, stages)
+    passes = {"fwt": (lambda i: FWT.fwt_block(xs[i]), FWT.fwt_plain, lambda: xs[0] @ h1, 10),
+              "fwt_columns": (lambda i: FWT.fwt_columns(ys[i]), FWT.fwt_columns_plain,
+                              lambda: h2 @ ys[0], 12)}
+    nbytes = 2 * xs[0].numel() * 4  # 16 MB in, 16 MB out
+    for name, (kern, plain, lib, stages) in passes.items():
+        r = res[name]
+        r["ms"] = cold(kern)
+        r["plain_ms"] = time_ms(lambda: plain(xs[0]), iters=20, warmup=1)
+        r["library_ms"] = device_ms(lib, iters=20)
+        flops = xs[0].numel() * stages
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, torch.float32)
+        print(f"[kernels] {name} pass of (4096, 1024) f32: kernel {r['ms']:.4f} ms cold, "
+              f"{device_ms(lambda: kern(0), iters=64):.4f} ms warm, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {nbytes} bytes, {flops} flops)")
+    flat = [x.view(-1) for x in xs]
+    both = [res[n] for n in passes]
+    print(f"[kernels] ops.fwt of a 2^22 f32 task (row pass, then column pass in place; 2 "
+          f"launches): {cold(lambda i: ops.fwt(flat[i])):.4f} ms cold, "
+          f"{device_ms(lambda: ops.fwt(flat[0]), iters=64):.4f} ms warm; bounds "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms (its own 16 MB in and out) and "
+          f"{2 * nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms (both passes through device memory); "
+          f"plain {sum(r['plain_ms'] for r in both):.4f} ms, library "
+          f"{sum(r['library_ms'] for r in both):.4f} ms")
+
+
 def matmul_plan(x, y) -> str:
     from repro_torch.kernels import streamed_matmul as MM
 
@@ -1244,7 +1323,7 @@ def phase_card_vs_cpu_streams() -> None:
         worst = 0.0
         for got, want in zip(a["outputs"], b["outputs"]):
             err = (got.float() - want.float()).abs().max().item()
-            tol = (0.0 if a["kernel"] == "nw"
+            tol = (0.0 if a["kernel"] in ("nw", "fwt")
                    else 1e-5 * max(1.0, want.float().abs().max().item()))
             check(err <= tol, f"streams {a['category']}: card vs CPU err {err} > {tol}")
             worst = max(worst, err)
@@ -1283,19 +1362,24 @@ def phase_streams(res: dict) -> list[dict]:
         c.launches = 0
     results = S.run(device="cuda", n_tasks=8, streams=4)
     launches = {name: c.launches for name, c in counters.items()}
-    per_task = {"matmul": ("streamed_matmul", 1), "fwt": ("fwt", 2),
-                "nw": ("nw_tile", 1)}
+    # FWT: 2 launches a task run, one of the row pass and one of the column pass
+    per_task = {"matmul": {"streamed_matmul": 1}, "fwt": {"fwt": 1, "fwt_columns": 1},
+                "nw": {"nw_tile": 1}}
     want = {name: 0 for name in counters}
     for r in results:
         print(S.format_line(r))
-        name, n = per_task[r["kernel"]]
-        want[name] = n * r["task_runs"]
+        for name, n in per_task[r["kernel"]].items():
+            want[name] = n * r["task_runs"]
         check(r["max_abs_err"] <= r["tol"],
               f"streams {r['category']}: max abs err {r['max_abs_err']} > {r['tol']}")
         check(r["multi_equals_single"], f"streams {r['category']}: multi != single outputs")
         check(r["overlap_ms"] > 0.0, f"streams {r['category']}: no H2D/KEX overlap in events")
     check(launches == want, f"streams: launches {launches} != {want}")
-    for name in ("streamed_matmul", "fwt", "nw_tile"):
+    fwt_runs = next(r["task_runs"] for r in results if r["kernel"] == "fwt")
+    check(launches["fwt"] + launches["fwt_columns"] == 2 * fwt_runs,
+          f"streams: FWT launches {launches['fwt']} + {launches['fwt_columns']} != "
+          f"2 x {fwt_runs} task runs")
+    for name in ("streamed_matmul", "fwt", "fwt_columns", "nw_tile"):
         res[name]["launches"] = launches[name]
     for line in S.paper_model_checks():
         print(line)

@@ -139,8 +139,10 @@ def fwt(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:
     """Walsh-Hadamard transform of a flat (n,) or batched (r, n) input.
 
     Kronecker-streamed, as the reference's ``ops.fwt``: WHT(N) = (WHT(B1) x
-    I)(I x WHT(B2)), N = B1 * B2 -- pass 1 on (B1, B2) rows, a transpose,
-    pass 2 on (B2, B1) rows, and a transpose back.  A batched input is one
+    I)(I x WHT(B2)), N = B1 * B2 -- pass 1 over the rows of (B1, B2), pass
+    2 over its columns, in place (where the reference transposes, runs the
+    row pass and transposes back).  Two launches; a bf16 input is rounded
+    to bf16 between them, as the reference's is.  A batched input is one
     pass over its rows.
     """
     if x.dim() != 1:
@@ -153,9 +155,7 @@ def fwt(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:
     if b1 == 1:
         return _fwt.fwt_block(x[None, :])[0]
     y = _fwt.fwt_block(x.reshape(b1, b2))  # pass 1: in-block stages
-    y = y.t().contiguous()  # (b2, b1)
-    y = _fwt.fwt_block(y)  # pass 2: cross-block stages
-    return y.t().reshape(n)
+    return _fwt.fwt_columns(y, out=y).reshape(n)  # pass 2: cross-block stages
 
 
 def nw_tile(north: torch.Tensor, west: torch.Tensor, corner: torch.Tensor | float,

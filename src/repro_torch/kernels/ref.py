@@ -530,6 +530,13 @@ def fwt_ref(x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def fwt_columns_plain(y: torch.Tensor) -> torch.Tensor:
+    """Unnormalized Walsh-Hadamard transform over the first axis of ``y
+    (b1, b2)``: ``fwt_ref`` over axis 0 (log2(b1) stages in f32, h = 1, 2,
+    4, ... over the rows), the result in y's type and layout."""
+    return fwt_ref(y.movedim(0, -1)).movedim(-1, 0).contiguous()
+
+
 NW_NEG = -1e9  # the shift-max ladder's fill (the reference's NEG)
 
 

@@ -93,10 +93,10 @@ CASES = (
          lambda rng, n: tuple(torch.from_numpy(rng.standard_normal((n, n), np.float32))
                               for _ in range(2)),
          lambda t: ops.matmul(t[0], t[1]), lambda t: ref.matmul_ref(t[0], t[1]), 1e-5),
-    # The same f32 butterflies as the plain version: the reference's 1e-5.
+    # The same f32 butterflies in the same order as the plain version: exact.
     Case("false-dependent", "FastWalshTransform", "fwt",
          lambda rng, n: torch.from_numpy(rng.standard_normal(n, np.float32)),
-         ops.fwt, ref.fwt_ref, 1e-5, FWT_HALO),
+         ops.fwt, ref.fwt_ref, 0.0, FWT_HALO),
     # Integer scores: every value is exact, so kernel == plain bit for bit.
     Case("true-dependent", "nw", "nw",
          lambda rng, n: torch.from_numpy(_dna_scores(rng, n)),

@@ -14,10 +14,10 @@ one f32 ulp of it is a ~1e-5 relative error in each decay factor, summed in
 another order by kernel and plain; 1e-4 is the reference's own tolerance
 for its SSD kernel), bf16 2e-2.  The paper kernels, relative to the plain
 output's largest magnitude (at least 1): matmul f32 1e-5 (k-long f32 sums
-in another order), bf16 2e-2 (one bf16 ulp); FWT f32 1e-5 (the
-reference's), bf16 2e-2; NW exact (the same f32 operations as the plain
-version).  P over code pools (``ref.cancelling_quant_case``, bf16 q, output
-~1e-7 while sum |p v| / l is ~2.5): 1e-4, ten times what P at f32 accuracy
+in another order), bf16 2e-2 (one bf16 ulp); FWT and NW exact (the same
+f32 operations, in the same order, as the plain version).  P over code
+pools (``ref.cancelling_quant_case``, bf16 q, output ~1e-7 while sum |p
+v| / l is ~2.5): 1e-4, ten times what P at f32 accuracy
 leaves there (<= 8e-6 in the plain emulation) and a thirtieth of what P
 rounded once to bf16 leaves (>= 2.7e-3).
 """
@@ -503,30 +503,91 @@ def test_matmul_kernel_matches_plain(cuda, dtypes, mkn):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("shape", [(4096, 1024), (1024, 4096), (3, 8), (5, 1), (7, 2),
-                                   (2, 1 << 14), (2, 1 << 15)], ids=str)
+                                   (2, 1 << 14), (2, 1 << 15), (33, 32), (6, 64), (3, 256),
+                                   (2, 512), (3, 2048)], ids=str)
 def test_fwt_kernel_matches_plain(cuda, dtype, shape):
+    """Every body (several rows a warp, a row in registers, a row through
+    shared memory) runs the plain version's f32 operations: bit-equal."""
     g = torch.Generator(device="cuda").manual_seed(shape[1])
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
     n0 = FWT.KERNEL.launches
     got = FWT.fwt_block(x)
     torch.cuda.synchronize()
     assert FWT.KERNEL.launches == n0 + 1 and got.dtype == dtype
-    _close(got, FWT.fwt_plain(x), PAPER_RTOL[dtype])
+    assert torch.equal(got, FWT.fwt_plain(x))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [
+    (4096, 1024),  # pass 2 of a 2^22 task: 128 strips of 8 columns
+    (2, 1024), (1, 8), (32, 33),
+    (4096, 1020), (16, 1000),  # a last strip part outside b2 (16-byte copies)
+    (64, 3), (1024, 20),  # rows of b2 not a multiple of 16 bytes: element copies
+    (8192, 8), (1 << 14, 3), (1 << 15, 2),  # b1 large: strips of 4, 2, 1 columns
+], ids=str)
+def test_fwt_columns_kernel_matches_plain(cuda, dtype, shape):
+    g = torch.Generator(device="cuda").manual_seed(shape[0] + shape[1])
+    y = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    n0, r0 = FWT.COLUMNS_KERNEL.launches, FWT.KERNEL.launches
+    got = FWT.fwt_columns(y)
+    torch.cuda.synchronize()
+    assert (FWT.COLUMNS_KERNEL.launches, FWT.KERNEL.launches) == (n0 + 1, r0)
+    assert got.dtype == dtype and got.shape == y.shape
+    assert torch.equal(got, FWT.fwt_columns_plain(y))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(4096, 1024), (1024, 24), (64, 3)], ids=str)
+def test_fwt_columns_in_place(cuda, dtype, shape):
+    g = torch.Generator(device="cuda").manual_seed(7)
+    y = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    want = FWT.fwt_columns_plain(y)
+    got = FWT.fwt_columns(y, out=y)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == y.data_ptr() and torch.equal(y, want)
+
+
+@pytest.mark.parametrize("logn,block", [(10, 16), (11, None), (12, 64), (14, 256), (16, None),
+                                        (18, 1024), (20, 512), (20, 32), (22, None),
+                                        (22, 128)], ids=str)
+def test_ops_fwt_bit_equal_on_card(cuda, logn, block):
+    """The flat path, rows then columns, equals the whole-vector plain
+    version bit for bit (its stages in the same order), in two launches."""
+    g = torch.Generator(device="cuda").manual_seed(logn)
+    x = torch.randn(1 << logn, generator=g, device=cuda)
+    r0, c0 = FWT.KERNEL.launches, FWT.COLUMNS_KERNEL.launches
+    got = ops.fwt(x, block=block)
+    torch.cuda.synchronize()
+    assert (FWT.KERNEL.launches, FWT.COLUMNS_KERNEL.launches) == (r0 + 1, c0 + 1)
+    assert torch.equal(got, ref.fwt_ref(x))
+
+
+@pytest.mark.parametrize("logn,block", [(14, None), (22, None), (12, 16)], ids=str)
+def test_ops_fwt_bf16_flat_on_card(cuda, logn, block):
+    """bf16: pass 1's output is rounded to bf16, as the reference's is."""
+    g = torch.Generator(device="cuda").manual_seed(logn)
+    x = torch.randn(1 << logn, generator=g, device=cuda).bfloat16()
+    b2 = block or min(x.numel(), 1024)
+    want = FWT.fwt_columns_plain(FWT.fwt_plain(x.reshape(-1, b2))).reshape(-1)
+    assert torch.equal(ops.fwt(x, block=block), want)
 
 
 def test_ops_fwt_on_card(cuda):
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(1 << 22, generator=g, device=cuda)
-    n0 = FWT.KERNEL.launches
+    n0, c0 = FWT.KERNEL.launches, FWT.COLUMNS_KERNEL.launches
     got = ops.fwt(x)
     torch.cuda.synchronize()
-    assert FWT.KERNEL.launches == n0 + 2  # the two Kronecker passes
-    _close(got, ref.fwt_ref(x), 1e-5)
+    # the two Kronecker passes: one row-pass and one column-pass launch
+    assert (FWT.KERNEL.launches, FWT.COLUMNS_KERNEL.launches) == (n0 + 1, c0 + 1)
+    assert torch.equal(got, ref.fwt_ref(x))
     rows = torch.randn((6, 512), generator=g, device=cuda)
-    _close(ops.fwt(rows), ref.fwt_ref(rows), 1e-5)
-    assert FWT.KERNEL.launches == n0 + 3
+    assert torch.equal(ops.fwt(rows), ref.fwt_ref(rows))
+    assert (FWT.KERNEL.launches, FWT.COLUMNS_KERNEL.launches) == (n0 + 2, c0 + 1)
     with pytest.raises(ValueError, match="shared memory"):
         FWT.fwt_block(torch.zeros((1, 1 << 16), device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        FWT.fwt_columns(torch.zeros((1 << 16, 1), device=cuda))
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -645,6 +706,12 @@ def test_paper_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         ops.matmul(x.double(), x)
     with pytest.raises(ValueError, match="contiguous"):
         FWT.fwt_block(torch.zeros((8, 16), device=cuda).t())
+    with pytest.raises(ValueError, match="aligned"):
+        FWT.fwt_block(torch.zeros(33, device=cuda)[1:].reshape(2, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        FWT.fwt_columns(torch.zeros((16, 8), device=cuda).t())
+    with pytest.raises(ValueError, match="does not match"):
+        FWT.fwt_columns(x, out=torch.zeros((8, 8), device=cuda).bfloat16())
     with pytest.raises(ValueError, match="device"):
         ops.matmul(x, x.cpu())
 
