@@ -4,7 +4,8 @@ against its plain PyTorch version, holds the card against the CPU on
 2-layer full-width qwen3-4b and mamba2-2.7b and on the paper's streaming
 path at a small size, then serves requests through the full 36-layer bf16
 qwen3-4b on the card (plain, with speculative decode, over int8 and fp8 KV
-pages, and over int8 pages with speculative decode) and through the full
+pages, over int8 pages with speculative decode, over the contiguous slot
+cache, and in a page pool small enough to preempt) and through the full
 64-layer bf16 mamba2-2.7b (contiguous slot cache, paged pool, state
 snapshots), and runs the paper's Fig. 9 experiment (matmul, FWT and NW
 tasks over CUDA streams and the PCIe link) at full size.
@@ -73,6 +74,21 @@ Phases (any failed check raises, and the script exits non-zero):
      prefill-chunk times, acceptance, page bytes, agreement with the plain
      serve; each serve's launch counts are 36 per tick of its kind and per
      prefill chunk.
+  5b. cache paths: (a) qwen3-4b at full width cut to 2 layers, f32, card
+     vs CPU: the contiguous slot cache and scatter-after-prefill (paged,
+     not fused) give greedy tokens identical card vs CPU and to the fused
+     paged serve, admission logits allclose; contiguous spec decode
+     (n-gram and oracle drafts) equal to the plain contiguous serve; a
+     pool of PRESSURE_BLOCKS blocks preempts (the same count on both
+     devices) with the unpressured serve's tokens, and over int8 pages
+     with card vs CPU agreement >= 0.5.  (b) the full qwen3-4b of phase 5:
+     the contiguous serve (tokens/s, tick p50, prefill launches > 0)
+     between phase 5's fused paged serve and another after it, and the
+     paged serve in a pool of PRESSURE_BLOCKS blocks: >= 2 preemptions,
+     phase 5's tokens per request, no page left in use, the pool's
+     invariants, and each evict and readmit timed (host clock around a
+     synchronize); each warmed once and measured with the launch counts
+     at 0.
   6. main path, mamba: full mamba2-2.7b (64 layers, bf16, random weights
      from a seed) serves the same 6 requests over a contiguous slot cache
      and beside a paged pool, then prompts sharing a 64-token head with
@@ -89,11 +105,12 @@ Phases (any failed check raises, and the script exits non-zero):
      run; then the pinned
      H2D / D2H bandwidth of a 256 MB copy.  The improvement is reported,
      not asserted.
-With --profile, phases 5 and 6 add a torch.profiler breakdown (device busy
-time by kernel and by group, the paged-attention group's split and combine
-launches together; idle share) of the plain, oracle-spec, int8 and mamba
-contiguous serves.  The last three lines of stdout are the card's name
-and power limit, the kernels JSON and the result JSON.
+With --profile, phases 5, 5b and 6 add a torch.profiler breakdown (device
+busy time by kernel and by group, the paged-attention group's split and
+combine launches together; idle share) of the plain, oracle-spec, int8,
+qwen3 contiguous and mamba contiguous serves.  The last three lines of
+stdout are the card's name and power limit, the kernels JSON and the
+result JSON.
 """
 
 from __future__ import annotations
@@ -698,17 +715,20 @@ def snapshot_prompts(vocab: int) -> list[np.ndarray]:
             for n in PROMPT_LENS]
 
 
-def serve(cfg, params, device, reqs, *, drafter=None, **extra):
-    """Serve ``reqs`` on ``device`` with ServeConfig options ``extra``;
-    returns (engine, tokens per request, admission logits per request,
-    per-tick seconds, wall seconds).  The engine also keeps the seconds of
-    each state snapshot it stored (its device-to-host copy)."""
+def serve(cfg, params, device, reqs, *, drafter=None, paged=True, **extra):
+    """Serve ``reqs`` on ``device`` over a paged pool (or, with
+    ``paged=False``, the contiguous slot cache) with ServeConfig options
+    ``extra``; returns (engine, tokens per request, admission logits per
+    request, per-tick seconds, wall seconds).  The engine also keeps the
+    seconds of each state snapshot it stored (its device-to-host copy) and
+    of each evict and readmit (host clock around a synchronize)."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
 
     class Engine(StreamedBatchEngine):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             self.logits, self.ticks, self.snapshot_s = {}, [], []
+            self.evict_s, self.readmit_s = [], []
             offer = self.servable.maybe_snapshot
 
             def timed_offer(tokens, caches, pos):
@@ -727,9 +747,25 @@ def serve(cfg, params, device, reqs, *, drafter=None, **extra):
             super()._decode_tick()  # ends in the tick's device-to-host copy
             self.ticks.append(time.perf_counter() - t0)
 
+        def _synced(self, fn, times, arg):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(arg)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        def evict(self, uid):
+            return self._synced(super().evict, self.evict_s, uid)
+
+        def readmit(self, ev):
+            return self._synced(super().readmit, self.readmit_s, ev)
+
     max_seq = -(-(max(PROMPT_LENS) + NEW_TOKENS) // BLOCK) * BLOCK
     scfg = ServeConfig(max_seq=max_seq, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS,
-                       max_batch=SLOTS, block_size=BLOCK, **extra)
+                       max_batch=SLOTS, block_size=BLOCK, paged=paged, **extra)
     eng = Engine(cfg, params, scfg, device=device, drafter=drafter)
     t0 = time.perf_counter()
     uids = [eng.submit(p) for p in reqs]
@@ -890,9 +926,10 @@ def counted_serve(cfg, params, reqs, **kw):
     it; returns serve()'s tuple and the counts read just after.  Checks
     that each tick and chunk launched its kernel once per layer: the
     single-token entry per plain tick, the draft-block entry per verify
-    tick (the fused-dequant pair over quantized pages), the prefill
-    kernel per chunk, and nothing else; for mamba, the SSD kernel once per
-    layer per prefill chunk and nothing else."""
+    tick (the fused-dequant pair over quantized pages; none over the
+    contiguous cache, whose decode is torch ops), the prefill kernel per
+    chunk, and nothing else; for mamba, the SSD kernel once per layer per
+    prefill chunk and nothing else."""
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
@@ -904,15 +941,16 @@ def counted_serve(cfg, params, reqs, **kw):
         want["ssd"] = cfg.n_layers * eng.prefill_chunks
     else:
         q = "_quant" if eng.scfg.kv_dtype != "fp32" else ""
-        want[f"paged_attention{q}"] = cfg.n_layers * (eng.decode_steps - eng.spec_ticks)
-        want[f"paged_attention_multi{q}"] = cfg.n_layers * eng.spec_ticks
+        if eng.paged:  # contiguous decode is torch ops (decode_attention)
+            want[f"paged_attention{q}"] = cfg.n_layers * (eng.decode_steps - eng.spec_ticks)
+            want[f"paged_attention_multi{q}"] = cfg.n_layers * eng.spec_ticks
         want["flash_attention"] = cfg.n_layers * eng.prefill_chunks
     check(launches == want, f"{kw}: launches {launches} != {want} ({cfg.n_layers} layers "
           f"x {eng.decode_steps} ticks ({eng.spec_ticks} verify), {eng.prefill_chunks} chunks)")
     return out, launches
 
 
-def phase_main_path(res: dict, *, profile: bool = False) -> dict:
+def phase_main_path(res: dict, *, profile: bool = False) -> tuple[dict, list, dict]:
     from repro_torch.configs import qwen3_4b
     from repro_torch.models import transformer as T
 
@@ -1020,7 +1058,150 @@ def phase_main_path(res: dict, *, profile: bool = False) -> dict:
         if profile and path in ("paged_attention_multi", "paged_attention_quant"):
             phase_profile(cfg, params, rq, label, drafter=drafter(), **kw)
     print("[main] serves " + json.dumps(serves))
-    return e2e
+    return e2e, toks, params
+
+
+# Pool size (blocks, trash included) that makes the serve of the 6 requests
+# preempt twice: admissions and growth of PROMPT_LENS at 4 slots, pages of
+# BLOCK, NEW_TOKENS each (the count depends on the lengths alone).
+PRESSURE_BLOCKS = 22
+
+
+def phase_cache_paths(res: dict, main: tuple, *, profile: bool = False) -> dict:
+    """Phase 5b: the contiguous attention cache, scatter-after-prefill and
+    page-pressure preemption.  (a) qwen3-4b at full width cut to 2 layers,
+    f32, card against CPU: the contiguous and the non-fused paged serves
+    (greedy tokens identical card vs CPU and to the fused paged serve,
+    admission logits allclose), contiguous spec decode (n-gram and oracle
+    drafts) equal to the plain contiguous serve, and a pool of
+    PRESSURE_BLOCKS that preempts (same count card vs CPU, tokens of the
+    unpressured serve; over int8 pages greedy agreement >= QUANT_FLOOR).
+    (b) the full 36-layer bf16 qwen3-4b of phase 5 (``main``: its e2e, its
+    plain paged serve's tokens and its params): the contiguous serve (flash
+    launches > 0) beside the fused paged serve, and the pressured paged
+    serve: >= 2 preemptions, phase 5's tokens per uid, evict / readmit
+    times."""
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(qwen3_4b.CONFIG, n_layers=2, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    cpu_params = T.init_params(cfg, 0, device="cpu")
+    gpu_params = to_device(cpu_params, "cuda")
+    reqs = prompts(cfg.vocab_size)
+    _, fused, _, _, _ = serve(cfg, gpu_params, "cuda", reqs)
+    for label, kw in (("contiguous", dict(paged=False)),
+                      ("non-fused paged", dict(fused_prefill=False))):
+        _, tok_g, log_g, _, wall_g = serve(cfg, gpu_params, "cuda", reqs, **kw)
+        _, tok_c, log_c, _, wall_c = serve(cfg, cpu_params, "cpu", reqs, **kw)
+        worst = max((a - b).abs().max().item() for a, b in zip(log_g, log_c))
+        for i, (a, b) in enumerate(zip(log_g, log_c)):
+            check(torch.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+                  f"{label} request {i}: card vs CPU admission logits differ by "
+                  f"{(a - b).abs().max().item():.3e}")
+        for i, (a, b, c) in enumerate(zip(tok_g, tok_c, fused)):
+            check(np.array_equal(a, b), f"{label} request {i}: card {a} != CPU {b}")
+            check(np.array_equal(a, c), f"{label} request {i}: {a} != fused paged {c}")
+        print(f"[cache] 2-layer full-width f32 {label}: admission logits max abs diff "
+              f"{worst:.3e} (atol {LOGIT_ATOL}, rtol {LOGIT_RTOL}); greedy tokens identical "
+              f"card vs CPU and to the fused paged serve for {len(reqs)} requests x "
+              f"{NEW_TOKENS}; card {wall_g:.2f}s, cpu {wall_c:.2f}s")
+    tiled = tiled_prompts(cfg.vocab_size)
+    _, plain_t, _, _, _ = serve(cfg, gpu_params, "cuda", tiled, paged=False)
+    for label, drafter in (("n-gram", None), ("oracle", OracleDrafter(tiled, plain_t))):
+        outs = {}
+        for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+            eng, outs[dev], _, _, _ = serve(cfg, p, dev, tiled, drafter=drafter, paged=False,
+                                            spec_decode=True, spec_k=SPEC_K)
+        for i, (a, b, c) in enumerate(zip(outs["cuda"], outs["cpu"], plain_t)):
+            check(np.array_equal(a, b), f"contiguous spec {label} request {i}: card {a} != "
+                  f"CPU {b}")
+            check(np.array_equal(a, c), f"contiguous spec {label} request {i}: {a} != {c}")
+        check(label != "oracle" or eng.spec_ticks > 0, "the oracle serve ran no verify tick")
+        print(f"[cache] contiguous spec decode ({label} drafts, k={SPEC_K}, tiled prompts): "
+              f"greedy tokens identical card vs CPU and equal to the plain contiguous serve; "
+              f"{eng.spec_ticks} verify of {eng.decode_steps} ticks, accepted "
+              f"{eng.spec_accepted}/{eng.spec_proposed}")
+    for kd in ("fp32", "int8"):
+        eg, tg, _, _, wg = serve(cfg, gpu_params, "cuda", reqs, kv_dtype=kd,
+                                 num_blocks=PRESSURE_BLOCKS)
+        ec, tc, _, _, wc = serve(cfg, cpu_params, "cpu", reqs, kv_dtype=kd,
+                                 num_blocks=PRESSURE_BLOCKS)
+        check(eg.preemptions >= 1 and eg.preemptions == ec.preemptions,
+              f"{kd} pool of {PRESSURE_BLOCKS} blocks: preemptions card {eg.preemptions}, "
+              f"CPU {ec.preemptions}")
+        agree = agreement(tg, tc)
+        if kd == "fp32":
+            for i, (a, b, c) in enumerate(zip(tg, tc, fused)):
+                check(np.array_equal(a, b), f"pressured request {i}: card {a} != CPU {b}")
+                check(np.array_equal(a, c), f"pressured request {i}: {a} != unpressured {c}")
+        else:
+            check(agree >= QUANT_FLOOR, f"pressured {kd}: card vs CPU agreement {agree}")
+        print(f"[cache] {kd} pool of {PRESSURE_BLOCKS} blocks: {eg.preemptions} preemptions "
+              f"on the card and on the CPU; card vs CPU greedy agreement {agree:.3f}"
+              + ("; tokens equal to the unpressured serve" if kd == "fp32" else
+                 f" (floor {QUANT_FLOOR}); vs the unpressured f32 serve "
+                 f"{agreement(tg, fused):.3f}") + f"; card {wg:.2f}s, cpu {wc:.2f}s")
+    del gpu_params
+
+    # (b) full width, bf16.
+    e2e, paged_toks, params = main
+    cfg = qwen3_4b.CONFIG
+    reqs = prompts(cfg.vocab_size)
+    out = {"fused paged (phase 5)": {k: e2e[k] for k in ("tokens_per_s", "decode_tick_ms_p50",
+                                                          "decode_ticks")}}
+    for label, kw in (("contiguous", dict(paged=False)),
+                      (f"paged, {PRESSURE_BLOCKS} blocks", dict(num_blocks=PRESSURE_BLOCKS))):
+        serve(cfg, params, "cuda", reqs, **kw)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        (eng, toks, logits, ticks, wall), launches = counted_serve(cfg, params, reqs, **kw)
+        for i, (t, lg) in enumerate(zip(toks, logits)):
+            check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
+                  f"{label} request {i}: {t}")
+            check(bool(torch.isfinite(lg).all()), f"{label} request {i}: non-finite logits")
+        check(launches["flash_attention"] > 0, f"{label}: no flash_attention launch")
+        for name, n in launches.items():
+            if n:  # this path's launches join phase 5's in the kernels line
+                res[name]["launches"] += n
+        n = sum(len(t) for t in toks)
+        row = {"tokens_per_s": n / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
+               "decode_ticks": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
+               "agreement_with_fused_paged": agreement(toks, paged_toks),
+               "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if eng.paged:
+            check(eng.preemptions >= 2, f"{label}: {eng.preemptions} preemptions, want >= 2")
+            for i, (a, b) in enumerate(zip(toks, paged_toks)):
+                check(np.array_equal(a, b), f"{label} request {i}: {a} != unpressured {b}")
+            check(eng.kv.pages_in_use == 0, f"{label}: pages left in use")
+            eng.kv.check_invariants()
+            row.update(num_blocks=PRESSURE_BLOCKS, preemptions=eng.preemptions,
+                       evict_ms=[x * 1e3 for x in eng.evict_s],
+                       readmit_ms=[x * 1e3 for x in eng.readmit_s],
+                       peak_pages=eng.kv.peak_pages_in_use)
+        out[label] = row
+        print(f"[cache] {label}: {n} tokens in {wall:.3f}s = {n / wall:.1f} tok/s (fused paged, "
+              f"phase 5: {e2e['tokens_per_s']:.1f}); tick p50 {row['decode_tick_ms_p50']:.2f} "
+              f"ms over {eng.decode_steps} ticks (phase 5: {e2e['decode_tick_ms_p50']:.2f} ms "
+              f"over {e2e['decode_ticks']}); {eng.prefill_chunks} chunks; agreement with the "
+              f"fused paged serve {row['agreement_with_fused_paged']:.3f}; launches "
+              f"{launches}; peak {row['peak_mem_gb']:.2f} GB"
+              + (f"; num_blocks {PRESSURE_BLOCKS}: {eng.preemptions} preemptions, tokens "
+                 f"equal to the unpressured serve, evict ms "
+                 f"{[round(x, 3) for x in row['evict_ms']]}, readmit ms "
+                 f"{[round(x, 3) for x in row['readmit_ms']]}" if eng.paged else ""))
+        if not eng.paged:
+            # The fused paged serve again, right after the contiguous one:
+            # host-bound serves move between calls, so the two are compared
+            # in turns (phase 5's paged serve, contiguous, this one).
+            _, tp, _, kp, wp = serve(cfg, params, "cuda", reqs)
+            out["fused paged (after contiguous)"] = {
+                "tokens_per_s": sum(len(t) for t in tp) / wp,
+                "decode_tick_ms_p50": float(np.median(kp) * 1e3), "decode_ticks": len(kp)}
+            print(f"[cache] fused paged again: {out['fused paged (after contiguous)']}")
+            if profile:
+                phase_profile(cfg, params, reqs, "contiguous", **kw)
+    print("[cache] serves " + json.dumps(out))
+    return out
 
 
 def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
@@ -1431,8 +1612,12 @@ def main() -> int:
     phase_card_vs_cpu_streams()
     print(f"[card_vs_cpu] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase_main_path(res, profile=args.profile)
+    main_path = phase_main_path(res, profile=args.profile)
     print(f"[main] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_cache_paths(res, main_path, profile=args.profile)
+    del main_path  # the full model's weights
+    print(f"[cache] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_main_mamba(res, profile=args.profile)
     print(f"[mamba] {time.perf_counter() - t0:.1f}s")

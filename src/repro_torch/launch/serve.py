@@ -1,15 +1,18 @@
 """Serving launcher of the port: N requests through the continuous-batching
-engine.
+engine, or one batch at a time through ``ServingEngine.generate``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --paged \
-        --requests 4 --prompt-len 128 --new-tokens 16 [--device cpu] \
-        [--kv-dtype int8|fp8] [--spec-decode --spec-k 4 --spec-ngram 3]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+        --requests 4 --prompt-len 128 --new-tokens 16 [--device cpu] [--paged \
+        [--num-blocks N] [--kv-dtype int8|fp8]] [--spec-decode --spec-k 4 \
+        --spec-ngram 3] [--sequential]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         [--paged] [--state-snapshots] [--device cpu]
 
-Transformers serve paged only (the contiguous attention cache is not
-ported yet); mamba2 serves over a contiguous slot cache or, with
-``--paged``, beside a page pool.
+Without ``--paged`` each slot holds a contiguous cache of ``max_seq`` rows
+(the reference's default); with it the slots share a page pool, and a pool
+too small for every slot's growth preempts (the line counts preemptions).
+``--sequential`` serves the requests as one batch through the single-request
+``ServingEngine.generate`` instead, as the reference launcher does.
 
 Like the reference launcher it serves the arch's smoke-size config with
 random weights from a fixed seed.  It runs on CUDA unless ``--device cpu``.
@@ -25,8 +28,7 @@ import numpy as np
 import repro_torch.configs as configs
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.runtime.model_iface import arch_kind_of
-from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
+from repro_torch.runtime.serving import ServeConfig, ServingEngine, StreamedBatchEngine
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -40,8 +42,11 @@ def main(argv: list[str] | None = None) -> None:
                     help="decode slots for continuous batching")
     ap.add_argument("--interleave", type=int, default=1,
                     help="decode steps per in-flight prefill chunk")
+    ap.add_argument("--sequential", action="store_true",
+                    help="force the one-request-at-a-time baseline (ServingEngine.generate)")
     ap.add_argument("--paged", action="store_true",
-                    help="page the batched KV cache (required for transformers)")
+                    help="page the batched KV cache (global pool + free list + per-slot "
+                         "page tables)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="cache rows per KV page")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -60,9 +65,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     cfg = configs.get_smoke_config(args.arch)
-    if not args.paged and arch_kind_of(cfg) != "mamba":
-        ap.error("transformers serve only with --paged; the contiguous cache path is "
-                 "still to port (ROADMAP, the contiguous path)")
     device = resolve_device(args.device)
 
     params = T.init_params(cfg, 0, device=device)
@@ -77,6 +79,20 @@ def main(argv: list[str] | None = None) -> None:
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int32)
 
+    if args.sequential:
+        single = ServingEngine(cfg, params, scfg, device=device,
+                               unembed=T.unembed_f32(cfg, params))
+        t0 = time.perf_counter()
+        rows = single.generate(tokens).cpu().numpy().tolist()
+        dt = time.perf_counter() - t0
+        total_new = sum(len(r) for r in rows)
+        print(f"[serve] {args.arch} on {device} (sequential-batch, contiguous cache): "
+              f"{args.requests} requests x {args.prompt_len} prompt -> "
+              f"{total_new // args.requests} new tokens each in {dt:.2f}s "
+              f"({total_new / dt:.1f} tok/s incl. prefill)")
+        for i, row in enumerate(rows[:3]):
+            print(f"[serve] req{i}: {row[:12]}{'...' if len(row) > 12 else ''}")
+        return
     eng = StreamedBatchEngine(cfg, params, scfg, device=device)
     t0 = time.perf_counter()
     uids = [eng.submit(t) for t in tokens]
@@ -95,7 +111,8 @@ def main(argv: list[str] | None = None) -> None:
     if args.paged:
         st = eng.kv.stats(active_slots=eng.peak_active)
         cache = (f"paged block={eng.kv.block_size} kv_dtype={args.kv_dtype} (peak "
-                 f"{st.peak_in_use}/{st.capacity} pages, page_bytes={st.page_bytes})")
+                 f"{st.peak_in_use}/{st.capacity} pages, page_bytes={st.page_bytes}, "
+                 f"preemptions={eng.preemptions})")
     else:
         cache = "contiguous slot cache"
     print(f"[serve] {args.arch} on {device} (continuous-batching x{args.max_batch} "

@@ -1,15 +1,16 @@
 """The layer stack of the served models (reference
 ``models/transformer.py``): init, the caches, the layer loop, the fused
 prefill chunk, paged decode (one token, or a draft block for speculative
-verify), the contiguous prefill chunk and decode step of slot-state-only
-caches, and greedy sampling.  Two layer kinds are ported: attention +
+verify), the contiguous prefill chunk and decode steps (one token, or a
+draft block), and greedy sampling.  Two layer kinds are ported: attention +
 swiglu FFN (qwen3-4b) and the mamba2 block with no FFN (mamba2-2.7b).
 
 Parameters are nested dicts of tensors laid out as the reference's pytree:
 every leaf under ``blocks/layer{i}`` has a leading repeat axis ``r``, and a
 Python loop over repeats takes the place of ``lax.scan``.  Attention pools
 are ``(r, num_blocks, block_size, n_kv_heads, head_dim)`` per unit position
-(plus ``(r, num_blocks, n_kv_heads)`` f32 scales when quantized); mamba
+(plus ``(r, num_blocks, n_kv_heads)`` f32 scales when quantized), or
+contiguous ``(r, B, s_cache, n_kv_heads, head_dim)`` rows per slot; mamba
 layers carry slot-indexed ``ssm`` ``(r, B, H, P, N)`` f32 and ``conv``
 ``(r, B, 3, conv_dim)`` leaves.  Caches are updated in place.
 """
@@ -165,19 +166,26 @@ def _slot_state(cfg: ModelConfig, bsz: int, dev) -> Params:
     return {k: v.view(r, bsz, *v.shape[1:]) for k, v in c.items()}
 
 
-def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, *, device=None) -> Params:
+def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, *, ring: bool = True,
+               device=None) -> Params:
     """Contiguous decode caches of ``bsz`` rows, stacked over the repeat
-    axis per unit position: the slot-indexed state of mamba layers.
-    Contiguous attention K/V (``max_seq`` rows per slot) is not ported yet
-    and raises ``NotImplementedError``."""
+    axis per unit position (reference ``transformer.init_cache``):
+    attention K/V ``(r, bsz, s_cache, n_kv_heads, head_dim)`` in
+    ``compute_dtype``, where ``s_cache`` is ``max_seq`` or, for an SWA
+    layer with ``ring=True``, ``min(window, max_seq)`` (a ring buffer; the
+    streamed prefill needs ``ring=False``); mamba layers' slot-indexed
+    state."""
     dev = resolve_device(device)
     blocks = {}
     for i, spec in enumerate(cfg.layer_unit):
-        if spec.mixer != "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: contiguous attention caches (max_seq {max_seq}) are not "
-                "ported yet: ROADMAP, the contiguous cache path")
-        blocks[f"layer{i}"] = _slot_state(cfg, bsz, dev)
+        if spec.mixer == "mamba":
+            blocks[f"layer{i}"] = _slot_state(cfg, bsz, dev)
+            continue
+        window = cfg.spec_window(spec)
+        s_cache = min(window, max_seq) if (window > 0 and ring) else max_seq
+        shape = (cfg.n_repeats, bsz, s_cache, cfg.n_kv_heads, cfg.head_dim)
+        blocks[f"layer{i}"] = {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+                               "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
     return {"blocks": blocks}
 
 
@@ -358,6 +366,43 @@ def decode_step(
     positions ``cur_len`` (B,).  Returns logits (B, 1, V) and the caches."""
     h = _embed_tokens(cfg, params, tokens)
     h, caches = forward_hidden(cfg, params, h, positions=cur_len[:, None], caches=caches,
+                               cur_len=cur_len)
+    return _logits(cfg, params, h, unembed), caches
+
+
+def _multi_unit_check(cfg: ModelConfig, caches: Params) -> None:
+    """The reference's guards on the multi-token step: mamba state cannot
+    roll back, and a draft block scattered into an SWA ring would overwrite
+    committed keys before acceptance is known."""
+    if any(spec.mixer == "mamba" for spec in cfg.layer_unit):
+        raise NotImplementedError(
+            "multi-token decode rolls rejected KV writes back by masking; "
+            "mamba/hybrid archs advance irreversible per-slot SSM state")
+    for i, spec in enumerate(cfg.layer_unit):
+        c = caches["blocks"].get(f"layer{i}", {})
+        window = cfg.spec_window(spec)
+        if window > 0 and "k" in c and c["k"].shape[2] == window:
+            raise NotImplementedError(
+                "multi-token decode needs full-length caches (init_cache ring=False): "
+                "scattering a draft block into a ring buffer overwrites committed keys "
+                "before acceptance is known")
+
+
+def decode_step_multi(
+    cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches: Params,
+    cur_len: torch.Tensor, *, unembed: torch.Tensor,
+) -> tuple[torch.Tensor, Params]:
+    """Multi-token decode step over a contiguous cache (the contiguous
+    verify step's target pass): tokens (B, T) at positions ``cur_len +
+    [0, T)``, each written at its position and scored with a causal mask
+    inside the block.  Positions at or past the cache length (padding past
+    a slot's live draft) are dropped; rows past a slot's accepted prefix
+    stay invisible (masked by ``cur_len``) until decode overwrites them.
+    Returns logits (B, T, V) and the caches."""
+    _multi_unit_check(cfg, caches)
+    h = _embed_tokens(cfg, params, tokens)
+    positions = cur_len.long()[:, None] + torch.arange(tokens.shape[1], device=h.device)
+    h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
                                cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
 

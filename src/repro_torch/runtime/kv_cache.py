@@ -1,6 +1,9 @@
 """Paged KV cache: a global page pool, a refcounted free list and per-slot
 page tables (reference ``runtime/kv_cache.py``, without prefix sharing),
-and ``StateStore``, the host-side store of recurrent-state snapshots.
+the page scatter and gather that move a request's rows between a b=1
+contiguous cache and its pages (admission after a streamed prefill, evict,
+readmit), and ``StateStore``, the host-side store of recurrent-state
+snapshots.
 
 Each attention unit position owns K and V pools of shape
 ``(r, num_blocks, block_size, n_kv_heads, head_dim)`` on the device (int8
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import quant
 from repro_torch.models import transformer as T
 
 TRASH_PAGE = 0  # physical block 0: sink for padding writes, never allocated
@@ -37,6 +41,15 @@ def scatter_slot_state(dst: dict, src: dict, slot: int) -> None:
     for name, c in dst["blocks"].items():
         for key, leaf in c.items():
             leaf[:, slot: slot + 1].copy_(src["blocks"][name][key])
+
+
+def gather_slot_state(src: dict, slot: int) -> dict:
+    """Row ``slot`` of every leaf of ``src`` (``(r, B, ...)``) as a b=1
+    cache (``(r, 1, ...)``): a copy, so later writes to ``src`` leave it
+    as it was (the contiguous engine's evict)."""
+    return {"blocks": {name: {key: leaf[:, slot: slot + 1].clone()
+                              for key, leaf in c.items()}
+                       for name, c in src["blocks"].items()}}
 
 
 class PoolInvariantError(AssertionError):
@@ -164,6 +177,8 @@ class PagedKVCache:
         if num_blocks is None:  # every slot can grow to max_seq, + trash
             num_blocks = max_batch * self.max_pages + 1
         self.num_blocks = num_blocks
+        self.kv_dtype = quant.validate_kv_dtype(kv_dtype)
+        self.compute_dtype = cfg.compute_dtype
         self.allocator = BlockAllocator(num_blocks)
         self.pools = T.init_paged_cache(cfg, max_batch, num_blocks, block_size, kv_dtype,
                                         device=self.device)
@@ -264,20 +279,68 @@ class PagedKVCache:
             self._owned[slot] = []
         self.page_table[slot, :] = TRASH_PAGE
 
-    def scatter(self, slot: int, caches: Any, length: int) -> None:
-        """Write a b=1 contiguous cache (an admission's chunked prefill) into
-        ``slot``: its per-slot state rows are overwritten whole, so garbage
-        that padding ticks left in them is gone.  The slot must own
-        ``pages_for(length)`` pages.  Contiguous attention K/V rows (scattered
-        into pages by the reference) are not ported yet and raise."""
-        assert 0 < length and len(self._owned[slot]) >= self.pages_for(length), (
-            slot, length, self._owned[slot])
-        blocks = self.pools["blocks"]
-        if any(k in PAGED_LEAVES for c in blocks.values() for k in c):
-            raise NotImplementedError(
-                "scattering contiguous attention rows into pages is not ported yet: "
-                "ROADMAP, the contiguous cache path")
-        scatter_slot_state(self.pools, caches, slot)
+    def scatter(self, slot: int, caches: Any, length: int, *, start_page: int = 0) -> None:
+        """Write a b=1 contiguous cache's rows ``[start_page * block_size,
+        length)`` into ``slot``'s pages (admission after a streamed prefill,
+        or readmit), whole pages at a time, and overwrite its per-slot state
+        rows whole (so garbage that padding ticks left in them is gone).
+        Over int8/fp8 pools each page is quantized as it is written
+        (``scales_of`` over its rows, then ``quantize``), so codes and
+        scales move together.  The slot must own ``pages_for(length)``
+        pages, and the target pages must be its alone."""
+        n_total = self.pages_for(length)
+        n = n_total - start_page
+        assert n > 0 and len(self._owned[slot]) >= n_total, (
+            slot, length, start_page, self._owned[slot])
+        target = self._owned[slot][start_page:n_total]
+        assert all(self.allocator.refcount(p) == 1 for p in target), (
+            "scatter into a shared page would corrupt its sharers", target)
+        bs = self.block_size
+        pages = torch.tensor(target, dtype=torch.long, device=self.device)
+        row0 = start_page * bs
+        for name, c in self.pools["blocks"].items():
+            src = caches["blocks"][name]
+            for key, leaf in c.items():
+                if key not in PAGED_LEAVES:  # per-slot state (mamba ssm/conv)
+                    leaf[:, slot: slot + 1].copy_(src[key])
+                    continue
+                if key.endswith("_scale"):
+                    continue  # written beside its data leaf
+                rows = src[key][:, 0, row0: row0 + n * bs]
+                rows = rows.reshape(rows.shape[0], n, bs, *rows.shape[2:])
+                skey = f"{key}_scale"
+                if skey in c:
+                    scales = quant.scales_of(rows, self.kv_dtype)
+                    leaf[:, pages] = quant.quantize(rows, scales, self.kv_dtype)
+                    c[skey][:, pages] = scales
+                else:
+                    leaf[:, pages] = rows.to(leaf.dtype)
+
+    def gather(self, slot: int, length: int) -> dict:
+        """``slot``'s first ``pages_for(length)`` pages as a b=1 contiguous
+        cache of ``n_pages * block_size`` rows, dequantized to
+        ``compute_dtype`` over int8/fp8 pools, beside a copy of its per-slot
+        state rows (evict: the page contents travel with the request).
+        Always a copy."""
+        n = self.pages_for(length)
+        assert len(self._owned[slot]) >= n, (slot, length, self._owned[slot])
+        pages = torch.tensor(self._owned[slot][:n], dtype=torch.long, device=self.device)
+        out = {}
+        for name, c in self.pools["blocks"].items():
+            oc = {}
+            for key, leaf in c.items():
+                if key not in PAGED_LEAVES:
+                    oc[key] = leaf[:, slot: slot + 1].clone()
+                    continue
+                if key.endswith("_scale"):
+                    continue  # folded into the dequantized rows
+                g = leaf[:, pages]  # (r, n, bs, hkv, hd), a copy
+                skey = f"{key}_scale"
+                if skey in c:
+                    g = quant.dequantize(g, c[skey][:, pages]).to(self.compute_dtype)
+                oc[key] = g.reshape(g.shape[0], n * self.block_size, *g.shape[3:])[:, None]
+            out[name] = oc
+        return {"blocks": out}
 
     def device_page_table(self) -> torch.Tensor:
         """The host table as an int32 tensor on the pools' device."""

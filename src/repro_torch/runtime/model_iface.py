@@ -8,7 +8,9 @@ never calls the model directly.
   servable      prefill                decode / sharing
   ============  =====================  ===================================
   transformer   fused chunks written   one token or a draft block per
-                straight into pages    tick over the paged pool
+                straight into pages,   tick over the paged pool or the
+                or b=1 streamed        contiguous slot cache
+                chunks, then a scatter
   mamba         b=1 streamed chunks    one recurrence step per tick over
                 over the O(1) SSM      slot state; sharing degrades to
                 state, then a scatter  state snapshots at chunk boundaries
@@ -85,8 +87,11 @@ class ServableModel:
                             kv_dtype=s.kv_dtype, device=self.device)
 
     def init_slot_caches(self, bsz: int) -> dict:
-        """The contiguous slot cache of the batched engine."""
-        return T.init_cache(self.cfg, bsz, self.scfg.max_seq, device=self.device)
+        """The contiguous slot cache of the batched engine: full-length
+        rows (``ring=False``), since the b=1 prefill cache it receives is
+        full length."""
+        return T.init_cache(self.cfg, bsz, self.scfg.max_seq, ring=False,
+                            device=self.device)
 
     def iter_prefill_chunks(self, tokens: torch.Tensor, *, caches=None, pos0: int = 0):
         """The streamed b=1 prefill of one admission (non-fused path)."""
@@ -121,9 +126,10 @@ class ServableModel:
 
 
 class TransformerServable(ServableModel):
-    """Decoder-only transformer over the paged pool: fused prefill chunks
-    and speculative verify (KV writes roll back, so verify-and-truncate is
-    safe)."""
+    """Decoder-only transformer over the paged pool (fused prefill chunks,
+    or a b=1 streamed prefill scattered into pages) or the contiguous slot
+    cache, with speculative verify (KV writes roll back, so
+    verify-and-truncate is safe)."""
 
     def chunk_fn(self) -> Callable:
         """``fn(pools, page_table, tokens, pos0) -> (logits (1, 1, V),
@@ -137,12 +143,12 @@ class TransformerServable(ServableModel):
                                          pos0, unembed=unembed)
         return fn
 
-    def verify_fn(self) -> Callable:
-        """``fn(toks (B, T), pools, page_table, cur, d_len) -> (emit (B, T)
-        int32, n_accept (B,) int32, pools)``: the greedy speculative verify
-        step on the device; the tick fetches only ``emit`` and
-        ``n_accept``."""
-        return spec.make_verifier(self.cfg, self.params, unembed=self.unembed)
+    def verify_fn(self, *, paged: bool) -> Callable:
+        """The greedy speculative verify step on the device (see
+        ``spec.make_verifier`` for both forms); the tick fetches only
+        ``emit`` and ``n_accept``."""
+        return spec.make_verifier(self.cfg, self.params, paged=paged,
+                                  unembed=self.unembed)
 
 
 class MambaServable(ServableModel):

@@ -1,23 +1,25 @@
 """Continuous-batching engine with chunked prefill (reference
-``runtime/serving.py``): paged transformer serving with fused prefill, and
-mamba serving over a contiguous slot cache or beside a paged pool.
-``ServingEngine`` holds the b=1 streamed prefill of one admission.
+``runtime/serving.py``): transformer serving over a contiguous slot cache
+or a paged pool (fused prefill, or scatter-after-prefill), and mamba
+serving over a contiguous slot cache or beside a paged pool.
+``ServingEngine`` holds the b=1 streamed prefill of one admission and
+``generate``, the b=1 greedy oracle.
 
 * **Slots**: ``max_batch`` decode slots share the cache; each carries its
-  own position ``cur``, so rope, the pool write and the attention cut are
+  own position ``cur``, so rope, the cache write and the attention cut are
   per row.  Free slots ride along as padding rows: their table rows point
-  at the trash page, and their slot state advances with garbage that the
-  next admission's scatter overwrites whole.
-* **Admission** (paged): a request's pages are reserved through its first
-  decode write and its table row is shielded.  Its prompt streams in
-  ``prefill_chunk`` pieces; after each chunk is enqueued,
-  ``decode_interleave`` batched decode ticks run for the active slots.
-  Fused (transformers): each chunk's K/V are written straight into its
-  pages (the host row carries the real pages for the chunks).  Non-fused
-  (mamba): the chunks run over a b=1 contiguous cache, optionally resumed
-  from a restored state snapshot, and the cache is scattered into the slot
-  when the prompt is in (``kv.scatter``, or the slot rows of the
-  contiguous cache).  The row is published when the prompt is in.
+  at the trash page, and their rows of the contiguous cache or slot state
+  fill with garbage that the next admission's scatter overwrites whole.
+* **Admission**: a request's prompt streams in ``prefill_chunk`` pieces;
+  after each chunk is enqueued, ``decode_interleave`` batched decode ticks
+  run for the active slots.  Paged: its pages are reserved through its
+  first decode write and its table row is shielded until the prompt is in.
+  Fused (paged transformers by default): each chunk's K/V are written
+  straight into its pages (the host row carries the real pages for the
+  chunks).  Otherwise the chunks run over a b=1 contiguous cache (mamba:
+  optionally resumed from a restored state snapshot), which is scattered
+  into the slot when the prompt is in (``kv.scatter`` into pages, or the
+  slot's rows of the contiguous cache).
 * **Decode tick**: fault in each active slot's write page, one batched
   greedy step on the device, and exactly one device-to-host copy — the
   ``(B,)`` int32 picks.
@@ -30,9 +32,13 @@ mamba serving over a contiguous slot cache or beside a paged pool.
   plain ticks' by construction.
 * **Quantized pages** (``kv_dtype`` "int8" / "fp8"): the pool stores codes
   and per-(page, kv head) scales; see ``kernels/quant``.
-* **Backpressure**: a request waits in the queue (FIFO) until the free
-  list holds its pages.  Preemption under page pressure is not ported: the
-  tick raises where the reference would preempt.
+* **Backpressure and preemption** (paged): a request waits in the queue
+  (FIFO) until the free list holds its pages.  When a tick cannot fault
+  in a slot's write page, the youngest other slot is evicted (its pages
+  gathered into a b=1 cache, then freed) and waits to be readmitted
+  (scattered back) before any new admission; with no other victim the
+  faulting slot evicts itself.  ``submit`` rejects a request that could
+  not finish alone in the pool, so every request finishes.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import quant
 from repro_torch.models import transformer as T
 from repro_torch.runtime import spec
-from repro_torch.runtime.kv_cache import scatter_slot_state
+from repro_torch.runtime.kv_cache import gather_slot_state, scatter_slot_state
 
 # Reference ServeConfig features outside the port so far: field -> (the value
 # the port supports, the ROADMAP item that ports the rest).
@@ -75,10 +81,9 @@ class ServeConfig:
     spec_decode: bool = False
     spec_k: int = 4  # draft tokens proposed per verify step
     spec_ngram: int = 3  # longest n-gram the default prompt-lookup matches
-    # Paged pool (the port's default; the reference defaults to contiguous).
-    # Transformers serve paged only: the contiguous attention cache is not
-    # ported yet.
-    paged: bool = True
+    # Page the batched cache (kv_cache.PagedKVCache); else one contiguous
+    # cache of max_seq rows per slot (the reference's default).
+    paged: bool = False
     # Write prefill K/V straight into pool pages; None = on for paged
     # transformers, off elsewhere (resolved by validate_arch).
     fused_prefill: bool | None = None
@@ -152,15 +157,6 @@ class ServeConfig:
                     "fused_prefill routes prefill K/V through the decoder page table; "
                     f"arch_kind={kind!r} prefills through arch-specific caches — leave "
                     "fused_prefill unset")
-        if kind == "transformer":
-            if not self.paged:
-                raise NotImplementedError(
-                    "ServeConfig.paged=False for a transformer is not ported yet (the "
-                    "port serves transformers paged): ROADMAP, the contiguous cache path")
-            if self.fused_prefill is False:
-                raise NotImplementedError(
-                    "ServeConfig.fused_prefill=False for a transformer is not ported yet "
-                    "(scatter-after-prefill): ROADMAP, the contiguous cache path")
         if self.fused_prefill is None:
             # The fused path exists only for the transformer prefill chain
             # over a paged pool.
@@ -173,7 +169,8 @@ class ServeConfig:
 
 class ServingEngine:
     """The b=1 streamed prefill of one admission (the reference's
-    ``ServingEngine.iter_prefill_chunks``) over a contiguous cache."""
+    ``ServingEngine.iter_prefill_chunks``) over a contiguous cache, and
+    ``generate``, the one-request-at-a-time greedy decode after it."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device, unembed):
         self.cfg, self.params, self.scfg, self.device = cfg, params, scfg, device
@@ -191,7 +188,9 @@ class ServingEngine:
         b, s = tokens.shape
         if caches is None:
             assert pos0 == 0, "a continued prefill needs its context cache"
-            caches = T.init_cache(cfg, b, self.scfg.max_seq, device=self.device)
+            # The streamed prefill needs full-length caches (no SWA ring).
+            caches = T.init_cache(cfg, b, self.scfg.max_seq, ring=False,
+                                  device=self.device)
         chunk = min(self.scfg.prefill_chunk, pos0 + s)
         pos = pos0
         for lo in range(0, s, chunk):
@@ -201,6 +200,28 @@ class ServingEngine:
                                                  unembed=unembed)
             pos += piece.shape[1]
             yield logits, caches, pos
+
+    def generate(self, tokens) -> torch.Tensor:
+        """Greedy decode of ``max_new_tokens`` after a streamed prefill of
+        ``tokens`` (B, S) (reference ``ServingEngine.generate``, greedy):
+        every row at one position, one decode step a token over the
+        contiguous cache, the pick on the device.  Returns (B,
+        max_new_tokens) int32 on the engine's device."""
+        tokens = torch.as_tensor(np.asarray(tokens, np.int32)).to(self.device)
+        logits = caches = None
+        pos = 0
+        for logits, caches, pos in self.iter_prefill_chunks(tokens):
+            pass
+        nxt = T.sample_tokens(logits[:, -1])
+        out = [nxt]
+        b = tokens.shape[0]
+        with torch.inference_mode():
+            for i in range(self.scfg.max_new_tokens - 1):
+                cur = torch.full((b,), pos + i, dtype=torch.int32, device=self.device)
+                nxt, caches = T.decode_and_sample(self.cfg, self.params, nxt[:, None],
+                                                  caches, cur, unembed=self.unembed)
+                out.append(nxt)
+        return torch.stack(out, dim=1)
 
 
 @dataclasses.dataclass
@@ -221,6 +242,8 @@ class _Slot:
     pending: int = 0  # last sampled token (next decode input)
     emitted: list[int] = dataclasses.field(default_factory=list)
     max_new: int = 0
+    seq: int = 0  # admission order (the youngest is preempted first)
+    evictions: int = 0  # times this request was evicted mid-decode
 
     @property
     def free(self) -> bool:
@@ -229,6 +252,25 @@ class _Slot:
     @property
     def done(self) -> bool:
         return self.uid is not None and len(self.emitted) >= self.max_new
+
+
+@dataclasses.dataclass
+class EvictedRequest:
+    """A request pulled out of its slot: its cache rows and positions,
+    ready to readmit into any free slot.  (The reference also carries the
+    latency fields ``ttft_s``, ``t_last`` and ``itl_max``; they come with
+    the observability wiring, ROADMAP A8.)"""
+
+    uid: int
+    caches: dict  # b=1 cache: max_seq rows (contiguous), or the gathered pages
+    cur: int
+    pending: int
+    emitted: list[int]
+    max_new: int
+    n_pages: int = 0  # pages gathered (0 = contiguous eviction)
+    seq: int = 0  # original admission order, restored on readmit
+    prompt: np.ndarray | None = None  # the drafter's corpus
+    evictions: int = 0
 
 
 class StreamedBatchEngine:
@@ -255,13 +297,17 @@ class StreamedBatchEngine:
             self.caches = self.servable.init_slot_caches(scfg.max_batch)
         self.slots = [_Slot(index=i) for i in range(scfg.max_batch)]
         self.queue: collections.deque[Request] = collections.deque()
+        # page-pressure victims waiting to be readmitted (before new admissions)
+        self._preempted: collections.deque[EvictedRequest] = collections.deque()
         self.outputs: dict[int, np.ndarray] = {}
         self._next_uid = 0
+        self._admit_seq = 0
         self._chunk = self.servable.chunk_fn() if scfg.fused_prefill else None
         self._decode = self.servable.decode_fn(paged=self.paged)
         self.decode_steps = 0  # batched decode ticks run (plain and verify)
         self.prefill_chunks = 0  # prompt chunks run
         self.admissions = 0
+        self.preemptions = 0  # evictions for page pressure
         self.peak_active = 0  # most requests resident at once
         self.snapshot_hits = 0  # admissions that restored an SSM-state snapshot
         self.snapshot_tokens_reused = 0  # prompt tokens never re-prefilled
@@ -273,7 +319,7 @@ class StreamedBatchEngine:
         if scfg.spec_decode:
             self.drafter = (drafter if drafter is not None
                             else spec.NGramDrafter(max_n=scfg.spec_ngram))
-            self._verify = self.servable.verify_fn()
+            self._verify = self.servable.verify_fn(paged=self.paged)
 
     # -- queue -------------------------------------------------------------------
 
@@ -290,6 +336,8 @@ class StreamedBatchEngine:
                 f"prompt {len(tokens)} + max_new {max_new} exceeds max_seq "
                 f"{self.scfg.max_seq}")
         if self.paged:
+            # A request must be able to finish alone in the pool: the progress
+            # guarantee behind backpressure and preemption.
             worst = self.kv.pages_for(len(tokens) + max_new)
             if worst > self.kv.allocator.capacity:
                 raise ValueError(
@@ -306,7 +354,7 @@ class StreamedBatchEngine:
 
     @property
     def pending(self) -> bool:
-        return bool(self.queue) or bool(self.active_slots)
+        return bool(self.queue) or bool(self.active_slots) or bool(self._preempted)
 
     # -- admission ---------------------------------------------------------------
 
@@ -337,6 +385,9 @@ class StreamedBatchEngine:
         slot.pending = first
         slot.emitted = [first]
         slot.max_new = req.max_new_tokens
+        slot.seq = self._admit_seq
+        slot.evictions = 0
+        self._admit_seq += 1
         self.admissions += 1
         self.peak_active = max(self.peak_active, len(self.active_slots))
         self._on_admit_logits(req.uid, logits[0, -1])
@@ -372,11 +423,12 @@ class StreamedBatchEngine:
         return logits, pos
 
     def _streamed_prefill(self, req: Request, slot: _Slot) -> tuple[torch.Tensor, int]:
-        """The b=1 streamed prefill (non-fused archs): restore the longest
-        stored state snapshot of the prompt (if any) and stream the rest,
-        offering each chunk boundary for a snapshot; then overwrite the
-        slot's rows whole with the b=1 cache (padding ticks advanced them
-        with garbage).  Returns (last logits, prompt length)."""
+        """The b=1 streamed prefill (non-fused paths): restore the longest
+        stored state snapshot of the prompt (if any, mamba) and stream the
+        rest, offering each chunk boundary for a snapshot; then scatter the
+        b=1 cache into the slot's pages, or overwrite its rows of the
+        contiguous cache whole (padding ticks filled them with garbage).
+        Returns (last logits, prompt length)."""
         shared_len, caches = self.servable.lookup_snapshot(req.tokens)
         if shared_len:
             self.snapshot_hits += 1
@@ -410,15 +462,32 @@ class StreamedBatchEngine:
 
     # -- decode ------------------------------------------------------------------
 
+    def _preempt_for_pages(self, protect: frozenset[int]) -> bool:
+        """Evict the youngest active slot (by admission order) outside
+        ``protect`` to the preempted queue, freeing its pages.  False =
+        nobody to preempt."""
+        victims = [s for s in self.active_slots if s.index not in protect]
+        if not victims:
+            return False
+        victim = max(victims, key=lambda s: s.seq)
+        self._preempted.append(self.evict(victim.uid))
+        self.preemptions += 1
+        return True
+
     def _fault_base_positions(self) -> None:
-        """Make each active slot's write position resident.  Where the
-        reference would preempt a slot for pages, the port raises."""
-        for s in self.active_slots:
-            if not self.kv.ensure_write(s.index, s.cur):
-                raise NotImplementedError(
-                    f"page pool exhausted at slot {s.index}: preemption "
-                    "(evict / readmit) is not ported yet: ROADMAP, evict, "
-                    "readmit and preemption")
+        """Lazy page fault: make each active slot's write position resident,
+        oldest first, preempting the youngest other slots while the pool is
+        dry.  With no other victim left (the rest of the pool may be an
+        admission's reserved pages) the faulting slot preempts itself and
+        waits for pages.  Shared by the plain and the speculative tick."""
+        for s in sorted(self.active_slots, key=lambda s: s.seq):
+            if s.uid is None:
+                continue  # preempted earlier in this loop
+            while not self.kv.ensure_write(s.index, s.cur):
+                if not self._preempt_for_pages(frozenset({s.index})):
+                    self._preempted.append(self.evict(s.uid))
+                    self.preemptions += 1
+                    break
 
     def _decode_tick(self) -> None:
         """One decode tick: speculative (draft + batched verify) when
@@ -476,7 +545,8 @@ class StreamedBatchEngine:
         pages of rejected positions go back (``kv.truncate``).  A tick with
         no draft at all runs the plain tick instead."""
         k = self.scfg.spec_k
-        self._fault_base_positions()
+        if self.paged:
+            self._fault_base_positions()
         act = self.active_slots
         if not act:
             return
@@ -493,12 +563,13 @@ class StreamedBatchEngine:
                 draft = np.asarray(self.drafter.propose(
                     np.concatenate([s.prompt, np.asarray(s.emitted, np.int32)]),
                     budget), np.int32)[:budget]
-            have = draft.size
-            for pos in range(s.cur + 1, s.cur + draft.size + 1):
-                if not self.kv.ensure_write(s.index, pos):
-                    have = pos - s.cur - 1
-                    break
-            draft = draft[:have]
+            if self.paged:
+                have = draft.size
+                for pos in range(s.cur + 1, s.cur + draft.size + 1):
+                    if not self.kv.ensure_write(s.index, pos):
+                        have = pos - s.cur - 1
+                        break
+                draft = draft[:have]
             if draft.size:
                 toks[s.index, 1: 1 + draft.size] = draft
                 d_len[s.index] = draft.size
@@ -509,9 +580,12 @@ class StreamedBatchEngine:
             self._plain_tick()
             return
         dev = self.device
-        emit, n_accept, self.kv.pools = self._verify(
-            torch.from_numpy(toks).to(dev), self.kv.pools, self.kv.device_page_table(),
-            torch.from_numpy(cur).to(dev), torch.from_numpy(d_len).to(dev))
+        toks_d, cur_d, d_len_d = (torch.from_numpy(a).to(dev) for a in (toks, cur, d_len))
+        if self.paged:
+            emit, n_accept, self.kv.pools = self._verify(
+                toks_d, self.kv.pools, self.kv.device_page_table(), cur_d, d_len_d)
+        else:
+            emit, n_accept, self.caches = self._verify(toks_d, self.caches, cur_d, d_len_d)
         self.decode_steps += 1
         self.spec_ticks += 1
         # The tick's one device-to-host copy: (B, k+1) emitted tokens and
@@ -524,30 +598,102 @@ class StreamedBatchEngine:
             s.cur += n + 1
             s.pending = new[-1]
             s.emitted.extend(new)
-            self.kv.truncate(s.index, s.cur)
+            if self.paged:
+                # Rollback: pages faulted for rejected draft positions go back.
+                self.kv.truncate(s.index, s.cur)
             self._reap(s)
 
     # -- scheduling --------------------------------------------------------------
 
     def step(self) -> None:
-        """Admit queued requests into free slots while their pages fit,
-        else run one decode tick."""
+        """One scheduling quantum: readmit page-pressure victims while their
+        pages through the next write fit, admit queued requests into free
+        slots while their pages fit (FIFO, no overtaking), else run one
+        decode tick."""
         progressed = False
+        if self.paged:
+            # Gate on cur + 1: the next tick writes at position cur, so a
+            # page-aligned cur needs one more page than the snapshot holds.
+            while self._preempted and any(s.free for s in self.slots):
+                if self.kv.pages_for(self._preempted[0].cur + 1) > self.kv.free_pages:
+                    break
+                self.readmit(self._preempted.popleft())
+                progressed = True
         free = [s for s in self.slots if s.free]
         while self.queue and free and (not self.paged
                                        or self._admission_fits(self.queue[0])):
             self._admit(self.queue.popleft(), free.pop(0))
             progressed = True
         if not progressed:
-            if not self.active_slots:
-                raise RuntimeError(  # submit() rules this out; never spin
-                    "queued request cannot be admitted into an idle pool")
             self._decode_tick()
 
     def run(self) -> dict[int, np.ndarray]:
-        """Drain the queue and all active slots; returns uid -> tokens for
-        the requests finished since the last ``run``."""
+        """Drain the queue, the preempted requests and all active slots;
+        returns uid -> tokens for the requests finished since the last
+        ``run``."""
         while self.pending:
+            before = (len(self.queue), len(self._preempted), self.decode_steps)
             self.step()
+            if not self.active_slots and before == (
+                    len(self.queue), len(self._preempted), self.decode_steps):
+                raise RuntimeError(  # submit() rules this out; never spin
+                    "a waiting request cannot be admitted into an idle pool")
         done, self.outputs = self.outputs, {}
         return done
+
+    # -- eviction / readmission ----------------------------------------------------
+
+    def evict(self, uid: int) -> EvictedRequest:
+        """Pull request ``uid`` out of its slot with its cache rows and
+        positions.  Paged: its pages are gathered into a b=1 cache (their
+        contents travel with the request) and freed.  Contiguous: a copy of
+        its slot rows."""
+        slot = next((s for s in self.slots if s.uid == uid), None)
+        if slot is None:
+            raise KeyError(f"uid {uid} not active")
+        if self.paged:
+            caches = self.kv.gather(slot.index, slot.cur)
+            n_pages = self.kv.pages_for(slot.cur)
+            self.kv.release(slot.index)
+        else:
+            caches = gather_slot_state(self.caches, slot.index)
+            n_pages = 0
+        ev = EvictedRequest(uid=uid, caches=caches, cur=slot.cur, pending=slot.pending,
+                            emitted=list(slot.emitted), max_new=slot.max_new,
+                            n_pages=n_pages, seq=slot.seq, prompt=slot.prompt,
+                            evictions=slot.evictions + 1)
+        slot.uid = None
+        slot.emitted = []
+        slot.prompt = None
+        return ev
+
+    def readmit(self, ev: EvictedRequest) -> int:
+        """Write an evicted request back into any free slot; its positions
+        are kept, so decode resumes where it stopped.  Paged: pages through
+        the next write (``cur + 1``) are allocated first; ``RuntimeError``
+        when the pool is short.  Returns the slot index."""
+        slot = next((s for s in self.slots if s.free), None)
+        if slot is None:
+            raise RuntimeError("no free slot to readmit into")
+        if self.paged:
+            if not self.kv.alloc(slot.index, ev.cur + 1):
+                raise RuntimeError(
+                    f"not enough free pages to readmit uid {ev.uid} (need "
+                    f"{self.kv.pages_for(ev.cur + 1)}, free {self.kv.free_pages})")
+            # The reference re-maps a registered prompt prefix here first
+            # (prefix sharing, ROADMAP A3); without it every page is scattered.
+            self.kv.scatter(slot.index, ev.caches, ev.cur, start_page=0)
+        else:
+            scatter_slot_state(self.caches, ev.caches, slot.index)
+        slot.uid = ev.uid
+        slot.cur = ev.cur
+        slot.pending = ev.pending
+        slot.emitted = list(ev.emitted)
+        slot.max_new = ev.max_new
+        slot.prompt = ev.prompt
+        slot.evictions = ev.evictions
+        # The original admission order: a fresh seq would make every
+        # readmitted request the youngest, the next victim (thrash).
+        slot.seq = ev.seq
+        self.peak_active = max(self.peak_active, len(self.active_slots))
+        return slot.index

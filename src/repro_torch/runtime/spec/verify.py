@@ -2,7 +2,8 @@
 
 One target step scores ``k + 1`` positions per slot — the pending token
 plus up to ``k`` draft tokens — through
-``transformer.decode_step_multi_paged`` (causal masking inside the block),
+``transformer.decode_step_multi_paged`` or, over a contiguous cache,
+``transformer.decode_step_multi`` (causal masking inside the block),
 then applies the greedy acceptance rule on the device: accept the longest
 prefix of the draft that matches the target argmax chain; the position
 after it emits the target's own argmax (the bonus token).  By induction
@@ -47,17 +48,27 @@ def verify_greedy(
     return target, greedy_accept(target, draft, d_len)
 
 
-def make_verifier(cfg, params, *, unembed: torch.Tensor) -> Callable:
-    """The engine's verify step over the paged pool (the contiguous cache
-    is not ported), ``fn(toks (B, T), pools, page_table, cur, d_len) ->
-    (emit (B, T) int32, n_accept (B,) int32, pools)``.  ``toks[:, 0]`` is
-    each slot's pending token, ``toks[:, 1:]`` its draft (zero past
-    ``d_len``)."""
+def make_verifier(cfg, params, *, paged: bool, unembed: torch.Tensor) -> Callable:
+    """The engine's verify step, greedy (reference ``spec.make_verifier``):
 
-    @torch.inference_mode()
-    def fn(toks, pools, page_table, cur, d_len):
-        logits, pools = T.decode_step_multi_paged(cfg, params, toks, pools, page_table,
-                                                  cur, unembed=unembed)
-        emit, n_accept = verify_greedy(logits, toks[:, 1:], d_len)
-        return emit, n_accept, pools
+      paged:      ``fn(toks (B, T), pools, page_table, cur, d_len)``
+      contiguous: ``fn(toks (B, T), caches, cur, d_len)``
+
+    each returning ``(emit (B, T) int32, n_accept (B,) int32, caches)``.
+    ``toks[:, 0]`` is each slot's pending token, ``toks[:, 1:]`` its draft
+    (zero past ``d_len``)."""
+    if paged:
+        @torch.inference_mode()
+        def fn(toks, pools, page_table, cur, d_len):
+            logits, pools = T.decode_step_multi_paged(cfg, params, toks, pools, page_table,
+                                                      cur, unembed=unembed)
+            emit, n_accept = verify_greedy(logits, toks[:, 1:], d_len)
+            return emit, n_accept, pools
+    else:
+        @torch.inference_mode()
+        def fn(toks, caches, cur, d_len):
+            logits, caches = T.decode_step_multi(cfg, params, toks, caches, cur,
+                                                 unembed=unembed)
+            emit, n_accept = verify_greedy(logits, toks[:, 1:], d_len)
+            return emit, n_accept, caches
     return fn

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card: each against its plain version, and
-the engine on the card against the engine on the CPU.  Every test carries
+the engine (paged, contiguous, scatter-after-prefill, under page pressure)
+on the card against the engine on the CPU.  Every test carries
 the ``cuda`` marker and skips without a card.  The file imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -316,7 +317,7 @@ def test_engine_on_card_matches_cpu(cuda):
     cfg = configs.get_smoke_config("qwen3-4b")
     params = T.init_params(cfg, 0, device="cpu")
     scfg = serving.ServeConfig(max_seq=48, prefill_chunk=16, max_new_tokens=6,
-                               max_batch=2, block_size=8)
+                               max_batch=2, block_size=8, paged=True)
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (24, 17, 40, 9, 33)]
@@ -344,7 +345,7 @@ def test_spec_and_quantized_engines_on_card_match_cpu(cuda, extra):
     cfg = configs.get_smoke_config("qwen3-4b")
     params = T.init_params(cfg, 0, device="cpu")
     scfg = serving.ServeConfig(max_seq=48, prefill_chunk=16, max_new_tokens=10,
-                               max_batch=2, block_size=8, **extra)
+                               max_batch=2, block_size=8, paged=True, **extra)
     rng = np.random.default_rng(3)
     prompts = [np.tile(rng.integers(0, cfg.vocab_size, n), 3).astype(np.int32)
                for n in (6, 5, 8, 4)]
@@ -362,6 +363,65 @@ def test_spec_and_quantized_engines_on_card_match_cpu(cuda, extra):
 
 def _to(v, dev):
     return {k: _to(x, dev) for k, x in v.items()} if isinstance(v, dict) else v.to(dev)
+
+
+def _serve_both(cfg, params, scfg, prompts, cuda):
+    """Serve ``prompts`` on the CPU and on the card; returns {device:
+    (engine, tokens per prompt, prefill-kernel launches)}."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else {k: _to(v, cuda) for k, v in params.items()}
+        eng = serving.StreamedBatchEngine(cfg, p, serving.ServeConfig(**scfg), device=dev)
+        n0 = FA.KERNEL.launches
+        uids = [eng.submit(t) for t in prompts]
+        got = eng.run()
+        out[dev] = (eng, [got[u] for u in uids], FA.KERNEL.launches - n0)
+        if eng.paged:
+            assert eng.kv.pages_in_use == 0
+            eng.kv.check_invariants()
+    return out
+
+
+@pytest.mark.parametrize("extra", [dict(paged=False),
+                                   dict(paged=False, spec_decode=True, spec_k=3),
+                                   dict(paged=True, fused_prefill=False)], ids=str)
+def test_contiguous_engines_on_card_match_cpu(cuda, extra):
+    """Smoke qwen3-4b over the contiguous slot cache (plain and with spec
+    decode) and over pages filled by scatter-after-prefill, on the card
+    and on the CPU: greedy tokens identical per request, and every prefill
+    chunk on the card through the prefill kernel (once a layer)."""
+    cfg = configs.get_smoke_config("qwen3-4b")
+    params = T.init_params(cfg, 0, device="cpu")
+    scfg = dict(max_seq=48, prefill_chunk=16, max_new_tokens=10, max_batch=2,
+                block_size=8, **extra)
+    rng = np.random.default_rng(3)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, n), 3).astype(np.int32)
+               for n in (6, 5, 8, 4)]
+    out = _serve_both(cfg, params, scfg, prompts, cuda)
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        np.testing.assert_array_equal(a, b)
+    eng, _, launches = out["cuda"]
+    assert launches == cfg.n_layers * eng.prefill_chunks > 0
+    assert eng.spec_accepted == out["cpu"][0].spec_accepted
+
+
+def test_pressured_paged_engine_on_card_equals_unpressured(cuda):
+    """A pool too small for both slots' growth preempts on the card as on
+    the CPU (same count), and evict / readmit (a gather and a scatter of
+    f32 pages, exact copies) leave the tokens of the unpressured serve."""
+    cfg = configs.get_smoke_config("qwen3-4b")
+    params = T.init_params(cfg, 0, device="cpu")
+    scfg = dict(max_seq=64, prefill_chunk=16, max_new_tokens=32, max_batch=2,
+                block_size=16, paged=True)
+    rng = np.random.default_rng(73)
+    prompts = [rng.integers(0, cfg.vocab_size, 32).astype(np.int32) for _ in range(2)]
+    free = _serve_both(cfg, params, scfg, prompts, cuda)
+    tight = _serve_both(cfg, params, dict(scfg, num_blocks=8), prompts, cuda)
+    assert tight["cuda"][0].preemptions == tight["cpu"][0].preemptions >= 1
+    assert free["cuda"][0].preemptions == 0
+    for a, b, c in zip(tight["cuda"][1], tight["cpu"][1], free["cuda"][1]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
 
 
 SSD_CASES = [dict(b=1, s=64, chunk=256), dict(b=1, s=36, chunk=256),

@@ -84,7 +84,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
         bridge.params_from_numpy(numpy_tree, cfg)
     assert bridge.params_from_numpy(numpy_tree, cfg, device="cpu")["embed"].device.type == "cpu"
     scfg = serving.ServeConfig(max_seq=32, prefill_chunk=8, max_new_tokens=2,
-                               max_batch=2, block_size=8)
+                               max_batch=2, block_size=8, paged=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serving.StreamedBatchEngine(cfg, params, scfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):

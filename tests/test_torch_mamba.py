@@ -294,8 +294,10 @@ def test_caches_match_reference_layout(smoke):
                 assert str(port["blocks"][name][k].dtype).removeprefix("torch.") == \
                     np.dtype(v.dtype).name
                 assert not port["blocks"][name][k].any()
-    with pytest.raises(NotImplementedError, match="contiguous cache path"):
-        PT.init_cache(PC.get_smoke_config("qwen3-4b"), 2, 32, device="cpu")
+    # Attention rows are ported too: (r, bsz, max_seq, n_kv_heads, head_dim).
+    qcfg = PC.get_smoke_config("qwen3-4b")
+    k = PT.init_cache(qcfg, 2, 32, device="cpu")["blocks"]["layer0"]["k"]
+    assert tuple(k.shape) == (qcfg.n_repeats, 2, 32, qcfg.n_kv_heads, qcfg.head_dim)
 
 
 def test_pool_scatter_overwrites_slot_state_whole(smoke):

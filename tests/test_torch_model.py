@@ -217,11 +217,17 @@ def test_attention_fused_prefill_matches_reference(smoke, s, q_offset):
 
 
 def test_attention_rejects_unported_paths(smoke):
-    _, pcfg, _, params = smoke
-    pp = PT._at(params["blocks"]["layer0"]["mixer"], 0)
-    x = torch.zeros((1, 2, pcfg.d_model))
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        PA.attention_apply(pp, x, **_attn_kw(pcfg))
+    """Attention without any cache (the reference's no-cache branch) is
+    ported and matches; an unknown pool type still raises."""
+    rcfg, pcfg, tree, params = smoke
+    pr, pp = _mixer(tree, params)
+    x = np.random.default_rng(9).standard_normal((2, 5, pcfg.d_model)).astype(np.float32)
+    pos = np.arange(5)
+    out_r, c_r = RA.attention_apply(_j(pr), jnp.asarray(x), positions=jnp.asarray(pos),
+                                    chunk=rcfg.attn_chunk, **_attn_kw(rcfg))
+    out_p, c_p = PA.attention_apply(pp, _t(x), positions=_t(pos), **_attn_kw(pcfg))
+    assert c_r is None and c_p is None
+    np.testing.assert_allclose(out_p.numpy(), np.asarray(out_r), **TOL)
     with pytest.raises(ValueError, match="kv_dtype"):
         PT.init_paged_cache(pcfg, 2, 4, 8, "int4", device="cpu")
 

@@ -62,7 +62,7 @@ def test_engine_matches_reference_greedy(setup):
 
     eng = PS.StreamedBatchEngine(
         pcfg, bridge.params_from_numpy(tree, pcfg, device="cpu"),
-        PS.ServeConfig(**kw), device="cpu")
+        PS.ServeConfig(paged=True, **kw), device="cpu")
     p_uids = [eng.submit(p) for p in prompts]
     got = eng.run()
     for ru, pu in zip(r_uids, p_uids):
@@ -79,10 +79,12 @@ QUANT_FLOOR = 0.5
 
 
 def test_engine_rejects_unported_features():
-    for bad in (dict(paged=False, arch_kind="transformer"), dict(temperature=0.5),
-                dict(prefix_sharing=True), dict(spec_decode=True, temperature=0.5)):
+    for bad in (dict(temperature=0.5), dict(prefix_sharing=True),
+                dict(spec_decode=True, temperature=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PS.ServeConfig(**bad)
+    # The contiguous cache is ported: the reference's default serves.
+    assert PS.ServeConfig(paged=False, arch_kind="transformer").fused_prefill is False
     with pytest.raises(NotImplementedError, match="temperature sampling"):
         PS.ServeConfig(spec_decode=True, temperature=0.5)
     with pytest.raises(ValueError, match="kv_dtype"):
@@ -103,8 +105,8 @@ def test_quantized_engine_agrees_with_reference(setup, extra):
     r_uids = [ref.submit(p) for p in prompts]
     want = ref.run()
     eng = PS.StreamedBatchEngine(
-        pcfg, bridge.params_from_numpy(tree, pcfg, device="cpu"), PS.ServeConfig(**kw),
-        device="cpu")
+        pcfg, bridge.params_from_numpy(tree, pcfg, device="cpu"),
+        PS.ServeConfig(paged=True, **kw), device="cpu")
     p_uids = [eng.submit(p) for p in prompts]
     got = eng.run()
     agree = float(np.mean([np.mean(got[pu] == want[ru]) for pu, ru in zip(p_uids, r_uids)]))
@@ -116,17 +118,26 @@ def test_quantized_engine_agrees_with_reference(setup, extra):
 
 
 def test_engine_raises_instead_of_preempting(setup):
-    """A pool too small for both slots' growth: the reference would preempt;
-    the port raises naming the ROADMAP item."""
-    _, pcfg, tree, _ = setup
+    """A pool too small for both slots' growth: the port preempts, as the
+    reference does, and both requests finish with the JAX engine's tokens
+    and preemption count."""
+    rcfg, pcfg, tree, _ = setup
+    kw = dict(max_seq=32, prefill_chunk=8, max_new_tokens=16, max_batch=2, block_size=8,
+              num_blocks=5, paged=True)
+    ref = RS.StreamedBatchEngine(rcfg, jax.tree.map(jax.numpy.asarray, tree),
+                                 RS.ServeConfig(**kw))
     eng = PS.StreamedBatchEngine(
-        pcfg, bridge.params_from_numpy(tree, pcfg, device="cpu"),
-        PS.ServeConfig(max_seq=32, prefill_chunk=8, max_new_tokens=16,
-                       max_batch=2, block_size=8, num_blocks=5), device="cpu")
-    for n in (8, 8):
-        eng.submit(np.arange(n, dtype=np.int32))
-    with pytest.raises(NotImplementedError, match="preemption"):
-        eng.run()
+        pcfg, bridge.params_from_numpy(tree, pcfg, device="cpu"), PS.ServeConfig(**kw),
+        device="cpu")
+    prompts = [np.arange(n, dtype=np.int32) for n in (8, 8)]
+    r_uids = [ref.submit(p) for p in prompts]
+    p_uids = [eng.submit(p) for p in prompts]
+    want, got = ref.run(), eng.run()
+    for ru, pu in zip(r_uids, p_uids):
+        np.testing.assert_array_equal(got[pu], want[ru])
+    assert eng.preemptions == ref.preemptions >= 1
+    assert eng.kv.pages_in_use == 0
+    eng.kv.check_invariants()
 
 
 def test_launcher_runs_on_cpu(capsys):
@@ -148,6 +159,12 @@ def test_launcher_runs_spec_decode_over_int8_pages(capsys):
     assert "kv_dtype=int8" in out and "page_bytes=" in out
 
 
-def test_launcher_requires_paged():
-    with pytest.raises(SystemExit):
-        pserve.main(["--device", "cpu"])
+def test_launcher_requires_paged(capsys):
+    """Without ``--paged`` a transformer now serves over the contiguous
+    slot cache (the reference's default) instead of exiting."""
+    pserve.main(["--device", "cpu", "--requests", "2", "--prompt-len", "12",
+                 "--new-tokens", "3", "--prefill-chunk", "8", "--block-size", "8",
+                 "--max-batch", "2"])
+    out = capsys.readouterr().out
+    assert "contiguous slot cache" in out
+    assert "2 requests x 12 prompt -> 3 new tokens each" in out

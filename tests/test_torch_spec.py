@@ -88,7 +88,7 @@ def _kw(**extra):
 def _port(setup, prompts, drafter=None, **extra):
     _, pcfg, tree, _ = setup
     eng = PS.StreamedBatchEngine(pcfg, bridge.params_from_numpy(tree, pcfg, device="cpu"),
-                                 PS.ServeConfig(**_kw(**extra)), device="cpu",
+                                 PS.ServeConfig(paged=True, **_kw(**extra)), device="cpu",
                                  drafter=drafter)
     uids = [eng.submit(p) for p in prompts]
     out = eng.run()

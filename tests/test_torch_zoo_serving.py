@@ -115,33 +115,43 @@ def test_snapshots_are_host_copies(setup):
 def test_mamba_rejects_reference_rejections(setup, bad):
     _, pcfg, tree = setup
     with pytest.raises(NotImplementedError):
-        PS.ServeConfig(**KW, arch_kind="mamba", **bad)
+        PS.ServeConfig(**KW, paged=True, arch_kind="mamba", **bad)
     params = bridge.params_from_numpy(tree, pcfg, device="cpu")
     with pytest.raises(NotImplementedError):
-        PS.StreamedBatchEngine(pcfg, params, PS.ServeConfig(**KW, **bad), device="cpu")
+        PS.StreamedBatchEngine(pcfg, params, PS.ServeConfig(**KW, paged=True, **bad),
+                               device="cpu")
 
 
 def test_flag_rules_per_arch():
-    # A transformer still serves paged only, fused.
-    with pytest.raises(NotImplementedError, match="contiguous cache path"):
-        PS.ServeConfig(paged=False, arch_kind="transformer")
-    with pytest.raises(NotImplementedError, match="contiguous cache path"):
-        PS.ServeConfig(fused_prefill=False, arch_kind="transformer")
+    # A transformer serves contiguously (the default) or paged, fused or not.
+    assert PS.ServeConfig(paged=False, arch_kind="transformer").fused_prefill is False
+    assert PS.ServeConfig(paged=True, fused_prefill=False,
+                          arch_kind="transformer").fused_prefill is False
     with pytest.raises(ValueError, match="mamba only"):
         PS.ServeConfig(state_snapshots=True, arch_kind="transformer")
     with pytest.raises(ValueError, match="paged=True"):
         PS.ServeConfig(paged=False, kv_dtype="int8")
     with pytest.raises(ValueError, match="paged=True"):
         PS.ServeConfig(paged=False, fused_prefill=True)
-    assert PS.ServeConfig(arch_kind="transformer").fused_prefill is True
-    assert PS.ServeConfig(arch_kind="mamba").fused_prefill is False
+    assert PS.ServeConfig(paged=True, arch_kind="transformer").fused_prefill is True
+    assert PS.ServeConfig(arch_kind="transformer").fused_prefill is False
+    assert PS.ServeConfig(paged=True, arch_kind="mamba").fused_prefill is False
     assert PS.ServeConfig(paged=False, arch_kind="mamba").fused_prefill is False
 
 
 def test_transformer_engine_still_rejects_the_contiguous_path():
+    """The transformer engine now builds over the contiguous slot cache:
+    full-length K/V rows per slot, no pool."""
+    from repro_torch.models import transformer as PT
     cfg = PC.get_smoke_config("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="contiguous cache path"):
-        PS.StreamedBatchEngine(cfg, {}, PS.ServeConfig(paged=False), device="cpu")
+    params = PT.init_params(cfg, 0, device="cpu")
+    eng = PS.StreamedBatchEngine(cfg, params, PS.ServeConfig(paged=False, max_seq=32),
+                                 device="cpu")
+    assert eng.kv is None and not eng.scfg.fused_prefill
+    assert tuple(eng.caches["blocks"]["layer0"]["k"].shape) == (
+        cfg.n_repeats, 4, 32, cfg.n_kv_heads, cfg.head_dim)
+    eng.submit(np.arange(5, dtype=np.int32), max_new_tokens=2)
+    assert len(eng.run()[0]) == 2
 
 
 def test_arch_kinds_match_reference():
