@@ -5,8 +5,8 @@ against its plain PyTorch version, holds the card against the CPU on
 path at a small size, then serves requests through the full 36-layer bf16
 qwen3-4b on the card (plain, with speculative decode, over int8 and fp8 KV
 pages, over int8 pages with speculative decode, over the contiguous slot
-cache, and in a page pool small enough to preempt) and through the full
-64-layer bf16 mamba2-2.7b (contiguous slot cache, paged pool, state
+cache, in a page pool small enough to preempt, with and without prefix
+sharing, and at temperature) and through the full 64-layer bf16 mamba2-2.7b (contiguous slot cache, paged pool, state
 snapshots), and runs the paper's Fig. 9 experiment (matmul, FWT and NW
 tasks over CUDA streams and the PCIe link) at full size.
 
@@ -89,6 +89,25 @@ Phases (any failed check raises, and the script exits non-zero):
      invariants, and each evict and readmit timed (host clock around a
      synchronize); each warmed once and measured with the launch counts
      at 0.
+  5c. sharing and sampling: (a) the full qwen3-4b of phase 5 serves the
+     head-sharing prompts (snapshot_prompts) without and with prefix
+     sharing: 3 hits and 12 pages shared, strictly fewer peak pages, tick
+     p50, tok/s, chunks, COW forks and the per-uid agreement with the
+     unshared serve (>= 0.8); (b) the same over int8 pages (agreement >=
+     0.5), and a COW fork of a registered int8 page with codes and scale
+     rows bit-equal; (c) 2-layer f32 card vs CPU: shared serves (fused and
+     not) equal to the unshared serve with equal counters on both devices,
+     a prefix store saved by one engine and restored by another (the cold
+     serve's tokens), and a shared pool of SHARE_PRESSURE_BLOCKS blocks
+     that preempts and re-maps the head on readmission (counters equal
+     card vs CPU, the unpressured tokens); (d) the sampler's keys and
+     uniforms bit-equal card vs CPU, SAMPLER_DRAWS draws and
+     verify_sampled's first token within TV 0.05 of softmax(l / T), its
+     acceptance within 0.02 of p(d); 2-layer f32 temperature tokens equal
+     paged vs contiguous (card vs CPU agreement printed); the full model at
+     T = 0.8 plain, with n-gram drafts and with the greedy tokens as
+     drafts (verify ticks > 0), beside the greedy n-gram spec serve.  Each
+     full-width serve warmed once and measured with the launch counts at 0.
   6. main path, mamba: full mamba2-2.7b (64 layers, bf16, random weights
      from a seed) serves the same 6 requests over a contiguous slot cache
      and beside a paged pool, then prompts sharing a 64-token head with
@@ -705,21 +724,24 @@ def agreement(got, want) -> float:
     return float(np.mean([np.mean(np.asarray(a) == np.asarray(b)) for a, b in zip(got, want)]))
 
 
-def snapshot_prompts(vocab: int) -> list[np.ndarray]:
-    """PROMPT_LENS again, every prompt longer than SNAP_HEAD starting with
-    one shared SNAP_HEAD-token head (the shorter ones random)."""
+def snapshot_prompts(vocab: int, lens=PROMPT_LENS) -> list[np.ndarray]:
+    """PROMPT_LENS (or ``lens``) again, every prompt longer than SNAP_HEAD
+    starting with one shared SNAP_HEAD-token head (the shorter ones
+    random)."""
     rng = np.random.default_rng(3)
     head = rng.integers(0, vocab, SNAP_HEAD, dtype=np.int32)
     return [np.concatenate([head, rng.integers(0, vocab, n - SNAP_HEAD, dtype=np.int32)])
             if n > SNAP_HEAD else rng.integers(0, vocab, n, dtype=np.int32)
-            for n in PROMPT_LENS]
+            for n in lens]
 
 
 def serve(cfg, params, device, reqs, *, drafter=None, paged=True, **extra):
     """Serve ``reqs`` on ``device`` over a paged pool (or, with
     ``paged=False``, the contiguous slot cache) with ServeConfig options
     ``extra``; returns (engine, tokens per request, admission logits per
-    request, per-tick seconds, wall seconds).  The engine also keeps the
+    request, per-tick seconds, wall seconds).  After the run the prefix
+    registry (with sharing) is saved to its store, if one is set, and
+    dropped, so the pool check sees every page back.  The engine also keeps the
     seconds of each state snapshot it stored (its device-to-host copy) and
     of each evict and readmit (host clock around a synchronize)."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
@@ -774,6 +796,8 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, **extra):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if eng.paged:
+        eng.save_prefixes()  # with a prefix store; a no-op without one
+        eng.kv.clear_prefixes()  # the registry's retained pages, with sharing
         check(eng.kv.pages_in_use == 0, f"{extra}: {eng.kv.pages_in_use} pages left in use")
         eng.kv.check_invariants()
     # The timing hook closes over the engine: drop it so the engine and its
@@ -1204,6 +1228,248 @@ def phase_cache_paths(res: dict, main: tuple, *, profile: bool = False) -> dict:
     return out
 
 
+# Phase 5c's pressured shared pool: prompts that all start with the
+# SNAP_HEAD head, in a pool of SHARE_PRESSURE_BLOCKS blocks (trash
+# included).  The pressure drops the registry and preempts once, a later
+# sharer registers the head again, and the victim's readmission re-maps it
+# (a CPU run of the engine at these lengths, chunk, slots and pages: 1
+# preemption, 1 readmission re-mapping 4 pages; the count follows from the
+# lengths alone).
+SHARE_PRESSURE_LENS = (128, 100, 77, 128, 80, 72)
+SHARE_PRESSURE_BLOCKS = 19
+TEMPERATURE = 0.8
+SAMPLER_DRAWS = 20_000
+TV_MAX = 0.05  # the reference's bound on a sampler's total variation distance
+
+
+def _tv(draws: torch.Tensor, p: torch.Tensor) -> float:
+    got = torch.bincount(draws.reshape(-1).long(), minlength=p.numel()).double()
+    return 0.5 * (got / draws.numel() - p.double().cpu()).abs().sum().item()
+
+
+def sampler_checks() -> dict:
+    """The sampler on the card: its stream keys and uniforms bit-equal to
+    the CPU's; SAMPLER_DRAWS draws over one 64-way logits row and the first
+    token of verify_sampled against softmax(l / T) (TV < TV_MAX); the
+    verify step's acceptance rate within 0.02 of p(d)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import sampling
+    from repro_torch.runtime.spec import verify_sampled
+
+    n = SAMPLER_DRAWS
+    uids = torch.arange(n, dtype=torch.int64) % 97
+    steps = torch.arange(n, dtype=torch.int64) // 97
+    for tag in (0, 1, 2):
+        kc = sampling.stream_keys(uids, steps, tag=tag)
+        kg = sampling.stream_keys(uids.cuda(), steps.cuda(), tag=tag)
+        check(torch.equal(kg.cpu(), kc), f"stream keys (tag {tag}) differ card vs CPU")
+        check(torch.equal(sampling.uniforms(kg[:512], 4096).cpu(),
+                          sampling.uniforms(kc[:512], 4096)), "uniforms differ card vs CPU")
+    g = torch.Generator().manual_seed(5)
+    raw = torch.randn(64, generator=g) * 1.5
+    want = torch.softmax(raw.double() / TEMPERATURE, 0)
+    picks = T.sample_tokens(raw.cuda().expand(n, 64), temperature=TEMPERATURE,
+                            uids=uids.cuda(), steps=steps.cuda())
+    tv_sample = _tv(picks.cpu(), want)
+    check(tv_sample < TV_MAX, f"sampler TV {tv_sample}")
+    raw4 = torch.tensor([0.3, -0.2, 1.1, 0.0])
+    logits = raw4.expand(n, 3, 4).contiguous().cuda()
+    draft = torch.zeros((n, 2), dtype=torch.int32, device="cuda")
+    d_len = torch.full((n,), 2, dtype=torch.int32, device="cuda")
+    emit, n_acc = verify_sampled(logits, draft, d_len, uids.cuda(), steps.cuda(), TEMPERATURE)
+    p = torch.softmax(raw4.double() / TEMPERATURE, 0)
+    tv_verify = _tv(emit[:, 0].cpu(), p)
+    accept = (n_acc >= 1).double().mean().item()
+    check(tv_verify < TV_MAX, f"verify_sampled first-token TV {tv_verify}")
+    check(abs(accept - p[0].item()) < 0.02, f"acceptance {accept} vs p(d) {p[0].item()}")
+    out = {"sampler_tv": tv_sample, "verify_first_token_tv": tv_verify,
+           "verify_acceptance": accept, "p_draft": p[0].item(), "draws": n}
+    print(f"[share] sampler on the card: keys and uniforms bit-equal to the CPU's; {n} draws "
+          f"over a 64-way row at T={TEMPERATURE}: TV {tv_sample:.4f}; verify_sampled first "
+          f"token TV {tv_verify:.4f}, acceptance {accept:.4f} vs p(d) {p[0].item():.4f} "
+          f"(TV < {TV_MAX}, |acc - p(d)| < 0.02)")
+    return out
+
+
+def phase_sharing_sampling(res: dict, main: tuple) -> dict:
+    """Phase 5c: prefix sharing with copy-on-write and temperature sampling.
+    (a) the full 36-layer bf16 qwen3-4b of phase 5 (``main``): the
+    head-sharing prompts with and without sharing (hits, pages shared,
+    chunks, peak pages, COW forks, tick p50, tok/s, token agreement);
+    (b) the same over int8 pages, and a COW fork of a registered int8 page
+    (codes and scale rows bit-equal); (c) 2-layer f32 card against CPU:
+    shared serves (fused and not) equal to the unshared one with equal
+    counters on both devices, a prefix store saved by one engine and
+    restored by another, and a pressured shared pool that re-maps on
+    readmission; (d) temperature: plain and n-gram spec serves at full
+    width, the sampler's statistics, and 2-layer f32 paged against
+    contiguous on the card and the card against the CPU."""
+    import tempfile
+
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.models import transformer as T
+
+    out: dict = {}
+    _, _, params = main
+    cfg = qwen3_4b.CONFIG
+    shared_reqs = snapshot_prompts(cfg.vocab_size)
+
+    def measured(label, rq, **kw):
+        serve(cfg, params, "cuda", rq, **kw)  # warm-up
+        (eng, toks, logits, ticks, wall), launches = counted_serve(cfg, params, rq, **kw)
+        for i, (t, lg) in enumerate(zip(toks, logits)):
+            check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
+                  f"{label} request {i}: {t}")
+            check(bool(torch.isfinite(lg).all()), f"{label} request {i}: non-finite logits")
+        for name, n in launches.items():
+            if n:  # this path's launches join the earlier phases' in the kernels line
+                res[name]["launches"] += n
+        n = sum(len(t) for t in toks)
+        rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else None
+        row = {"tokens_per_s": n / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
+               "decode_ticks": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
+               "peak_pages": eng.kv.peak_pages_in_use if eng.paged else None,
+               "prefix_hits": eng.prefix_hits, "prefix_pages_shared": eng.prefix_pages_shared,
+               "cow_forks": eng.kv.cow_forks if eng.paged else None,
+               "verify_ticks": eng.spec_ticks, "acceptance": rate, "launches": launches}
+        print(f"[share] {label}: {n} tokens in {wall:.3f}s = {n / wall:.1f} tok/s; tick p50 "
+              f"{row['decode_tick_ms_p50']:.2f} ms over {eng.decode_steps} ticks "
+              f"({eng.spec_ticks} verify, acceptance {'-' if rate is None else f'{rate:.3f}'})"
+              f"; {eng.prefill_chunks} chunks; peak pages {row['peak_pages']}; prefix hits "
+              f"{eng.prefix_hits}, pages shared {eng.prefix_pages_shared}, cow_forks "
+              f"{row['cow_forks']}; launches {launches}")
+        return eng, toks, row
+
+    # (a), (b): full width, bf16 and int8 pools, unshared then shared.
+    for kd in ("fp32", "int8"):
+        _, base, out[f"{kd} unshared"] = measured(f"{kd} pool, unshared", shared_reqs,
+                                                  kv_dtype=kd)
+        eng, toks, row = measured(f"{kd} pool, shared", shared_reqs, kv_dtype=kd,
+                                  prefix_sharing=True)
+        agree = agreement(toks, base)
+        row["agreement_with_unshared"] = agree
+        out[f"{kd} shared"] = row
+        unshared = out[f"{kd} unshared"]
+        check(row["peak_pages"] < unshared["peak_pages"],
+              f"{kd}: shared peak {row['peak_pages']} !< unshared {unshared['peak_pages']}")
+        check((row["prefix_hits"], row["prefix_pages_shared"]) == (3, 12),
+              f"{kd}: prefix hits / pages {row['prefix_hits']} / {row['prefix_pages_shared']}, "
+              "want 3 / 12")
+        check(agree >= 0.8 if kd == "fp32" else agree >= QUANT_FLOOR,
+              f"{kd}: shared vs unshared agreement {agree}")
+        print(f"[share] {kd} pool: shared vs unshared per-uid token agreement {agree:.4f}; "
+              f"chunks {unshared['prefill_chunks']} -> {row['prefill_chunks']}, peak pages "
+              f"{unshared['peak_pages']} -> {row['peak_pages']}")
+    # (b) a COW fork of a registered int8 page on the card: refill the
+    # shared engine's registry (serve() dropped it) with one admission.
+    kv = eng.kv
+    eng.submit(shared_reqs[0])
+    eng.run()
+    blk = kv.registry.entries()[0][1][0]
+    kv.map_shared(0, [blk])  # refcount 2: the registry and slot 0
+    check(kv.ensure_write(0, 3), "int8 COW fork: no free page")
+    fork = kv.slot_pages(0)[0]
+    for c in kv.pools["blocks"].values():
+        for key in ("k", "v", "k_scale", "v_scale"):
+            check(torch.equal(c[key][:, fork], c[key][:, blk]),
+                  f"int8 COW fork: {key} of page {fork} != page {blk}")
+    kv.release(0)
+    kv.clear_prefixes()
+    kv.check_invariants()
+    print(f"[share] int8 COW fork on the card: page {blk} -> {fork}, codes and scale rows "
+          f"bit-equal over {cfg.n_layers} layers")
+
+    # (c) 2-layer f32, card against CPU.
+    small = dataclasses.replace(cfg, n_layers=2, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    cpu_params = T.init_params(small, 0, device="cpu")
+    gpu_params = to_device(cpu_params, "cuda")
+    reqs = snapshot_prompts(small.vocab_size)
+    _, plain, _, _, _ = serve(small, gpu_params, "cuda", reqs)
+
+    def counters(e):
+        return (e.prefix_hits, e.prefix_pages_shared, e.kv.cow_forks, e.kv.peak_pages_in_use,
+                e.kv.registry.hits, e.kv.registry.misses, e.prefill_chunks,
+                e.readmit_prefix_hits, e.readmit_prefix_pages, e.preemptions)
+    for label, kw in (("fused", {}), ("non-fused", dict(fused_prefill=False))):
+        eg, tg, _, _, _ = serve(small, gpu_params, "cuda", reqs, prefix_sharing=True, **kw)
+        ec, tc, _, _, _ = serve(small, cpu_params, "cpu", reqs, prefix_sharing=True, **kw)
+        for i, (a, b, c) in enumerate(zip(tg, tc, plain)):
+            check(np.array_equal(a, b), f"shared {label} request {i}: card {a} != CPU {b}")
+            check(np.array_equal(a, c), f"shared {label} request {i}: {a} != unshared {c}")
+        check(counters(eg) == counters(ec), f"shared {label}: counters card {counters(eg)} "
+              f"!= CPU {counters(ec)}")
+        print(f"[share] 2-layer f32 shared ({label}): tokens equal card vs CPU and to the "
+              f"unshared serve; counters (hits, pages, forks, peak, registry hits/misses, "
+              f"chunks, ...) {counters(eg)} on both devices")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = str(Path(tmp) / "prefixes.npz")
+        cold, tcold, _, _, _ = serve(small, gpu_params, "cuda", reqs, prefix_sharing=True,
+                                     prefix_store=store)
+        warm, twarm, _, _, _ = serve(small, gpu_params, "cuda", reqs, prefix_sharing=True,
+                                     prefix_store=store)
+    check(cold.prefixes_restored == 0 < warm.prefixes_restored,
+          f"prefix store: restored {cold.prefixes_restored}, then {warm.prefixes_restored}")
+    check(all(np.array_equal(a, b) for a, b in zip(twarm, tcold)),
+          "the restored serve's tokens differ from the cold serve's")
+    print(f"[share] prefix store: {warm.prefixes_restored} entries restored by a second "
+          f"engine, prefix hits {cold.prefix_hits} -> {warm.prefix_hits}, tokens equal to "
+          f"the cold serve")
+    pressed = snapshot_prompts(small.vocab_size, SHARE_PRESSURE_LENS)
+    _, free, _, _, _ = serve(small, gpu_params, "cuda", pressed, prefix_sharing=True)
+    eg, tg, _, _, _ = serve(small, gpu_params, "cuda", pressed, prefix_sharing=True,
+                            num_blocks=SHARE_PRESSURE_BLOCKS)
+    ec, tc, _, _, _ = serve(small, cpu_params, "cpu", pressed, prefix_sharing=True,
+                            num_blocks=SHARE_PRESSURE_BLOCKS)
+    check(eg.preemptions >= 1 and eg.readmit_prefix_hits > 0,
+          f"pressured shared pool: {eg.preemptions} preemptions, "
+          f"{eg.readmit_prefix_hits} readmission re-maps")
+    check(counters(eg) == counters(ec), f"pressured shared pool: counters card "
+          f"{counters(eg)} != CPU {counters(ec)}")
+    for i, (a, b, c) in enumerate(zip(tg, tc, free)):
+        check(np.array_equal(a, b), f"pressured shared request {i}: card {a} != CPU {b}")
+        check(np.array_equal(a, c), f"pressured shared request {i}: {a} != unpressured {c}")
+    out["pressured"] = {"num_blocks": SHARE_PRESSURE_BLOCKS, "preemptions": eg.preemptions,
+                        "readmit_prefix_hits": eg.readmit_prefix_hits,
+                        "readmit_prefix_pages": eg.readmit_prefix_pages}
+    print(f"[share] 2-layer f32 pool of {SHARE_PRESSURE_BLOCKS} blocks with sharing: "
+          f"{eg.preemptions} preemptions, {eg.readmit_prefix_hits} readmissions re-mapped "
+          f"{eg.readmit_prefix_pages} pages, on the card and the CPU; tokens equal card vs "
+          f"CPU and to the unpressured serve")
+
+    # (d) temperature.
+    out["sampler"] = sampler_checks()
+    toks_t = {}
+    for label, kw in (("contiguous", dict(paged=False)), ("paged", {})):
+        _, toks_t[label], _, _, _ = serve(small, gpu_params, "cuda", reqs,
+                                          temperature=TEMPERATURE, **kw)
+    _, t_cpu, _, _, _ = serve(small, cpu_params, "cpu", reqs, temperature=TEMPERATURE)
+    for i, (a, b) in enumerate(zip(toks_t["paged"], toks_t["contiguous"])):
+        check(np.array_equal(a, b), f"temperature request {i}: paged {a} != contiguous {b}")
+    vs_cpu = agreement(toks_t["paged"], t_cpu)
+    out["temperature_card_vs_cpu_agreement"] = vs_cpu
+    print(f"[share] 2-layer f32 at T={TEMPERATURE}: tokens equal paged vs contiguous on the "
+          f"card; card vs CPU agreement {vs_cpu:.4f}")
+    del gpu_params
+    # Full width at temperature: a plain serve, and spec serves with n-gram
+    # drafts and with the greedy serve's tokens as drafts (the random
+    # weights' next-token distribution is nearly flat at T, so sampled
+    # tokens rarely repeat an n-gram: the oracle drafts make the verify
+    # step rejection-sample on the card whatever the n-gram drafter finds).
+    tiled = tiled_prompts(cfg.vocab_size)
+    spec = dict(spec_decode=True, spec_k=SPEC_K)
+    _, greedy, out["greedy, n-gram spec"] = measured("greedy, n-gram spec (tiled prompts)",
+                                                     tiled, **spec)
+    for label, kw in ((f"T={TEMPERATURE}, plain", {}), (f"T={TEMPERATURE}, n-gram spec", spec),
+                      (f"T={TEMPERATURE}, spec, greedy tokens as drafts",
+                       dict(spec, drafter=OracleDrafter(tiled, greedy)))):
+        eng, _, out[label] = measured(f"{label} (tiled prompts)", tiled,
+                                      temperature=TEMPERATURE, **kw)
+    check(eng.spec_ticks > 0, "the temperature serve with drafts ran no verify tick")
+    print("[share] serves " + json.dumps(out))
+    return out
+
+
 def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
     """The full 64-layer bf16 mamba2-2.7b: the 6 requests over a contiguous
     slot cache and beside a paged pool, then head-sharing prompts without
@@ -1616,8 +1882,11 @@ def main() -> int:
     print(f"[main] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_cache_paths(res, main_path, profile=args.profile)
-    del main_path  # the full model's weights
     print(f"[cache] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_sharing_sampling(res, main_path)
+    del main_path  # the full model's weights
+    print(f"[share] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_main_mamba(res, profile=args.profile)
     print(f"[mamba] {time.perf_counter() - t0:.1f}s")

@@ -2,7 +2,8 @@
 ``models/transformer.py``): init, the caches, the layer loop, the fused
 prefill chunk, paged decode (one token, or a draft block for speculative
 verify), the contiguous prefill chunk and decode steps (one token, or a
-draft block), and greedy sampling.  Two layer kinds are ported: attention +
+draft block), and the on-device pick (greedy, or temperature sampling
+keyed by request).  Two layer kinds are ported: attention +
 swiglu FFN (qwen3-4b) and the mamba2 block with no FFN (mamba2-2.7b).
 
 Parameters are nested dicts of tensors laid out as the reference's pytree:
@@ -25,6 +26,7 @@ from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import mamba
+from repro_torch.runtime import sampling
 
 Params = dict
 
@@ -38,7 +40,7 @@ def check_supported(cfg: ModelConfig) -> None:
         ssm = spec.mixer == "mamba" and spec.ffn == "none"
         if not (attn or ssm) or spec.cross_attn:
             raise NotImplementedError(
-                f"layer {spec} is not ported yet: ROADMAP A10, the zoo "
+                f"layer {spec} is not ported yet: ROADMAP A7, the rest of the zoo "
                 "(MoE, hybrids, encoder-decoder)")
     unsupported = [f for f in ("sandwich_norm", "sinusoidal_pos", "embed_scale",
                                "is_encoder_decoder", "prefix_len", "final_softcap")
@@ -48,7 +50,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not ported yet: ROADMAP "
-            "A2 / A10 (the other nine configs)")
+            "A6 / A7 (the other dense configs, the rest of the zoo)")
 
 
 # ----------------------------------------------------------------------------
@@ -409,26 +411,41 @@ def decode_step_multi(
 
 def decode_and_sample(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches: Params,
-    cur_len: torch.Tensor, *, unembed: torch.Tensor,
+    cur_len: torch.Tensor, *, unembed: torch.Tensor, temperature: float = 0.0,
+    uids: torch.Tensor | None = None, steps: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params]:
-    """Contiguous decode step with the greedy pick on the device: (B,) int32
-    tokens and the caches."""
+    """Contiguous decode step with the pick on the device (see
+    :func:`sample_tokens`): (B,) int32 tokens and the caches."""
     logits, caches = decode_step(cfg, params, tokens, caches, cur_len, unembed=unembed)
-    return sample_tokens(logits[:, -1]), caches
+    return sample_tokens(logits[:, -1], temperature=temperature, uids=uids,
+                         steps=steps), caches
 
 
-def sample_tokens(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy pick per row -> (B,) int32 (the first maximum, as jnp.argmax;
-    temperature sampling is not ported yet)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def sample_tokens(logits: torch.Tensor, *, temperature: float = 0.0,
+                  uids: torch.Tensor | None = None,
+                  steps: torch.Tensor | None = None) -> torch.Tensor:
+    """The next token per row of ``logits`` (B, V) -> (B,) int32.  Greedy
+    when ``temperature`` is 0: the first maximum, as jnp.argmax.  Else row
+    b draws from ``softmax(logits / temperature)`` with the stream of
+    request ``uids[b]`` at its ``steps[b]``-th token
+    (``runtime.sampling``), so its draw depends on nothing else in the
+    batch."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if uids is None or steps is None:
+        raise ValueError("temperature sampling needs the rows' uids and steps")
+    return sampling.gumbel_pick(logits, temperature, sampling.stream_keys(uids, steps))
 
 
 def decode_and_sample_paged(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches: Params,
     page_table: torch.Tensor, cur_len: torch.Tensor, *, unembed: torch.Tensor,
+    temperature: float = 0.0, uids: torch.Tensor | None = None,
+    steps: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params]:
-    """Paged decode step with the greedy pick on the device: returns (B,)
-    int32 tokens, so a tick moves one int32 per slot to the host."""
+    """Paged decode step with the pick on the device: returns (B,) int32
+    tokens, so a tick moves one int32 per slot to the host."""
     logits, caches = decode_step_paged(cfg, params, tokens, caches, page_table,
                                        cur_len, unembed=unembed)
-    return sample_tokens(logits[:, -1]), caches
+    return sample_tokens(logits[:, -1], temperature=temperature, uids=uids,
+                         steps=steps), caches

@@ -1,16 +1,16 @@
 """The servable models behind ``StreamedBatchEngine`` (reference
 ``runtime/model_iface.py``).  A servable owns the architecture-specific
-half of serving — the cache layout, the prefill chunks, the greedy decode
-step, the speculative verify step and what is shareable — so the engine
-never calls the model directly.
+half of serving — the cache layout, the prefill chunks, the decode step
+with its on-device pick, the speculative verify step and what is
+shareable — so the engine never calls the model directly.
 
   ============  =====================  ===================================
   servable      prefill                decode / sharing
   ============  =====================  ===================================
   transformer   fused chunks written   one token or a draft block per
                 straight into pages,   tick over the paged pool or the
-                or b=1 streamed        contiguous slot cache
-                chunks, then a scatter
+                or b=1 streamed        contiguous slot cache; prefix
+                chunks, then a scatter pages shared copy-on-write
   mamba         b=1 streamed chunks    one recurrence step per tick over
                 over the O(1) SSM      slot state; sharing degrades to
                 state, then a scatter  state snapshots at chunk boundaries
@@ -56,8 +56,8 @@ def build_servable(cfg: ModelConfig, params: dict, scfg, *, device) -> ServableM
     kind = arch_kind_of(cfg)
     if kind in ("whisper", "prefix_lm"):
         raise NotImplementedError(
-            f"{cfg.name}: serving {kind} configs is not ported yet: ROADMAP A10, the zoo "
-            "(whisper) / the other configs (prefix-LM)")
+            f"{cfg.name}: serving {kind} configs is not ported yet: ROADMAP A7, the rest "
+            "of the zoo (whisper, prefix-LM)")
     scfg.arch_kind = kind
     scfg.validate_arch()
     cls = {"transformer": TransformerServable, "mamba": MambaServable}[kind]
@@ -86,6 +86,11 @@ class ServableModel:
                             block_size=s.block_size, num_blocks=s.num_blocks,
                             kv_dtype=s.kv_dtype, device=self.device)
 
+    def init_request_cache(self) -> dict:
+        """A b=1 full-length contiguous cache: the streamed prefill's
+        context (a shared prefix is loaded into its front)."""
+        return T.init_cache(self.cfg, 1, self.scfg.max_seq, ring=False, device=self.device)
+
     def init_slot_caches(self, bsz: int) -> dict:
         """The contiguous slot cache of the batched engine: full-length
         rows (``ring=False``), since the b=1 prefill cache it receives is
@@ -98,21 +103,26 @@ class ServableModel:
         return self.single.iter_prefill_chunks(tokens, caches=caches, pos0=pos0)
 
     def decode_fn(self, *, paged: bool) -> Callable:
-        """The batched greedy decode step; the tick fetches only its (B,)
-        int32 picks.  Paged: ``fn(tokens (B, 1), pools, page_table,
-        cur_len)``; contiguous: ``fn(tokens, caches, cur_len)``.  Both
-        return (picks, caches)."""
+        """The batched decode step with its pick on the device (greedy, or
+        at ``scfg.temperature`` each row from its request's stream); the
+        tick fetches only its (B,) int32 picks.  Paged: ``fn(tokens (B, 1),
+        pools, page_table, cur_len[, uids, steps])``; contiguous:
+        ``fn(tokens, caches, cur_len[, uids, steps])``.  Both return
+        (picks, caches)."""
         cfg, params, unembed = self.cfg, self.params, self.unembed
+        temp = float(self.scfg.temperature)
         if paged:
             @torch.inference_mode()
-            def fn(tokens, pools, page_table, cur_len):
+            def fn(tokens, pools, page_table, cur_len, uids=None, steps=None):
                 return T.decode_and_sample_paged(cfg, params, tokens, pools, page_table,
-                                                 cur_len, unembed=unembed)
+                                                 cur_len, unembed=unembed, temperature=temp,
+                                                 uids=uids, steps=steps)
         else:
             @torch.inference_mode()
-            def fn(tokens, caches, cur_len):
+            def fn(tokens, caches, cur_len, uids=None, steps=None):
                 return T.decode_and_sample(cfg, params, tokens, caches, cur_len,
-                                           unembed=unembed)
+                                           unembed=unembed, temperature=temp, uids=uids,
+                                           steps=steps)
         return fn
 
     def lookup_snapshot(self, tokens: np.ndarray) -> tuple[int, dict | None]:
@@ -144,11 +154,11 @@ class TransformerServable(ServableModel):
         return fn
 
     def verify_fn(self, *, paged: bool) -> Callable:
-        """The greedy speculative verify step on the device (see
-        ``spec.make_verifier`` for both forms); the tick fetches only
-        ``emit`` and ``n_accept``."""
+        """The speculative verify step on the device, greedy or rejection
+        sampling at ``scfg.temperature`` (see ``spec.make_verifier`` for
+        both forms); the tick fetches only ``emit`` and ``n_accept``."""
         return spec.make_verifier(self.cfg, self.params, paged=paged,
-                                  unembed=self.unembed)
+                                  unembed=self.unembed, temperature=self.scfg.temperature)
 
 
 class MambaServable(ServableModel):

@@ -3,7 +3,7 @@
 or a paged pool (fused prefill, or scatter-after-prefill), and mamba
 serving over a contiguous slot cache or beside a paged pool.
 ``ServingEngine`` holds the b=1 streamed prefill of one admission and
-``generate``, the b=1 greedy oracle.
+``generate``, the one-batch-at-a-time oracle.
 
 * **Slots**: ``max_batch`` decode slots share the cache; each carries its
   own position ``cur``, so rope, the cache write and the attention cut are
@@ -14,31 +14,42 @@ serving over a contiguous slot cache or beside a paged pool.
   after each chunk is enqueued, ``decode_interleave`` batched decode ticks
   run for the active slots.  Paged: its pages are reserved through its
   first decode write and its table row is shielded until the prompt is in.
+  With ``prefix_sharing`` the longest registered chunk-aligned prefix of
+  the prompt is mapped into its table at refcount + 1 (the paper's SYNC
+  transfer, staged once) and only the uncovered tail is prefilled, on the
+  chunk grid a full prefill runs; its own page-aligned prefixes are then
+  registered for later admissions (``kv_cache.PrefixRegistry``).
   Fused (paged transformers by default): each chunk's K/V are written
   straight into its pages (the host row carries the real pages for the
   chunks).  Otherwise the chunks run over a b=1 contiguous cache (mamba:
   optionally resumed from a restored state snapshot), which is scattered
   into the slot when the prompt is in (``kv.scatter`` into pages, or the
   slot's rows of the contiguous cache).
-* **Decode tick**: fault in each active slot's write page, one batched
-  greedy step on the device, and exactly one device-to-host copy — the
-  ``(B,)`` int32 picks.
+* **Decode tick**: fault in each active slot's write page (a shared page
+  forks copy-on-write first), one batched step with its pick on the
+  device, and exactly one device-to-host copy — the ``(B,)`` int32 picks.
+  At ``temperature`` > 0 each row draws from its request's own stream at
+  its token count (``runtime.sampling``), so a request's tokens do not
+  depend on its slot, its neighbours, the cache layout or preemption.
 * **Speculative tick** (``spec_decode``): a drafter proposes up to
   ``spec_k`` tokens per slot, one multi-token verify step scores the
   pending token plus the draft, and each slot advances by its accepted
   prefix plus the bonus token; one device-to-host copy of ``(emit,
   n_accept)``.  Draft pages are faulted best-effort and rolled back
   (``kv.truncate``) past the accepted prefix.  Greedy output equals the
-  plain ticks' by construction.
+  plain ticks' by construction; at temperature the verify step
+  rejection-samples, so each token is still a sample of the target.
 * **Quantized pages** (``kv_dtype`` "int8" / "fp8"): the pool stores codes
   and per-(page, kv head) scales; see ``kernels/quant``.
 * **Backpressure and preemption** (paged): a request waits in the queue
   (FIFO) until the free list holds its pages.  When a tick cannot fault
   in a slot's write page, the youngest other slot is evicted (its pages
   gathered into a b=1 cache, then freed) and waits to be readmitted
-  (scattered back) before any new admission; with no other victim the
-  faulting slot evicts itself.  ``submit`` rejects a request that could
-  not finish alone in the pool, so every request finishes.
+  (scattered back, a registered prefix of its prompt re-mapped instead)
+  before any new admission; with no other victim the faulting slot evicts
+  itself.  Retained prefix pages are reclaimed (least recently used first)
+  before a request waits.  ``submit`` rejects a request that could not
+  finish alone in the pool, so every request finishes.
 """
 
 from __future__ import annotations
@@ -57,27 +68,21 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime import spec
 from repro_torch.runtime.kv_cache import gather_slot_state, scatter_slot_state
 
-# Reference ServeConfig features outside the port so far: field -> (the value
-# the port supports, the ROADMAP item that ports the rest).
-_NOT_PORTED = {
-    "temperature": (0.0, "temperature sampling (with or without spec_decode)"),
-    "prefix_sharing": (False, "prefix sharing and COW"),
-    "prefix_store": (None, "prefix sharing and COW (the prefix store)"),
-}
-
-
 @dataclasses.dataclass
 class ServeConfig:
     max_seq: int = 1024
     prefill_chunk: int = 256  # task size for streamed prefill
     max_new_tokens: int = 32
+    temperature: float = 0.0  # 0 = greedy
     max_batch: int = 4  # decode slots
     decode_interleave: int = 1  # decode ticks per in-flight prefill chunk
     block_size: int = 16  # cache rows per page
     num_blocks: int | None = None  # pool size; None = every slot at max_seq + trash
     kv_dtype: str = "fp32"  # pool storage: "fp32" | "int8" | "fp8"
+    prefix_sharing: bool = False  # map common prompt prefixes copy-on-write
+    prefix_min_pages: int = 1  # shortest prefix worth sharing, in pages
     # speculative decode: a drafter proposes spec_k tokens, one batched
-    # verify step scores all k + 1 positions (greedy only)
+    # verify step scores all k + 1 positions
     spec_decode: bool = False
     spec_k: int = 4  # draft tokens proposed per verify step
     spec_ngram: int = 3  # longest n-gram the default prompt-lookup matches
@@ -92,21 +97,18 @@ class ServeConfig:
     # Stamped by build_servable from the model ("transformer" | "mamba");
     # setting it up front validates arch-dependent flags early.
     arch_kind: str | None = None
-    # Reference features not ported yet; any other value raises.
-    temperature: float = 0.0
-    prefix_sharing: bool = False
+    # Path: persist the prefix registry across engines (restored at
+    # construction, saved by engine.save_prefixes; a stale store is ignored).
     prefix_store: str | None = None
 
     def __post_init__(self) -> None:
-        for name, (ok, item) in _NOT_PORTED.items():
-            if getattr(self, name) != ok:
-                raise NotImplementedError(
-                    f"ServeConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"yet (the port supports {ok!r}): ROADMAP, {item}")
         for name in ("max_seq", "prefill_chunk", "max_new_tokens", "max_batch",
-                     "decode_interleave", "block_size", "spec_k", "spec_ngram"):
+                     "decode_interleave", "block_size", "prefix_min_pages", "spec_k",
+                     "spec_ngram"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {self.temperature}")
         quant.validate_kv_dtype(self.kv_dtype)
         if quant.is_quantized(self.kv_dtype) and not self.paged:
             raise ValueError(
@@ -116,6 +118,9 @@ class ServeConfig:
             raise ValueError(
                 "fused_prefill writes prefill K/V through the page table; it requires "
                 "paged=True")
+        if self.prefix_sharing and not self.paged:
+            raise ValueError(
+                "prefix_sharing shares physical KV pages; it requires paged=True")
         if self.paged:
             if self.max_seq % self.block_size:
                 raise ValueError(
@@ -125,6 +130,10 @@ class ServeConfig:
                 raise ValueError(
                     f"num_blocks must be >= 2 (block 0 is the trash page), got "
                     f"{self.num_blocks}")
+        if self.prefix_store is not None and not self.prefix_sharing:
+            raise ValueError(
+                "prefix_store persists the prefix registry; it requires "
+                "prefix_sharing=True")
         self.validate_arch()
 
     def validate_arch(self) -> None:
@@ -170,7 +179,7 @@ class ServeConfig:
 class ServingEngine:
     """The b=1 streamed prefill of one admission (the reference's
     ``ServingEngine.iter_prefill_chunks``) over a contiguous cache, and
-    ``generate``, the one-request-at-a-time greedy decode after it."""
+    ``generate``, the one-batch-at-a-time decode after it."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device, unembed):
         self.cfg, self.params, self.scfg, self.device = cfg, params, scfg, device
@@ -202,24 +211,32 @@ class ServingEngine:
             yield logits, caches, pos
 
     def generate(self, tokens) -> torch.Tensor:
-        """Greedy decode of ``max_new_tokens`` after a streamed prefill of
-        ``tokens`` (B, S) (reference ``ServingEngine.generate``, greedy):
-        every row at one position, one decode step a token over the
-        contiguous cache, the pick on the device.  Returns (B,
+        """Decode ``max_new_tokens`` after a streamed prefill of ``tokens``
+        (B, S) (reference ``ServingEngine.generate``): every row at one
+        position, one decode step a token over the contiguous cache, the
+        pick on the device.  At temperature row b draws its token i from
+        stream (uid b, step i) of ``runtime.sampling``, where the reference
+        splits one key for the whole batch per token.  Returns (B,
         max_new_tokens) int32 on the engine's device."""
         tokens = torch.as_tensor(np.asarray(tokens, np.int32)).to(self.device)
         logits = caches = None
         pos = 0
         for logits, caches, pos in self.iter_prefill_chunks(tokens):
             pass
-        nxt = T.sample_tokens(logits[:, -1])
-        out = [nxt]
         b = tokens.shape[0]
+        rows = torch.arange(b, dtype=torch.int32, device=self.device)
+        temp = self.scfg.temperature
+
+        def steps(i):
+            return torch.full((b,), i, dtype=torch.int32, device=self.device)
+        nxt = T.sample_tokens(logits[:, -1], temperature=temp, uids=rows, steps=steps(0))
+        out = [nxt]
         with torch.inference_mode():
             for i in range(self.scfg.max_new_tokens - 1):
                 cur = torch.full((b,), pos + i, dtype=torch.int32, device=self.device)
-                nxt, caches = T.decode_and_sample(self.cfg, self.params, nxt[:, None],
-                                                  caches, cur, unembed=self.unembed)
+                nxt, caches = T.decode_and_sample(
+                    self.cfg, self.params, nxt[:, None], caches, cur, unembed=self.unembed,
+                    temperature=temp, uids=rows, steps=steps(i + 1))
                 out.append(nxt)
         return torch.stack(out, dim=1)
 
@@ -276,8 +293,9 @@ class EvictedRequest:
 class StreamedBatchEngine:
     """Continuous-batching serving on ``device`` (CUDA unless the caller
     passes ``"cpu"``).  Greedy output per request equals the reference
-    engine's.  With ``spec_decode``, ``drafter`` (anything with
-    ``propose(context, k)``) replaces the default ``NGramDrafter``."""
+    engine's, with or without prefix sharing.  With ``spec_decode``,
+    ``drafter`` (anything with ``propose(context, k)``) replaces the
+    default ``NGramDrafter``."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig, *,
                  device=None, drafter: spec.Drafter | None = None):
@@ -289,9 +307,12 @@ class StreamedBatchEngine:
         from repro_torch.runtime.model_iface import build_servable
         self.servable = build_servable(cfg, params, scfg, device=self.device)
         self.paged = scfg.paged
+        self.prefixes_restored = 0  # registry entries restored from scfg.prefix_store
         if self.paged:
             self.kv = self.servable.make_kv_pool()
             self.caches = None  # the state lives in self.kv.pools
+            if scfg.prefix_sharing and scfg.prefix_store:
+                self.prefixes_restored = self.kv.load_prefixes(scfg.prefix_store)
         else:
             self.kv = None
             self.caches = self.servable.init_slot_caches(scfg.max_batch)
@@ -309,11 +330,18 @@ class StreamedBatchEngine:
         self.admissions = 0
         self.preemptions = 0  # evictions for page pressure
         self.peak_active = 0  # most requests resident at once
+        self.prefix_hits = 0  # admissions that mapped a shared prefix
+        self.prefix_pages_shared = 0  # pages mapped instead of prefilled
+        self.readmit_prefix_hits = 0  # readmissions that re-mapped their prefix
+        self.readmit_prefix_pages = 0  # pages re-mapped instead of scattered
         self.snapshot_hits = 0  # admissions that restored an SSM-state snapshot
         self.snapshot_tokens_reused = 0  # prompt tokens never re-prefilled
         self.spec_ticks = 0  # verify steps run
         self.spec_proposed = 0  # draft tokens scored by verify steps
         self.spec_accepted = 0  # draft tokens accepted (rate = accepted / proposed)
+        # The admission gate's prefix match (uid, n_pages, blocks, probed),
+        # handed to _admit: nothing runs between the gate and the admission.
+        self._gate_match: tuple[int, int, list[int], bool] | None = None
         self.drafter = None
         self._verify = None
         if scfg.spec_decode:
@@ -358,27 +386,83 @@ class StreamedBatchEngine:
 
     # -- admission ---------------------------------------------------------------
 
+    def _lookup_prefix(self, req: Request) -> tuple[int, list[int], bool]:
+        """The shared-prefix match of ``req`` -> (n_pages, blocks, probed);
+        (0, [], False) without sharing.  Aligned to the prompt's chunk, so
+        the tail runs the chunk grid a full prefill would.  Uncounted: the
+        gate re-runs it every quantum a request waits, so ``_admit``
+        records the one outcome of an admission (none when nothing was
+        probed).  The lookup also marks the entry recently used, shielding
+        it from the reclaim the gate may run next."""
+        if not (self.paged and self.scfg.prefix_sharing):
+            return 0, [], False
+        chunk = min(self.scfg.prefill_chunk, len(req.tokens))
+        n, blocks = self.kv.lookup_prefix(req.tokens, min_pages=self.scfg.prefix_min_pages,
+                                          align_tokens=chunk, count=False)
+        return n, blocks, self.kv.last_lookup_probed
+
     def _admission_fits(self, req: Request) -> bool:
-        """Pages through the first decode write (len + 1) are free."""
-        return self.kv.pages_for(len(req.tokens) + 1) <= self.kv.free_pages
+        """The admission gate: pages through the first decode write
+        (len + 1) are free, a shared-prefix match credited (mapped, not
+        allocated), after reclaiming retained prefixes when short.  A
+        reclaim may drop the matched entry itself, so the match is taken
+        again (match -> reclaim -> match converges within 3 rounds).  The
+        surviving match is stashed for ``_admit``."""
+        full = self.kv.pages_for(len(req.tokens) + 1)
+        for _ in range(3):
+            n, blocks, probed = self._lookup_prefix(req)
+            if full - n <= self.kv.free_pages:
+                self._gate_match = (req.uid, n, blocks, probed)
+                return True
+            if not self.kv.reclaim_for(full - n):
+                return False
+        return False
+
+    def _sample(self, logits_row: torch.Tensor, uid: int, step: int) -> int:
+        """The admission's pick of token ``step`` of request ``uid``
+        (greedy, or from its stream), fetched with its one ``.item()``."""
+        dev = logits_row.device
+        pick = T.sample_tokens(logits_row[None], temperature=self.scfg.temperature,
+                               uids=torch.tensor([uid], device=dev),
+                               steps=torch.tensor([step], device=dev))
+        return int(pick.item())
 
     def _admit(self, req: Request, slot: _Slot) -> None:
         """Chunked prefill of ``req`` into ``slot``, with decode ticks for
         the active slots between chunks: fused into the slot's pages, or
-        streamed over a b=1 cache and scattered into the slot."""
+        streamed over a b=1 cache and scattered into the slot.  A shared
+        prefix is mapped first and only the tail is prefilled."""
+        shared_pages = 0
         if self.paged:
+            if self.scfg.prefix_sharing:
+                if self._gate_match and self._gate_match[0] == req.uid:
+                    _, shared_pages, blocks, probed = self._gate_match
+                else:  # a direct _admit call: no gate ran
+                    shared_pages, blocks, probed = self._lookup_prefix(req)
+                self._gate_match = None
+                if probed:  # one counted outcome per admission
+                    self.kv.registry.record_lookup(bool(shared_pages))
+                if shared_pages:
+                    self.kv.map_shared(slot.index, blocks)
+                    self.prefix_hits += 1
+                    self.prefix_pages_shared += shared_pages
             ok = self.kv.alloc(slot.index, len(req.tokens) + 1)
             assert ok, "admission checked free pages before popping the queue"
             # Until the slot goes active it is a padding row of the
-            # interleaved ticks: its writes must go to the trash page.
+            # interleaved ticks: its writes must go to the trash page, not
+            # into its reserved (possibly shared) pages.
             self.kv.shield(slot.index)
         if self.scfg.fused_prefill:
-            logits, pos = self._fused_prefill(req, slot)
+            logits, pos = self._fused_prefill(req, slot, shared_pages)
         else:
-            logits, pos = self._streamed_prefill(req, slot)
+            logits, pos = self._streamed_prefill(req, slot, shared_pages)
         if self.paged:
             self.kv.publish(slot.index)
-        first = int(torch.argmax(logits[0, -1]).item())  # the admission's one fetch
+            if self.scfg.prefix_sharing:
+                self.kv.register_prefix(req.tokens, slot.index,
+                                        min_pages=self.scfg.prefix_min_pages,
+                                        align_tokens=self.scfg.prefill_chunk)
+        first = self._sample(logits[0, -1], req.uid, 0)
         slot.uid = req.uid
         slot.prompt = req.tokens
         slot.cur = pos
@@ -399,18 +483,23 @@ class StreamedBatchEngine:
             if self.active_slots:
                 self._decode_tick()
 
-    def _fused_prefill(self, req: Request, slot: _Slot) -> tuple[torch.Tensor, int]:
-        """Each chunk's K/V written straight into ``slot``'s pages.  The
-        device row stays shielded for the interleaved ticks; the chunks get
-        a host row with the real pages, cut to the pages that cover the
-        context so far.  Returns (last logits, prompt length)."""
+    def _fused_prefill(self, req: Request, slot: _Slot,
+                       shared_pages: int) -> tuple[torch.Tensor, int]:
+        """Each chunk's K/V written straight into ``slot``'s pages, from
+        the end of its ``shared_pages`` mapped prefix pages (which the
+        chunks read back through the table).  The device row stays shielded
+        for the interleaved ticks; the chunks get a host row with the real
+        pages, cut to the pages that cover the context so far.  The chunk
+        grid is anchored at position 0, as a full prefill's.  Returns (last
+        logits, prompt length)."""
         own = self.kv.slot_pages(slot.index)
         row = np.zeros((1, self.kv.max_pages), np.int32)
         row[0, : len(own)] = own
-        tokens = torch.from_numpy(req.tokens[None]).to(self.device)
+        shared_len = shared_pages * self.scfg.block_size
+        tokens = torch.from_numpy(req.tokens[None, shared_len:].copy()).to(self.device)
         s_total = tokens.shape[1]
-        chunk = min(self.scfg.prefill_chunk, s_total)
-        pos = 0
+        chunk = min(self.scfg.prefill_chunk, shared_len + s_total)
+        pos = shared_len
         logits = None
         for lo in range(0, s_total, chunk):
             piece = tokens[:, lo: lo + chunk]
@@ -422,17 +511,27 @@ class StreamedBatchEngine:
             self._interleave()
         return logits, pos
 
-    def _streamed_prefill(self, req: Request, slot: _Slot) -> tuple[torch.Tensor, int]:
-        """The b=1 streamed prefill (non-fused paths): restore the longest
-        stored state snapshot of the prompt (if any, mamba) and stream the
-        rest, offering each chunk boundary for a snapshot; then scatter the
-        b=1 cache into the slot's pages, or overwrite its rows of the
-        contiguous cache whole (padding ticks filled them with garbage).
-        Returns (last logits, prompt length)."""
-        shared_len, caches = self.servable.lookup_snapshot(req.tokens)
-        if shared_len:
-            self.snapshot_hits += 1
-            self.snapshot_tokens_reused += shared_len
+    def _streamed_prefill(self, req: Request, slot: _Slot,
+                          shared_pages: int) -> tuple[torch.Tensor, int]:
+        """The b=1 streamed prefill (non-fused paths): load the slot's
+        ``shared_pages`` mapped prefix pages into the front of a b=1 cache,
+        or restore the longest stored state snapshot of the prompt (if any,
+        mamba), and stream the rest, offering each chunk boundary for a
+        snapshot; then scatter the b=1 cache into the slot's pages past the
+        shared ones, or overwrite its rows of the contiguous cache whole
+        (padding ticks filled them with garbage).  Returns (last logits,
+        prompt length)."""
+        if shared_pages:
+            # The pool pages are never rewritten: the slot reads them
+            # through its table; the copy is the tail's prefill context.
+            shared_len = shared_pages * self.scfg.block_size
+            caches = self.kv.load_prefix(self.servable.init_request_cache(),
+                                         self.kv.slot_pages(slot.index)[:shared_pages])
+        else:
+            shared_len, caches = self.servable.lookup_snapshot(req.tokens)
+            if shared_len:
+                self.snapshot_hits += 1
+                self.snapshot_tokens_reused += shared_len
         tokens = torch.from_numpy(req.tokens[None, shared_len:].copy()).to(self.device)
         logits, pos = None, shared_len
         for logits, caches, pos in self.servable.iter_prefill_chunks(
@@ -441,7 +540,7 @@ class StreamedBatchEngine:
             self.prefill_chunks += 1
             self._interleave()
         if self.paged:
-            self.kv.scatter(slot.index, caches, pos)
+            self.kv.scatter(slot.index, caches, pos, start_page=shared_pages)
         else:
             scatter_slot_state(self.caches, caches, slot.index)
         return logits, pos
@@ -497,9 +596,21 @@ class StreamedBatchEngine:
         else:
             self._plain_tick()
 
+    def _stream_args(self, act: list[_Slot]) -> tuple:
+        """At temperature, the (B,) uids and tokens emitted so far that key
+        each row's draws (zeros on padding rows); () when greedy."""
+        if self.scfg.temperature <= 0.0:
+            return ()
+        b = self.scfg.max_batch
+        uids, steps = np.zeros((b,), np.int32), np.zeros((b,), np.int32)
+        for s in act:
+            uids[s.index] = s.uid
+            steps[s.index] = len(s.emitted)
+        return (torch.from_numpy(uids).to(self.device), torch.from_numpy(steps).to(self.device))
+
     def _plain_tick(self) -> None:
-        """One batched greedy decode step for all slots (free ones pad);
-        the only device-to-host copy is the (B,) int32 picks."""
+        """One batched decode step for all slots (free ones pad); the only
+        device-to-host copy is the (B,) int32 picks."""
         if self.paged:
             self._fault_base_positions()
         act = self.active_slots
@@ -513,11 +624,12 @@ class StreamedBatchEngine:
             cur[s.index] = s.cur
         toks_d = torch.from_numpy(toks).to(self.device)
         cur_d = torch.from_numpy(cur).to(self.device)
+        keys = self._stream_args(act)
         if self.paged:
             nxt, self.kv.pools = self._decode(toks_d, self.kv.pools,
-                                              self.kv.device_page_table(), cur_d)
+                                              self.kv.device_page_table(), cur_d, *keys)
         else:
-            nxt, self.caches = self._decode(toks_d, self.caches, cur_d)
+            nxt, self.caches = self._decode(toks_d, self.caches, cur_d, *keys)
         self.decode_steps += 1
         picks = nxt.cpu().numpy()  # the tick's one device-to-host copy
         for s in act:
@@ -581,11 +693,13 @@ class StreamedBatchEngine:
             return
         dev = self.device
         toks_d, cur_d, d_len_d = (torch.from_numpy(a).to(dev) for a in (toks, cur, d_len))
+        keys = self._stream_args(act)
         if self.paged:
             emit, n_accept, self.kv.pools = self._verify(
-                toks_d, self.kv.pools, self.kv.device_page_table(), cur_d, d_len_d)
+                toks_d, self.kv.pools, self.kv.device_page_table(), cur_d, d_len_d, *keys)
         else:
-            emit, n_accept, self.caches = self._verify(toks_d, self.caches, cur_d, d_len_d)
+            emit, n_accept, self.caches = self._verify(toks_d, self.caches, cur_d, d_len_d,
+                                                       *keys)
         self.decode_steps += 1
         self.spec_ticks += 1
         # The tick's one device-to-host copy: (B, k+1) emitted tokens and
@@ -614,8 +728,21 @@ class StreamedBatchEngine:
         if self.paged:
             # Gate on cur + 1: the next tick writes at position cur, so a
             # page-aligned cur needs one more page than the snapshot holds.
+            # A registered prefix of the prompt is credited (re-mapped, not
+            # allocated) and retained prefix pages are reclaimed when short;
+            # the match -> reclaim -> match loop converges as the gate's.
             while self._preempted and any(s.free for s in self.slots):
-                if self.kv.pages_for(self._preempted[0].cur + 1) > self.kv.free_pages:
+                ev0 = self._preempted[0]
+                full = self.kv.pages_for(ev0.cur + 1)
+                fits = False
+                for _ in range(3):
+                    shared, _ = self._readmit_prefix(ev0)
+                    if full - shared <= self.kv.free_pages:
+                        fits = True
+                        break
+                    if not self.kv.reclaim_for(full - shared):
+                        break
+                if not fits:
                     break
                 self.readmit(self._preempted.popleft())
                 progressed = True
@@ -667,22 +794,41 @@ class StreamedBatchEngine:
         slot.prompt = None
         return ev
 
+    def _readmit_prefix(self, ev: EvictedRequest) -> tuple[int, list[int]]:
+        """The registered-prefix match of a readmission -> (n_pages,
+        blocks).  Matched blocks are byte-checked against the prompt and
+        immutable until a COW fork or a reclaim, so mapping them reproduces
+        the evicted rows of the prefix exactly."""
+        if not (self.paged and self.scfg.prefix_sharing
+                and ev.prompt is not None and len(ev.prompt) > 1):
+            return 0, []
+        chunk = min(self.scfg.prefill_chunk, len(ev.prompt))
+        return self.kv.lookup_prefix(ev.prompt, min_pages=self.scfg.prefix_min_pages,
+                                     align_tokens=chunk, count=False)
+
     def readmit(self, ev: EvictedRequest) -> int:
         """Write an evicted request back into any free slot; its positions
-        are kept, so decode resumes where it stopped.  Paged: pages through
-        the next write (``cur + 1``) are allocated first; ``RuntimeError``
-        when the pool is short.  Returns the slot index."""
+        are kept, so decode resumes where it stopped.  Paged: a registered
+        prefix of its prompt is re-mapped at refcount + 1 (its rows are not
+        scattered), then pages through the next write (``cur + 1``) are
+        allocated; ``RuntimeError`` when the pool is short.  Returns the
+        slot index."""
         slot = next((s for s in self.slots if s.free), None)
         if slot is None:
             raise RuntimeError("no free slot to readmit into")
         if self.paged:
+            shared_pages, blocks = self._readmit_prefix(ev)
+            if shared_pages:
+                self.kv.map_shared(slot.index, blocks)
             if not self.kv.alloc(slot.index, ev.cur + 1):
+                self.kv.release(slot.index)  # drop a mapped prefix cleanly
                 raise RuntimeError(
                     f"not enough free pages to readmit uid {ev.uid} (need "
                     f"{self.kv.pages_for(ev.cur + 1)}, free {self.kv.free_pages})")
-            # The reference re-maps a registered prompt prefix here first
-            # (prefix sharing, ROADMAP A3); without it every page is scattered.
-            self.kv.scatter(slot.index, ev.caches, ev.cur, start_page=0)
+            self.kv.scatter(slot.index, ev.caches, ev.cur, start_page=shared_pages)
+            if shared_pages:
+                self.readmit_prefix_hits += 1
+                self.readmit_prefix_pages += shared_pages
         else:
             scatter_slot_state(self.caches, ev.caches, slot.index)
         slot.uid = ev.uid
@@ -697,3 +843,11 @@ class StreamedBatchEngine:
         slot.seq = ev.seq
         self.peak_active = max(self.peak_active, len(self.active_slots))
         return slot.index
+
+    def save_prefixes(self) -> int:
+        """Write the prefix registry to ``scfg.prefix_store`` (the other half
+        of the restore at construction); returns the entries written (0
+        without a store or outside paged sharing)."""
+        if not (self.paged and self.scfg.prefix_sharing and self.scfg.prefix_store):
+            return 0
+        return self.kv.save_prefixes(self.scfg.prefix_store)

@@ -1,16 +1,23 @@
-"""The batched verify step of speculative decode (greedy), on the device.
+"""The batched verify step of speculative decode, on the device.
 
 One target step scores ``k + 1`` positions per slot — the pending token
 plus up to ``k`` draft tokens — through
 ``transformer.decode_step_multi_paged`` or, over a contiguous cache,
 ``transformer.decode_step_multi`` (causal masking inside the block),
-then applies the greedy acceptance rule on the device: accept the longest
-prefix of the draft that matches the target argmax chain; the position
-after it emits the target's own argmax (the bonus token).  By induction
-this emits exactly the tokens plain greedy decode would.
+then applies the acceptance rule on the device:
 
-Temperature sampling (rejection sampling, the reference's
-``verify_sampled``) is not ported yet: ROADMAP, temperature sampling.
+* **greedy**: accept the longest prefix of the draft that matches the
+  target argmax chain; the position after it emits the target's own argmax
+  (the bonus token).  By induction this emits exactly the tokens plain
+  greedy decode would.
+* **temperature** (``verify_sampled``): rejection sampling with the
+  drafter's point-mass proposal: draft token ``d_i`` is accepted with
+  probability ``p(d_i)``; at a rejection the emitted token is drawn from
+  the residual (``p`` with ``d_i`` masked), and full acceptance ends in a
+  fresh draw at the bonus position.  Every emitted token is marginally a
+  sample of the target.  The draws come from the request's own streams
+  (``runtime.sampling``), the accept draws and the sample draws from
+  separate tags.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ from typing import Callable
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.runtime import sampling
+
+NEG_INF = -1e30  # the reference's residual mask value
 
 
 def greedy_accept(
@@ -48,27 +58,83 @@ def verify_greedy(
     return target, greedy_accept(target, draft, d_len)
 
 
-def make_verifier(cfg, params, *, paged: bool, unembed: torch.Tensor) -> Callable:
-    """The engine's verify step, greedy (reference ``spec.make_verifier``):
+def _pos_keys(uids: torch.Tensor, steps: torch.Tensor, t: int, tag: int) -> torch.Tensor:
+    """(B, t) stream keys: slot b's position i draws from its request's
+    stream at step ``steps[b] + i``, under ``tag``."""
+    pos = steps.long()[:, None] + torch.arange(t, device=steps.device)[None, :]
+    return sampling.stream_keys(uids[:, None], pos, tag=tag)
 
-      paged:      ``fn(toks (B, T), pools, page_table, cur, d_len)``
-      contiguous: ``fn(toks (B, T), caches, cur, d_len)``
+
+def verify_sampled(
+    logits: torch.Tensor,  # (B, T, V) f32 target logits
+    draft: torch.Tensor,  # (B, T-1) int32
+    d_len: torch.Tensor,  # (B,) int32
+    uids: torch.Tensor,  # (B,) int32 request uids (stream identity)
+    steps: torch.Tensor,  # (B,) int32 tokens emitted so far per slot
+    temperature: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Temperature acceptance with a point-mass proposal (reference
+    ``spec.verify_sampled``): accept ``d_i`` with probability ``p(d_i)``
+    (tag 1's uniform below it); at the stopping position emit a draw from
+    the residual, ``p`` with the rejected token masked, or after full
+    acceptance a fresh draw from ``p`` at the bonus position (tag 2's
+    Gumbel noise, shared by both draws of a position, as the reference
+    shares its key).  Returns (emit (B, T) int32, n_accept (B,) int32)."""
+    b, t, v = logits.shape
+    scaled = logits.float() / temperature
+    p = torch.softmax(scaled, dim=-1)
+    idx = torch.arange(t - 1, device=logits.device)[None, :]
+    p_draft = p[:, :-1].gather(-1, draft.long()[..., None])[..., 0]
+    u = sampling.uniforms(_pos_keys(uids, steps, t - 1, tag=1), 1)[..., 0]  # (B, T-1)
+    accept = (u < p_draft) & (idx < d_len[:, None])
+    n_accept = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+
+    g = sampling.gumbel(_pos_keys(uids, steps, t, tag=2), v)
+    full = torch.argmax(scaled + g, dim=-1).to(torch.int32)  # (B, T)
+    hot = torch.zeros_like(scaled[:, :-1], dtype=torch.bool).scatter_(
+        -1, draft.long()[..., None], True)
+    resid = torch.argmax(torch.where(hot, NEG_INF, scaled[:, :-1]) + g[:, :-1],
+                         dim=-1).to(torch.int32)
+    # The stopping position's token: a rejection there (i < d_len) draws
+    # from the residual, running out of draft (i == d_len) draws fresh.
+    stop = torch.cat([torch.where(idx < d_len[:, None], resid, full[:, :-1]),
+                      full[:, -1:]], dim=1)
+    draft_pad = torch.cat([draft.to(torch.int32), torch.zeros_like(draft[:, :1],
+                                                                   dtype=torch.int32)], dim=1)
+    pos = torch.arange(t, device=logits.device)[None, :]
+    emit = torch.where(pos < n_accept[:, None], draft_pad,
+                       torch.where(pos == n_accept[:, None], stop, full))
+    return emit.to(torch.int32), n_accept
+
+
+def _accept(logits, toks, d_len, temperature, uids, steps):
+    if temperature > 0.0:
+        return verify_sampled(logits, toks[:, 1:], d_len, uids, steps, temperature)
+    return verify_greedy(logits, toks[:, 1:], d_len)
+
+
+def make_verifier(cfg, params, *, paged: bool, unembed: torch.Tensor,
+                  temperature: float = 0.0) -> Callable:
+    """The engine's verify step (reference ``spec.make_verifier``):
+
+      paged:      ``fn(toks (B, T), pools, page_table, cur, d_len[, uids, steps])``
+      contiguous: ``fn(toks (B, T), caches, cur, d_len[, uids, steps])``
 
     each returning ``(emit (B, T) int32, n_accept (B,) int32, caches)``.
     ``toks[:, 0]`` is each slot's pending token, ``toks[:, 1:]`` its draft
-    (zero past ``d_len``)."""
+    (zero past ``d_len``); ``uids`` and ``steps`` (tokens emitted so far)
+    key the draws at ``temperature`` > 0, greedy ignores them."""
+    temperature = float(temperature)
     if paged:
         @torch.inference_mode()
-        def fn(toks, pools, page_table, cur, d_len):
+        def fn(toks, pools, page_table, cur, d_len, uids=None, steps=None):
             logits, pools = T.decode_step_multi_paged(cfg, params, toks, pools, page_table,
                                                       cur, unembed=unembed)
-            emit, n_accept = verify_greedy(logits, toks[:, 1:], d_len)
-            return emit, n_accept, pools
+            return (*_accept(logits, toks, d_len, temperature, uids, steps), pools)
     else:
         @torch.inference_mode()
-        def fn(toks, caches, cur, d_len):
+        def fn(toks, caches, cur, d_len, uids=None, steps=None):
             logits, caches = T.decode_step_multi(cfg, params, toks, caches, cur,
                                                  unembed=unembed)
-            emit, n_accept = verify_greedy(logits, toks[:, 1:], d_len)
-            return emit, n_accept, caches
+            return (*_accept(logits, toks, d_len, temperature, uids, steps), caches)
     return fn

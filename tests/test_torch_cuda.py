@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain version, and
-the engine (paged, contiguous, scatter-after-prefill, under page pressure)
-on the card against the engine on the CPU.  Every test carries
+the engine (paged, contiguous, scatter-after-prefill, under page pressure,
+sharing a prefix, at temperature) on the card against the engine on the
+CPU, with the copy-on-write fork and the sampler's hash on the card.  Every test carries
 the ``cuda`` marker and skips without a card.  The file imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -23,6 +24,7 @@ leaves there (<= 8e-6 in the plain emulation) and a thirtieth of what P
 rounded once to bf16 leaves (>= 2.7e-3).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -41,7 +43,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import quant
 from repro_torch.kernels import ssd_chunk as SSD
 from repro_torch.models import transformer as T
-from repro_torch.runtime import serving
+from repro_torch.runtime import kv_cache, sampling, serving
 
 pytestmark = pytest.mark.cuda
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -377,6 +379,7 @@ def _serve_both(cfg, params, scfg, prompts, cuda):
         got = eng.run()
         out[dev] = (eng, [got[u] for u in uids], FA.KERNEL.launches - n0)
         if eng.paged:
+            eng.kv.clear_prefixes()  # the registry's retained pages, with sharing
             assert eng.kv.pages_in_use == 0
             eng.kv.check_invariants()
     return out
@@ -422,6 +425,94 @@ def test_pressured_paged_engine_on_card_equals_unpressured(cuda):
     for a, b, c in zip(tight["cuda"][1], tight["cpu"][1], free["cuda"][1]):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_cow_fork_on_card(cuda, kv_dtype):
+    """The COW fork of a shared bf16 (or int8 with its scales) page on the
+    card: the fork's codes and scale rows are bit-equal to the page's, and
+    a write to the fork leaves the sharer's page as it was."""
+    cfg = dataclasses.replace(configs.get_config("qwen3-4b"), n_layers=2)
+    kv = kv_cache.PagedKVCache(cfg, max_batch=2, max_seq=64, block_size=16,
+                               kv_dtype=kv_dtype, device=cuda)
+    assert kv.alloc(0, 16)
+    blk = kv.slot_pages(0)[0]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for c in kv.pools["blocks"].values():
+        for key, leaf in c.items():
+            rows = torch.randn(leaf[:, blk].shape, generator=gen, device=cuda)
+            if key.endswith("_scale"):
+                rows = rows.abs()
+            elif leaf.dtype == torch.int8:
+                rows = rows * 50
+            leaf[:, blk] = rows.to(leaf.dtype)
+    kv.map_shared(1, [blk])
+    assert kv.ensure_write(1, 5)
+    fork = kv.slot_pages(1)[0]
+    torch.cuda.synchronize()
+    assert fork != blk and kv.cow_forks == 1
+    for c in kv.pools["blocks"].values():
+        for key, leaf in c.items():
+            assert torch.equal(leaf[:, fork], leaf[:, blk]), key
+            assert leaf.device.type == "cuda"
+    c0 = next(iter(kv.pools["blocks"].values()))
+    before = c0["k"][:, blk].clone()
+    c0["k"][:, fork] = 1
+    assert torch.equal(c0["k"][:, blk], before)
+    kv.check_invariants()
+
+
+def test_shared_head_fused_prefill_on_card_equals_unshared(cuda):
+    """Smoke qwen3-4b at f32 with prompts sharing a 2-page head: the shared
+    serve on the card (its tails' chunks through the prefill kernel at
+    q_offset = the head) gives the unshared serve's tokens and the CPU's,
+    with the CPU's sharing counters and fewer prefill launches."""
+    cfg = configs.get_smoke_config("qwen3-4b")
+    params = T.init_params(cfg, 0, device="cpu")
+    scfg = dict(max_seq=96, prefill_chunk=16, max_new_tokens=8, max_batch=4,
+                block_size=16, paged=True)
+    rng = np.random.default_rng(41)
+    head = rng.integers(0, cfg.vocab_size, 32)
+    prompts = [np.concatenate([head, rng.integers(0, cfg.vocab_size, n)]).astype(np.int32)
+               for n in (8, 16, 24, 8)]
+    plain = _serve_both(cfg, params, scfg, prompts, cuda)
+    shared = _serve_both(cfg, params, dict(scfg, prefix_sharing=True), prompts, cuda)
+    for a, b, c in zip(shared["cuda"][1], shared["cpu"][1], plain["cuda"][1]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    eng, cpu = shared["cuda"][0], shared["cpu"][0]
+    assert eng.prefix_hits == cpu.prefix_hits == 3
+    assert eng.prefix_pages_shared == cpu.prefix_pages_shared
+    assert eng.kv.peak_pages_in_use < plain["cuda"][0].kv.peak_pages_in_use
+    assert shared["cuda"][2] < plain["cuda"][2]
+
+
+def test_sampler_hash_bit_equal_on_card(cuda):
+    """The stream keys and uniforms are integer arithmetic: bit-equal on
+    the card and the CPU; a temperature serve on the card gives the same
+    tokens paged and contiguous."""
+    rng = np.random.default_rng(0)
+    uids = torch.from_numpy(rng.integers(0, 2**31 - 1, 257))
+    steps = torch.from_numpy(rng.integers(0, 2**31 - 1, 257))
+    for tag in (0, 1, 2):
+        k_cpu = sampling.stream_keys(uids, steps, tag=tag)
+        k_gpu = sampling.stream_keys(uids.to(cuda), steps.to(cuda), tag=tag)
+        assert torch.equal(k_gpu.cpu(), k_cpu)
+        assert torch.equal(sampling.uniforms(k_gpu, 4096).cpu(),
+                           sampling.uniforms(k_cpu, 4096))
+    cfg = configs.get_smoke_config("qwen3-4b")
+    params = {k: _to(v, cuda) for k, v in T.init_params(cfg, 0, device="cpu").items()}
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (24, 32, 40)]
+    toks = []
+    for paged in (False, True):
+        eng = serving.StreamedBatchEngine(cfg, params, serving.ServeConfig(
+            max_seq=64, prefill_chunk=16, max_new_tokens=8, max_batch=3, block_size=16,
+            paged=paged, temperature=0.8), device=cuda)
+        uids_ = [eng.submit(p) for p in prompts]
+        out = eng.run()
+        toks.append([out[u] for u in uids_])
+    for a, b in zip(*toks):
+        np.testing.assert_array_equal(a, b)
 
 
 SSD_CASES = [dict(b=1, s=64, chunk=256), dict(b=1, s=36, chunk=256),

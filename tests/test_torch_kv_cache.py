@@ -1,7 +1,10 @@
 """The port's block allocator and paged pool against the reference's: the
 same scripted (and seeded random) sequences of alloc, shield, publish,
-ensure_write and release leave equal page tables, owned lists, refcounts
-and free lists, and ``check_invariants`` holds throughout."""
+ensure_write and release, and in the random ones prefix sharing too
+(register_prefix, a lookup mapped with map_shared, copy-on-write forks in
+ensure_write, reclaim_for), leave equal page tables, owned lists,
+refcounts, free lists and registries, and ``check_invariants`` holds
+throughout."""
 
 import numpy as np
 import pytest
@@ -31,6 +34,9 @@ def _assert_same(ref, port):
     assert port.allocator._ref == ref.allocator._ref
     assert (port.free_pages, port.pages_in_use, port.peak_pages_in_use) == (
         ref.free_pages, ref.pages_in_use, ref.peak_pages_in_use)
+    assert port.registry.entries() == ref.registry.entries()
+    assert (port.registry.hits, port.registry.misses, port.cow_forks) == (
+        ref.registry.hits, ref.registry.misses, ref.cow_forks)
     port.check_invariants()
     ref.check_invariants()
 
@@ -45,9 +51,45 @@ SCRIPT = [
 ]
 
 
+# Two token streams that registered prefixes and lookups are cut from.
+STREAMS = [np.arange(GEOM["max_seq"], dtype=np.int32),
+           (np.arange(GEOM["max_seq"], dtype=np.int32) * 7) % 61]
+
+
 def _apply(kv, op):
-    name, slot, *arg = op
-    return getattr(kv, name)(slot, *arg)
+    name, *arg = op
+    if name == "share":  # an empty slot maps the longest registered prefix
+        slot, stream, length = arg
+        if kv.slot_pages(slot):
+            return None
+        n, blocks = kv.lookup_prefix(STREAMS[stream][:length])
+        if n:
+            kv.map_shared(slot, blocks)
+        return n
+    if name == "register":  # publish the slot's whole pages under a stream
+        slot, stream = arg
+        pages = len(kv.slot_pages(slot))
+        return kv.register_prefix(STREAMS[stream][: pages * GEOM["block_size"]], slot)
+    return getattr(kv, name)(*arg)
+
+
+def _random_op(rng, sharing: bool):
+    kinds = ["alloc", "ensure_write", "shield", "publish", "release"]
+    if sharing:
+        kinds += ["share", "share", "register", "register", "reclaim_for"]
+    kind = str(rng.choice(kinds))
+    slot = int(rng.integers(GEOM["max_batch"]))
+    if kind == "alloc":
+        return (kind, slot, int(rng.integers(1, GEOM["max_seq"] + 1)))
+    if kind == "ensure_write":
+        return (kind, slot, int(rng.integers(GEOM["max_seq"])))
+    if kind == "share":
+        return (kind, slot, int(rng.integers(2)), int(rng.integers(1, GEOM["max_seq"] + 1)))
+    if kind == "register":
+        return (kind, slot, int(rng.integers(2)))
+    if kind == "reclaim_for":
+        return (kind, int(rng.integers(GEOM["num_blocks"])))
+    return (kind, slot)
 
 
 def test_scripted_sequence_matches_reference(cfgs):
@@ -61,13 +103,22 @@ def test_scripted_sequence_matches_reference(cfgs):
 def test_random_sequence_matches_reference(cfgs):
     ref, port = _pair(cfgs)
     rng = np.random.default_rng(0)
+    forks = 0
     for _ in range(300):
-        slot = int(rng.integers(GEOM["max_batch"]))
-        kind = rng.choice(["alloc", "ensure_write", "shield", "publish", "release"])
-        op = ((kind, slot, int(rng.integers(1, GEOM["max_seq"] + 1)))
-              if kind in ("alloc", "ensure_write") else (kind, slot))
-        if kind == "ensure_write":
-            op = (kind, slot, op[2] - 1)
+        op = _random_op(rng, sharing=True)
+        assert _apply(port, op) == _apply(ref, op), op
+        _assert_same(ref, port)
+        forks = port.cow_forks
+    assert forks > 0 and port.registry.hits > 0  # sharing and COW were exercised
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("sharing", [False, True], ids=["plain", "sharing"])
+def test_random_sequences_with_and_without_sharing(cfgs, seed, sharing):
+    ref, port = _pair(cfgs)
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        op = _random_op(rng, sharing)
         assert _apply(port, op) == _apply(ref, op), op
         _assert_same(ref, port)
 

@@ -79,18 +79,35 @@ QUANT_FLOOR = 0.5
 
 
 def test_engine_rejects_unported_features():
-    for bad in (dict(temperature=0.5), dict(prefix_sharing=True),
-                dict(spec_decode=True, temperature=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PS.ServeConfig(**bad)
-    # The contiguous cache is ported: the reference's default serves.
+    """Every reference ServeConfig feature is ported: the port's fields are
+    the reference's (less its TPU kernel switch and compile-cache caps),
+    and the port accepts and rejects what the reference does, with its
+    messages."""
+    import dataclasses
+    port = {f.name for f in dataclasses.fields(PS.ServeConfig)}
+    assert port <= {f.name for f in dataclasses.fields(RS.ServeConfig)}
+    assert {"temperature", "prefix_sharing", "prefix_min_pages", "prefix_store"} <= port
+    for ok in (dict(temperature=0.5), dict(paged=True, prefix_sharing=True),
+               dict(spec_decode=True, temperature=0.5),
+               dict(paged=True, prefix_sharing=True, prefix_min_pages=3,
+                    prefix_store="/x.npz", temperature=1.0, arch_kind="transformer"),
+               dict(paged=False, arch_kind="transformer")):
+        PS.ServeConfig(**ok)
+        RS.ServeConfig(**ok)
     assert PS.ServeConfig(paged=False, arch_kind="transformer").fused_prefill is False
-    with pytest.raises(NotImplementedError, match="temperature sampling"):
-        PS.ServeConfig(spec_decode=True, temperature=0.5)
-    with pytest.raises(ValueError, match="kv_dtype"):
-        PS.ServeConfig(kv_dtype="int4")
-    with pytest.raises(ValueError, match="spec_k"):
-        PS.ServeConfig(spec_decode=True, spec_k=0)
+    for bad, match in ((dict(temperature=-0.1), "temperature must be >= 0"),
+                       (dict(prefix_sharing=True), "requires paged=True"),
+                       (dict(paged=True, prefix_sharing=True, prefix_min_pages=0),
+                        "prefix_min_pages must be >= 1"),
+                       (dict(paged=True, prefix_store="/x.npz"), "requires prefix_sharing"),
+                       (dict(kv_dtype="int4"), "kv_dtype"),
+                       (dict(spec_decode=True, spec_k=0), "spec_k")):
+        with pytest.raises(ValueError, match=match):
+            PS.ServeConfig(**bad)
+        with pytest.raises(ValueError, match=match):
+            RS.ServeConfig(**bad)
+    with pytest.raises(NotImplementedError, match="mamba/hybrid"):
+        PS.ServeConfig(paged=True, prefix_sharing=True, arch_kind="mamba")
 
 
 @pytest.mark.parametrize("extra", [dict(kv_dtype="int8"), dict(kv_dtype="fp8"),
