@@ -124,6 +124,14 @@ Phases (any failed check raises, and the script exits non-zero):
      run; then the pinned
      H2D / D2H bandwidth of a 256 MB copy.  The improvement is reported,
      not asserted.
+On the card every serve's ticks, chunks and page moves replay CUDA graphs
+(runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
+eager step functions and holds the graphed serve to it (tokens identical,
+admission logits within the card-vs-CPU tolerance, bit-equality printed);
+each full-width serve prints its graphs captured, replays, capture ms and
+memory_reserved before and after; phases 5 and 6 serve 3 more times,
+dropping each engine, and check that memory_reserved does not grow; the
+launch counts include the graphs' replays.
 With --profile, phases 5, 5b and 6 add a torch.profiler breakdown (device
 busy time by kernel and by group, the paged-attention group's split and
 combine launches together; idle share) of the plain, oracle-spec, int8,
@@ -137,6 +145,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -735,7 +744,35 @@ def snapshot_prompts(vocab: int, lens=PROMPT_LENS) -> list[np.ndarray]:
             for n in lens]
 
 
-def serve(cfg, params, device, reqs, *, drafter=None, paged=True, **extra):
+def reserved_gib() -> float:
+    """``torch.cuda.memory_reserved()`` after a collection and an
+    ``empty_cache``, in GiB: what live tensors and graph pools hold."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+RESERVED_SLACK_GIB = 0.0625
+
+
+def check_engines_freed(cfg, params, reqs, label: str, n: int = 3) -> None:
+    """An engine's graphs, graph pool and caches go with it: ``n`` more
+    serves of ``reqs``, each engine dropped as it returns, must leave
+    ``memory_reserved`` (after a collection and an ``empty_cache``) where it
+    was before them, within RESERVED_SLACK_GIB."""
+    before = reserved_gib()
+    after = []
+    for _ in range(n):
+        serve(cfg, params, "cuda", reqs)
+        after.append(reserved_gib())
+    print(f"[graphs] {label}: memory_reserved {before:.3f} GiB before {n} more serves, "
+          f"{[round(a, 3) for a in after]} GiB after each (each engine dropped)")
+    check(max(after) <= before + RESERVED_SLACK_GIB,
+          f"{label}: memory_reserved grew from {before:.3f} to {max(after):.3f} GiB over "
+          f"{n} serves whose engines were dropped")
+
+
+def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, **extra):
     """Serve ``reqs`` on ``device`` over a paged pool (or, with
     ``paged=False``, the contiguous slot cache) with ServeConfig options
     ``extra``; returns (engine, tokens per request, admission logits per
@@ -743,12 +780,19 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, **extra):
     registry (with sharing) is saved to its store, if one is set, and
     dropped, so the pool check sees every page back.  The engine also keeps the
     seconds of each state snapshot it stored (its device-to-host copy) and
-    of each evict and readmit (host clock around a synchronize)."""
+    of each evict and readmit (host clock around a synchronize).  On the
+    card every step replays its CUDA graph; ``eager`` takes the engine's
+    capture backend away, so the card runs the step functions eagerly (the
+    yardstick the graphs are held to).  A full-width card serve prints its
+    graphs captured, replays, capture ms and ``memory_reserved`` before and
+    after it."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
 
     class Engine(StreamedBatchEngine):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
+            if eager:
+                self.graphs.capture = None
             self.logits, self.ticks, self.snapshot_s = {}, [], []
             self.evict_s, self.readmit_s = [], []
             offer = self.servable.maybe_snapshot
@@ -785,6 +829,8 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, **extra):
         def readmit(self, ev):
             return self._synced(super().readmit, self.readmit_s, ev)
 
+    full = device == "cuda" and cfg.n_layers > 2
+    before = reserved_gib() if full else 0.0
     max_seq = -(-(max(PROMPT_LENS) + NEW_TOKENS) // BLOCK) * BLOCK
     scfg = ServeConfig(max_seq=max_seq, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS,
                        max_batch=SLOTS, block_size=BLOCK, paged=paged, **extra)
@@ -795,6 +841,13 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, **extra):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if full:
+        after = reserved_gib()
+        g = eng.graphs
+        print(f"[graphs] {cfg.name} {'paged' if paged else 'contiguous'} "
+              f"{json.dumps(extra, default=str)}: {g.captured} graphs captured, {g.replays} "
+              f"replays, capture {g.capture_s * 1e3:.1f} ms; memory_reserved {before:.3f} GiB "
+              f"before, {after:.3f} GiB after")
     if eng.paged:
         eng.save_prefixes()  # with a prefix store; a no-op without one
         eng.kv.clear_prefixes()  # the registry's retained pages, with sharing
@@ -807,6 +860,24 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, **extra):
     return (eng, [out[u] for u in uids], [eng.logits[u] for u in uids], eng.ticks, wall)
 
 
+def graph_vs_eager(label, graphed, eager) -> None:
+    """Hold a graphed card serve against the same serve with the card's
+    eager step functions: greedy tokens identical, admission logits within
+    the card-vs-CPU tolerance; prints whether they are bit-equal."""
+    (_, tok_g, log_g, _, _), (_, tok_e, log_e, _, _) = graphed, eager
+    for i, (a, b) in enumerate(zip(tok_g, tok_e)):
+        check(np.array_equal(a, b), f"{label} request {i}: graphed {a} != eager {b}")
+    for i, (a, b) in enumerate(zip(log_g, log_e)):
+        check(torch.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+              f"{label} request {i}: graphed vs eager logits differ by "
+              f"{(a - b).abs().max().item():.3e}")
+    worst = max((a - b).abs().max().item() for a, b in zip(log_g, log_e))
+    bit = all(torch.equal(a, b) for a, b in zip(log_g, log_e))
+    print(f"[graphs] {label}: graphed card serve vs eager card serve: greedy tokens "
+          f"identical, admission logits {'bit-equal' if bit else f'max abs diff {worst:.3e}'}"
+          f" ({graphed[0].graphs.replays} replays, {eager[0].graphs.replays} eager)")
+
+
 def phase_card_vs_cpu() -> None:
     from repro_torch.configs import qwen3_4b
     from repro_torch.models import transformer as T
@@ -817,8 +888,11 @@ def phase_card_vs_cpu() -> None:
     gpu_params = to_device(cpu_params, "cuda")
 
     reqs = prompts(cfg.vocab_size)
-    _, tok_gpu, log_gpu, _, wall_gpu = serve(cfg, gpu_params, "cuda", reqs)
+    graphed = serve(cfg, gpu_params, "cuda", reqs)
+    _, tok_gpu, log_gpu, _, wall_gpu = graphed
     _, tok_cpu, log_cpu, _, wall_cpu = serve(cfg, cpu_params, "cpu", reqs)
+    graph_vs_eager("qwen3 2-layer f32 paged", graphed,
+                   serve(cfg, gpu_params, "cuda", reqs, eager=True))
     worst = 0.0
     for i, (a, b) in enumerate(zip(log_gpu, log_cpu)):
         worst = max(worst, (a - b).abs().max().item())
@@ -873,8 +947,11 @@ def phase_card_vs_cpu_mamba() -> None:
                             ("paged", prompts(cfg.vocab_size), dict(paged=True)),
                             ("snapshots", snapshot_prompts(cfg.vocab_size),
                              dict(paged=False, state_snapshots=True))):
-        eng_g, tok_g, log_g, _, wall_g = serve(cfg, gpu_params, "cuda", reqs, **kw)
+        graphed = serve(cfg, gpu_params, "cuda", reqs, **kw)
+        eng_g, tok_g, log_g, _, wall_g = graphed
         eng_c, tok_c, log_c, _, wall_c = serve(cfg, cpu_params, "cpu", reqs, **kw)
+        graph_vs_eager(f"mamba2 2-layer f32 {label}", graphed,
+                       serve(cfg, gpu_params, "cuda", reqs, eager=True, **kw))
         worst = max((a - b).abs().max().item() for a, b in zip(log_g, log_c))
         for i, (a, b) in enumerate(zip(log_g, log_c)):
             check(torch.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
@@ -971,6 +1048,11 @@ def counted_serve(cfg, params, reqs, **kw):
         want["flash_attention"] = cfg.n_layers * eng.prefill_chunks
     check(launches == want, f"{kw}: launches {launches} != {want} ({cfg.n_layers} layers "
           f"x {eng.decode_steps} ticks ({eng.spec_ticks} verify), {eng.prefill_chunks} chunks)")
+    # The counts above include the graphs' replays (runtime/graphs.py adds a
+    # graph's captured launches at each replay): every tick after a key's
+    # first replays a graph.
+    check(eng.graphs.replays > 0 and eng.graphs.captured > 0,
+          f"{kw}: {eng.graphs.captured} graphs captured, {eng.graphs.replays} replays")
     return out, launches
 
 
@@ -998,30 +1080,38 @@ def phase_main_path(res: dict, *, profile: bool = False) -> tuple[dict, list, di
     for name in ("paged_attention", "flash_attention"):
         check(launches[name] > 0, f"{name}: no launch on the main path")
         res[name]["launches"] = launches[name]
+    check_engines_freed(cfg, params, reqs, "qwen3-4b fused paged")
 
     # One 64-token chunk at q_offset 64 on its own, its writes routed to the
-    # trash page (an all-zero table row), timed with a synchronize.
-    chunk = eng.servable.chunk_fn()
-    piece = torch.from_numpy(reqs[0][None, 64:128].copy()).to("cuda")
-    pt = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
-    torch.cuda.synchronize()
-    t_chunk = []
+    # trash page (an all-zero table row), timed with a synchronize: the
+    # engine's graph of that key (captured in the serve), replayed, and the
+    # same step run eagerly.
+    graph = eng.servable.single._fused_chunk_fn(64, 64, eng.kv.pools)
+    piece = reqs[0][None, 64:128]
+    pt = np.zeros((1, 8), np.int32)
+    t_chunk, t_eager = [], []
     for _ in range(5):
-        t1 = time.perf_counter()
-        chunk(eng.kv.pools, pt, piece, 64)
-        torch.cuda.synchronize()
-        t_chunk.append(time.perf_counter() - t1)
+        for times, run in ((t_chunk, lambda: graph(tokens=piece, page_table=pt)),
+                           (t_eager, lambda: graph.fn(**graph.inputs))):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
     n_tok = sum(len(t) for t in toks)
     e2e = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
            "decode_ticks": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
            "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
            "prefill_chunk_ms": float(np.median(t_chunk[1:]) * 1e3),
+           "prefill_chunk_eager_ms": float(np.median(t_eager[1:]) * 1e3),
+           "graphs_captured": eng.graphs.captured, "graph_replays": eng.graphs.replays,
            "launches": launches, "page_bytes": eng.kv.page_bytes,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"[main] {len(reqs)} requests x {NEW_TOKENS} new tokens: {n_tok} tokens in "
           f"{wall:.3f}s = {e2e['tokens_per_s']:.1f} tok/s; decode tick p50 "
           f"{e2e['decode_tick_ms_p50']:.2f} ms over {eng.decode_steps} ticks; prefill "
-          f"chunk (64 tokens at q_offset 64) {e2e['prefill_chunk_ms']:.2f} ms; "
+          f"chunk (64 tokens at q_offset 64) {e2e['prefill_chunk_ms']:.2f} ms graphed, "
+          f"{e2e['prefill_chunk_eager_ms']:.2f} ms eager; "
           f"launches {launches} = {cfg.n_layers} x ({eng.decode_steps} ticks, "
           f"{eng.prefill_chunks} chunks)")
     print("[main] e2e " + json.dumps(e2e))
@@ -1489,6 +1579,8 @@ def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
           f"{cfg.vocab_size} (padded {cfg.padded_vocab}), bf16, {n_params / 1e9:.3f}B params, "
           f"init {time.perf_counter() - t0:.1f}s")
     reqs, shared = prompts(cfg.vocab_size), snapshot_prompts(cfg.vocab_size)
+    serve(cfg, params, "cuda", reqs, paged=False)  # warm-up
+    check_engines_freed(cfg, params, reqs, "mamba2-2.7b contiguous")
     out = {}
     runs = [("contiguous", reqs, dict(paged=False)), ("paged", reqs, dict(paged=True)),
             ("shared heads, no snapshots", shared, dict(paged=False)),
@@ -1531,23 +1623,30 @@ def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
                                                    out["shared heads, no snapshots"]["toks"])),
           "mamba: snapshot serve tokens differ from the same prompts served without")
 
-    # One 64-token prefill chunk at position 64 over a b=1 cache, synchronized.
+    # One 64-token prefill chunk at position 64 over a b=1 cache, synchronized:
+    # the chunk graph over the request cache (eager at its first use,
+    # captured at its second, timed from the third), and the eager prefill.
+    from repro_torch.runtime.kv_cache import zero_cache
     single = ServingEngine(cfg, params, eng.scfg, device="cuda",
                            unembed=T.unembed_f32(cfg, params))
     piece = torch.from_numpy(reqs[0][None].copy()).to("cuda")
-    t_chunk = []
-    for _ in range(6):
-        chunks = single.iter_prefill_chunks(piece)
-        next(chunks)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        next(chunks)
-        torch.cuda.synchronize()
-        t_chunk.append(time.perf_counter() - t1)
+    t_chunk, t_eager = [], []
+    for _ in range(7):
+        graphed = single.iter_prefill_chunks(reqs[0][None],
+                                             caches=zero_cache(single.request_cache()))
+        for times, chunks in ((t_chunk, graphed), (t_eager, single.iter_prefill_chunks(piece))):
+            next(chunks)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            next(chunks)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
     summary = {k: {f: v for f, v in r.items() if f != "toks"} for k, r in out.items()}
-    summary["prefill_chunk_ms"] = float(np.median(t_chunk[1:]) * 1e3)
+    summary["prefill_chunk_ms"] = float(np.median(t_chunk[2:]) * 1e3)
+    summary["prefill_chunk_eager_ms"] = float(np.median(t_eager[2:]) * 1e3)
     print(f"[mamba] prefill chunk (64 tokens at position 64, b=1) "
-          f"{summary['prefill_chunk_ms']:.2f} ms")
+          f"{summary['prefill_chunk_ms']:.2f} ms graphed, "
+          f"{summary['prefill_chunk_eager_ms']:.2f} ms eager")
     print("[mamba] serves " + json.dumps(summary))
     return summary
 

@@ -91,12 +91,18 @@ def build(sources: tuple[str, ...] = SOURCES, *, ptxas_info: bool = False
     return secs
 
 
+KERNELS: list[CudaKernel] = []  # every kernel object, in creation order
+
+
 class CudaKernel:
     """One kernel of a built library: its C entry point, bound with ctypes,
     and a plain count of the launches made through :meth:`launch`.
 
     The C function launches on the stream it is given and returns
-    ``cudaGetLastError()``; a non-zero code raises here.
+    ``cudaGetLastError()``; a non-zero code raises here.  Under a CUDA graph
+    capture the call records the launch instead of running it, so
+    ``runtime.graphs`` takes the count of a capture back out and adds it on
+    every replay (every kernel is in :data:`KERNELS` for that).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -106,6 +112,7 @@ class CudaKernel:
         self.launches = 0
         self._lib = None
         self._fn = None
+        KERNELS.append(self)
 
     def _bind(self):
         if self._fn is None:

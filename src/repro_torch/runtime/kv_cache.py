@@ -42,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import quant
 from repro_torch.models import transformer as T
+from repro_torch.runtime.graphs import _JIT_CACHE_CAP, Graphs, StepGraph, lru_get
 
 #: On-disk prefix-store schema (the reference's); a mismatched file is
 #: ignored wholesale (cold start), never misread.
@@ -49,6 +50,26 @@ PREFIX_STORE_SCHEMA = 1
 
 TRASH_PAGE = 0  # physical block 0: sink for padding writes, never allocated
 PAGED_LEAVES = ("k", "v", "k_scale", "v_scale")  # per-page leaves; the rest are per slot
+
+
+def zero_cache(caches: dict) -> dict:
+    """Zero every leaf of a cache tree in place; returns it."""
+    for c in caches["blocks"].values():
+        for leaf in c.values():
+            leaf.zero_()
+    return caches
+
+
+def copy_front(dst: dict, src: dict) -> None:
+    """Copy each leaf of ``src`` into the front of ``dst``'s leaf (the K/V
+    rows a b=1 cache holds, or a per-slot state leaf whole), in place."""
+    for name, c in src["blocks"].items():
+        for key, leaf in c.items():
+            d = dst["blocks"][name][key]
+            if key in ("k", "v"):
+                d[:, :, : leaf.shape[2]].copy_(leaf)
+            else:
+                d.copy_(leaf)
 
 
 def scatter_slot_state(dst: dict, src: dict, slot: int) -> None:
@@ -375,11 +396,20 @@ class PoolStats:
 
 
 class PagedKVCache:
-    """Device page pools + host page tables for the batched engine."""
+    """Device page pools + host page tables for the batched engine.
+
+    The page moves (``scatter``, ``gather``, ``load_prefix``) run as step
+    graphs keyed by page count, in LRU caches capped by ``jit_cache_cap``
+    (``_JIT_CACHE_CAP`` when None), as the reference's jitted helpers.  The
+    page list and the slot are static index inputs, so a graph bakes in
+    neither.  A move reads or writes the b=1 ``staging`` cache (the
+    engine's request cache, or the pool's own made at first use); a cache
+    that is not it is copied in or out around the graph."""
 
     def __init__(self, cfg: ModelConfig, *, max_batch: int, max_seq: int,
                  block_size: int, num_blocks: int | None = None,
-                 kv_dtype: str = "fp32", device=None):
+                 kv_dtype: str = "fp32", device=None, jit_cache_cap: int | None = None,
+                 graphs: Graphs | None = None, staging=None):
         if max_seq % block_size != 0:
             raise ValueError(
                 f"max_seq {max_seq} must be a multiple of block_size {block_size}")
@@ -405,6 +435,22 @@ class PagedKVCache:
         # Did the newest lookup_prefix probe at all?  (The engine counts one
         # outcome per admission, and none for a prompt too short to probe.)
         self.last_lookup_probed = False
+        self.graphs = graphs if graphs is not None else Graphs(self.device)
+        self._jit_cap = jit_cache_cap if jit_cache_cap else _JIT_CACHE_CAP
+        self._scatter_jit: collections.OrderedDict = collections.OrderedDict()
+        self._gather_jit: collections.OrderedDict = collections.OrderedDict()
+        self._load_jit: collections.OrderedDict = collections.OrderedDict()
+        self._staging_fn = staging
+        self._staging: dict | None = None
+
+    def staging(self) -> dict:
+        """The b=1 full-length cache the page moves read and write."""
+        if self._staging_fn is not None:
+            return self._staging_fn()
+        if self._staging is None:
+            self._staging = T.init_cache(self.cfg, 1, self.max_seq, ring=False,
+                                         device=self.device)
+        return self._staging
 
     # -- accounting ------------------------------------------------------------
 
@@ -553,7 +599,9 @@ class PagedKVCache:
         Over int8/fp8 pools each page is quantized as it is written
         (``scales_of`` over its rows, then ``quantize``), so codes and
         scales move together.  The slot must own ``pages_for(length)``
-        pages, and the target pages must be its alone."""
+        pages, and the target pages must be its alone.  ``caches`` that is
+        not the staging cache (a readmission's gathered pages) is copied
+        into its front first."""
         n_total = self.pages_for(length)
         n = n_total - start_page
         assert n > 0 and len(self._owned[slot]) >= n_total, (
@@ -561,73 +609,115 @@ class PagedKVCache:
         target = self._owned[slot][start_page:n_total]
         assert all(self.allocator.refcount(p) == 1 for p in target), (
             "scatter into a shared page would corrupt its sharers", target)
-        bs = self.block_size
-        pages = torch.tensor(target, dtype=torch.long, device=self.device)
-        row0 = start_page * bs
-        for name, c in self.pools["blocks"].items():
-            src = caches["blocks"][name]
-            for key, leaf in c.items():
-                if key not in PAGED_LEAVES:  # per-slot state (mamba ssm/conv)
-                    leaf[:, slot: slot + 1].copy_(src[key])
-                    continue
-                if key.endswith("_scale"):
-                    continue  # written beside its data leaf
-                rows = src[key][:, 0, row0: row0 + n * bs]
-                rows = rows.reshape(rows.shape[0], n, bs, *rows.shape[2:])
-                skey = f"{key}_scale"
-                if skey in c:
-                    scales = quant.scales_of(rows, self.kv_dtype)
-                    leaf[:, pages] = quant.quantize(rows, scales, self.kv_dtype)
-                    c[skey][:, pages] = scales
-                else:
-                    leaf[:, pages] = rows.to(leaf.dtype)
+        if caches is not self.staging():
+            copy_front(self.staging(), caches)
+        row0 = start_page * self.block_size
+        step = lru_get(self._scatter_jit, n, lambda: self._make_scatter(n), cap=self._jit_cap)
+        step(pages=target, rows=np.arange(row0, row0 + n * self.block_size), slot=slot)
+
+    def _make_scatter(self, n: int) -> StepGraph:
+        """Static inputs ``pages`` (n,), ``rows`` (n * block_size,) of the
+        staging cache, ``slot`` (1,)."""
+        bs, pools, src_tree, kv_dtype = self.block_size, self.pools, self.staging(), self.kv_dtype
+
+        @torch.inference_mode()
+        def fn(pages, rows, slot):
+            for name, c in pools["blocks"].items():
+                src = src_tree["blocks"][name]
+                for key, leaf in c.items():
+                    if key not in PAGED_LEAVES:  # per-slot state (mamba ssm/conv)
+                        leaf.index_copy_(1, slot, src[key])
+                        continue
+                    if key.endswith("_scale"):
+                        continue  # written beside its data leaf
+                    r = src[key][:, 0].index_select(1, rows)
+                    r = r.reshape(r.shape[0], n, bs, *r.shape[2:])
+                    skey = f"{key}_scale"
+                    if skey in c:
+                        scales = quant.scales_of(r, kv_dtype)
+                        leaf[:, pages] = quant.quantize(r, scales, kv_dtype)
+                        c[skey][:, pages] = scales
+                    else:
+                        leaf[:, pages] = r.to(leaf.dtype)
+        return StepGraph(self.graphs, fn, {"pages": ((n,), torch.long),
+                                           "rows": ((n * bs,), torch.long),
+                                           "slot": ((1,), torch.long)})
 
     def gather(self, slot: int, length: int) -> dict:
         """``slot``'s first ``pages_for(length)`` pages as a b=1 contiguous
         cache of ``n_pages * block_size`` rows, dequantized to
         ``compute_dtype`` over int8/fp8 pools, beside a copy of its per-slot
         state rows (evict: the page contents travel with the request).
-        Always a copy."""
+        Always a copy of its own."""
         n = self.pages_for(length)
         assert len(self._owned[slot]) >= n, (slot, length, self._owned[slot])
-        pages = torch.tensor(self._owned[slot][:n], dtype=torch.long, device=self.device)
-        out = {}
-        for name, c in self.pools["blocks"].items():
-            oc = {}
-            for key, leaf in c.items():
-                if key not in PAGED_LEAVES:
-                    oc[key] = leaf[:, slot: slot + 1].clone()
-                    continue
-                if key.endswith("_scale"):
-                    continue  # folded into the dequantized rows
-                g = leaf[:, pages]  # (r, n, bs, hkv, hd), a copy
-                skey = f"{key}_scale"
-                if skey in c:
-                    g = quant.dequantize(g, c[skey][:, pages]).to(self.compute_dtype)
-                oc[key] = g.reshape(g.shape[0], n * self.block_size, *g.shape[3:])[:, None]
-            out[name] = oc
-        return {"blocks": out}
+        step = lru_get(self._gather_jit, n, lambda: self._make_gather(n), cap=self._jit_cap)
+        out = step(pages=self._owned[slot][:n], slot=slot)
+        return {"blocks": {name: {k: v.clone() for k, v in c.items()}
+                           for name, c in out["blocks"].items()}}
+
+    def _make_gather(self, n: int) -> StepGraph:
+        """Static inputs ``pages`` (n,) and ``slot`` (1,)."""
+        bs, pools, dtype = self.block_size, self.pools, self.compute_dtype
+
+        @torch.inference_mode()
+        def fn(pages, slot):
+            out = {}
+            for name, c in pools["blocks"].items():
+                oc = {}
+                for key, leaf in c.items():
+                    if key not in PAGED_LEAVES:
+                        oc[key] = leaf.index_select(1, slot)
+                        continue
+                    if key.endswith("_scale"):
+                        continue  # folded into the dequantized rows
+                    g = leaf[:, pages]  # (r, n, bs, hkv, hd), a copy
+                    skey = f"{key}_scale"
+                    if skey in c:
+                        g = quant.dequantize(g, c[skey][:, pages]).to(dtype)
+                    oc[key] = g.reshape(g.shape[0], n * bs, *g.shape[3:])[:, None]
+                out[name] = oc
+            return {"blocks": out}
+        return StepGraph(self.graphs, fn, {"pages": ((n,), torch.long),
+                                           "slot": ((1,), torch.long)})
 
     def load_prefix(self, caches: dict, blocks: list[int]) -> dict:
         """Copy ``blocks``' rows into the front of a b=1 contiguous cache,
         dequantized over int8 / fp8 pools: the prefill context of a
         non-fused admission's uncovered tail.  In place; returns
-        ``caches``."""
+        ``caches`` (copied out of the staging cache when it is not it)."""
         n = len(blocks)
         assert n > 0
-        pages = torch.tensor(blocks, dtype=torch.long, device=self.device)
-        for name, dst in caches["blocks"].items():
-            c = self.pools["blocks"].get(name, {})
-            for key in ("k", "v"):
-                if key not in c or key not in dst:
-                    continue
-                g = c[key][:, pages]  # (r, n, bs, hkv, hd)
-                skey = f"{key}_scale"
-                if skey in c:
-                    g = quant.dequantize(g, c[skey][:, pages])
-                rows = g.reshape(g.shape[0], n * self.block_size, *g.shape[3:])
-                dst[key][:, 0, : n * self.block_size] = rows.to(dst[key].dtype)
+        step = lru_get(self._load_jit, n, lambda: self._make_load(n), cap=self._jit_cap)
+        step(pages=blocks)
+        staged = self.staging()
+        if caches is not staged:
+            rows = n * self.block_size
+            for name, dst in caches["blocks"].items():
+                for key in ("k", "v"):
+                    if key in dst and key in self.pools["blocks"].get(name, {}):
+                        dst[key][:, 0, :rows] = staged["blocks"][name][key][:, 0, :rows]
         return caches
+
+    def _make_load(self, n: int) -> StepGraph:
+        """Static input ``pages`` (n,); writes the staging cache's first
+        ``n * block_size`` K/V rows."""
+        bs, pools, dst_tree = self.block_size, self.pools, self.staging()
+
+        @torch.inference_mode()
+        def fn(pages):
+            for name, dst in dst_tree["blocks"].items():
+                c = pools["blocks"].get(name, {})
+                for key in ("k", "v"):
+                    if key not in c or key not in dst:
+                        continue
+                    g = c[key][:, pages]  # (r, n, bs, hkv, hd)
+                    skey = f"{key}_scale"
+                    if skey in c:
+                        g = quant.dequantize(g, c[skey][:, pages])
+                    rows = g.reshape(g.shape[0], n * bs, *g.shape[3:])
+                    dst[key][:, 0, : n * bs] = rows.to(dst[key].dtype)
+        return StepGraph(self.graphs, fn, {"pages": ((n,), torch.long)})
 
     def device_page_table(self) -> torch.Tensor:
         """The host table as an int32 tensor on the pools' device."""

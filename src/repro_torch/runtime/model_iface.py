@@ -33,7 +33,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.runtime import serving, spec
-from repro_torch.runtime.kv_cache import PagedKVCache, StateStore
+from repro_torch.runtime.graphs import Graphs
+from repro_torch.runtime.kv_cache import PagedKVCache, StateStore, copy_front
 
 
 def arch_kind_of(cfg: ModelConfig) -> str:
@@ -49,7 +50,8 @@ def arch_kind_of(cfg: ModelConfig) -> str:
     return "transformer"
 
 
-def build_servable(cfg: ModelConfig, params: dict, scfg, *, device) -> ServableModel:
+def build_servable(cfg: ModelConfig, params: dict, scfg, *, device,
+                   graphs: Graphs | None = None) -> ServableModel:
     """The servable for ``cfg``, or a clean rejection.  Stamps
     ``scfg.arch_kind`` and re-runs the arch-dependent flag validation, so a
     ``ServeConfig`` built before the model was known still fails fast."""
@@ -61,13 +63,14 @@ def build_servable(cfg: ModelConfig, params: dict, scfg, *, device) -> ServableM
     scfg.arch_kind = kind
     scfg.validate_arch()
     cls = {"transformer": TransformerServable, "mamba": MambaServable}[kind]
-    return cls(cfg, params, scfg, device=device)
+    return cls(cfg, params, scfg, device=device, graphs=graphs)
 
 
 class ServableModel:
     """The base contract; subclasses override what their state changes."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device):
+    def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device,
+                 graphs: Graphs | None = None):
         T.check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -75,8 +78,9 @@ class ServableModel:
         self.device = device
         # One f32 output matrix for every step (a copy only for bf16 params).
         self.unembed = T.unembed_f32(cfg, params)
+        # The b=1 prefill and the chunk-graph cache (on the engine's graphs).
         self.single = serving.ServingEngine(cfg, params, scfg, device=device,
-                                            unembed=self.unembed)
+                                            unembed=self.unembed, graphs=graphs)
         #: StateStore when the arch supports recurrent-state snapshots
         self.snapshots: StateStore | None = None
 
@@ -84,12 +88,9 @@ class ServableModel:
         s = self.scfg
         return PagedKVCache(self.cfg, max_batch=s.max_batch, max_seq=s.max_seq,
                             block_size=s.block_size, num_blocks=s.num_blocks,
-                            kv_dtype=s.kv_dtype, device=self.device)
-
-    def init_request_cache(self) -> dict:
-        """A b=1 full-length contiguous cache: the streamed prefill's
-        context (a shared prefix is loaded into its front)."""
-        return T.init_cache(self.cfg, 1, self.scfg.max_seq, ring=False, device=self.device)
+                            kv_dtype=s.kv_dtype, device=self.device,
+                            jit_cache_cap=s.page_jit_cap, graphs=self.single.graphs,
+                            staging=self.single.request_cache)
 
     def init_slot_caches(self, bsz: int) -> dict:
         """The contiguous slot cache of the batched engine: full-length
@@ -98,8 +99,9 @@ class ServableModel:
         return T.init_cache(self.cfg, bsz, self.scfg.max_seq, ring=False,
                             device=self.device)
 
-    def iter_prefill_chunks(self, tokens: torch.Tensor, *, caches=None, pos0: int = 0):
-        """The streamed b=1 prefill of one admission (non-fused path)."""
+    def iter_prefill_chunks(self, tokens, *, caches=None, pos0: int = 0):
+        """The streamed b=1 prefill of one admission (non-fused path): the
+        chunk graphs over ``single.request_cache()``."""
         return self.single.iter_prefill_chunks(tokens, caches=caches, pos0=pos0)
 
     def decode_fn(self, *, paged: bool) -> Callable:
@@ -125,9 +127,12 @@ class ServableModel:
                                            steps=steps)
         return fn
 
-    def lookup_snapshot(self, tokens: np.ndarray) -> tuple[int, dict | None]:
+    def lookup_snapshot(self, tokens: np.ndarray, *, into: dict | None = None
+                        ) -> tuple[int, dict | None]:
         """Longest stored chunk-aligned proper-prefix state snapshot of
-        ``tokens`` -> (n_tokens, device caches); (0, None) on a miss."""
+        ``tokens`` -> (n_tokens, device caches): copied into ``into`` (the
+        request cache) when given, else a fresh device copy; (0, None) on a
+        miss."""
         return 0, None
 
     def maybe_snapshot(self, tokens: np.ndarray, caches: dict, pos: int) -> None:
@@ -140,18 +145,6 @@ class TransformerServable(ServableModel):
     or a b=1 streamed prefill scattered into pages) or the contiguous slot
     cache, with speculative verify (KV writes roll back, so
     verify-and-truncate is safe)."""
-
-    def chunk_fn(self) -> Callable:
-        """``fn(pools, page_table, tokens, pos0) -> (logits (1, 1, V),
-        pools)``: one prompt chunk written straight into the pool through
-        ``page_table`` (the pages covering the context so far)."""
-        cfg, params, unembed = self.cfg, self.params, self.unembed
-
-        @torch.inference_mode()
-        def fn(pools, page_table, tokens, pos0):
-            return T.prefill_chunk_paged(cfg, params, tokens, pools, page_table,
-                                         pos0, unembed=unembed)
-        return fn
 
     def verify_fn(self, *, paged: bool) -> Callable:
         """The speculative verify step on the device, greedy or rejection
@@ -170,19 +163,23 @@ class MambaServable(ServableModel):
     prefix of the prompt and streams only the uncovered tail.  Snapshots
     are host copies, since the port updates caches in place."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device):
-        super().__init__(cfg, params, scfg, device=device)
+    def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device,
+                 graphs: Graphs | None = None):
+        super().__init__(cfg, params, scfg, device=device, graphs=graphs)
         if scfg.state_snapshots:
             self.snapshots = StateStore()
 
-    def lookup_snapshot(self, tokens: np.ndarray) -> tuple[int, dict | None]:
+    def lookup_snapshot(self, tokens: np.ndarray, *, into: dict | None = None
+                        ) -> tuple[int, dict | None]:
         if self.snapshots is None:
             return 0, None
         n, snap = self.snapshots.lookup(np.asarray(tokens, np.int32),
                                         align_tokens=self.scfg.prefill_chunk)
         if not n:
             return 0, None
-        # A fresh device copy: the prefill continues in place on it.
+        if into is not None:  # the prefill continues in place on it
+            copy_front(into, snap)
+            return n, into
         return n, _tree_to(snap, self.device)
 
     def maybe_snapshot(self, tokens: np.ndarray, caches: dict, pos: int) -> None:

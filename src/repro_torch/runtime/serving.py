@@ -66,7 +66,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import quant
 from repro_torch.models import transformer as T
 from repro_torch.runtime import spec
-from repro_torch.runtime.kv_cache import gather_slot_state, scatter_slot_state
+from repro_torch.runtime.graphs import _CHUNK_JIT_CAP, Graphs, StepGraph, lru_get
+from repro_torch.runtime.kv_cache import gather_slot_state, scatter_slot_state, zero_cache
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -100,6 +101,9 @@ class ServeConfig:
     # Path: persist the prefix registry across engines (restored at
     # construction, saved by engine.save_prefixes; a stale store is ignored).
     prefix_store: str | None = None
+    # Step-graph cache caps (runtime.graphs); None = the module defaults.
+    chunk_jit_cap: int | None = None  # per-(len, first, pos0) prefill chunk graphs
+    page_jit_cap: int | None = None  # per-n_pages scatter / gather / load graphs
 
     def __post_init__(self) -> None:
         for name in ("max_seq", "prefill_chunk", "max_new_tokens", "max_batch",
@@ -109,6 +113,10 @@ class ServeConfig:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, got {self.temperature}")
+        for cap in ("chunk_jit_cap", "page_jit_cap"):
+            if getattr(self, cap) is not None and getattr(self, cap) < 1:
+                raise ValueError(
+                    f"{cap} must be >= 1 when set, got {getattr(self, cap)}")
         quant.validate_kv_dtype(self.kv_dtype)
         if quant.is_quantized(self.kv_dtype) and not self.paged:
             raise ValueError(
@@ -178,36 +186,98 @@ class ServeConfig:
 
 class ServingEngine:
     """The b=1 streamed prefill of one admission (the reference's
-    ``ServingEngine.iter_prefill_chunks``) over a contiguous cache, and
-    ``generate``, the one-batch-at-a-time decode after it."""
+    ``ServingEngine.iter_prefill_chunks``) and the batched engine's prefill
+    chunk graphs, in the LRU cache ``_chunk_jit`` capped by
+    ``_chunk_jit_cap`` as the reference's: b=1 streamed chunks keyed
+    ``(chunk_len, first, pos0)`` over the engine-owned request cache, fused
+    chunks keyed ``("fused", chunk_len, pos0)`` over the page pool.  Also
+    ``generate``, the one-batch-at-a-time decode, which stays eager."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device, unembed):
+    def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device, unembed,
+                 graphs: Graphs | None = None):
         self.cfg, self.params, self.scfg, self.device = cfg, params, scfg, device
         self.unembed = unembed
+        self.graphs = graphs if graphs is not None else Graphs(device)
+        self._chunk_jit: collections.OrderedDict = collections.OrderedDict()
+        self._chunk_jit_cap = scfg.chunk_jit_cap or _CHUNK_JIT_CAP
+        self._request_cache: dict | None = None
 
-    def iter_prefill_chunks(self, tokens: torch.Tensor, *, caches=None, pos0: int = 0
+    def request_cache(self) -> dict:
+        """The b=1 full-length contiguous cache every admission's streamed
+        prefill runs over (admissions are serial), made at first use and
+        never replaced: the chunk graphs and the pool's page moves hold its
+        addresses.  The admission zeroes it (:func:`zero_cache`)."""
+        if self._request_cache is None:
+            # The streamed prefill needs full-length caches (no SWA ring).
+            self._request_cache = T.init_cache(self.cfg, 1, self.scfg.max_seq, ring=False,
+                                               device=self.device)
+        return self._request_cache
+
+    def _prefill_chunk_fn(self, chunk_len: int, first: bool, pos0: int) -> StepGraph:
+        """The graph of one b=1 prompt chunk over the request cache; static
+        input ``tokens`` (1, chunk_len), output the last logits (1, 1, V)."""
+        def make():
+            cfg, params, unembed = self.cfg, self.params, self.unembed
+            caches = self.request_cache()
+
+            @torch.inference_mode()
+            def fn(tokens):
+                return T.prefill_chunk(cfg, params, tokens, caches, pos0, unembed=unembed)[0]
+            return StepGraph(self.graphs, fn, {"tokens": ((1, chunk_len), torch.int32)})
+        return lru_get(self._chunk_jit, (chunk_len, first, pos0), make,
+                       cap=self._chunk_jit_cap)
+
+    def _fused_chunk_fn(self, chunk_len: int, pos0: int, pools: dict) -> StepGraph:
+        """The graph of one prompt chunk written straight into ``pools``
+        (the engine's, always the same); static inputs ``tokens`` (1,
+        chunk_len) and ``page_table`` (1, pages covering the context so
+        far), output the last logits (1, 1, V)."""
+        def make():
+            cfg, params, unembed = self.cfg, self.params, self.unembed
+            n_pages = -(-(pos0 + chunk_len) // self.scfg.block_size)
+
+            @torch.inference_mode()
+            def fn(tokens, page_table):
+                return T.prefill_chunk_paged(cfg, params, tokens, pools, page_table, pos0,
+                                             unembed=unembed)[0]
+            return StepGraph(self.graphs, fn, {"tokens": ((1, chunk_len), torch.int32),
+                                               "page_table": ((1, n_pages), torch.int32)})
+        return lru_get(self._chunk_jit, ("fused", chunk_len, pos0), make,
+                       cap=self._chunk_jit_cap)
+
+    def iter_prefill_chunks(self, tokens, *, caches=None, pos0: int = 0
                             ) -> Iterator[tuple[torch.Tensor, dict, int]]:
         """Yield (logits-so-far (1, 1, V), caches, position after the chunk)
-        per prompt chunk.  ``caches``/``pos0`` continue a prefill whose first
-        ``pos0`` tokens are already in the cache (a restored snapshot).  The
-        chunk grid is anchored at position 0 (the chunk size is picked from
-        the *full* length ``pos0 + s``), so a continued prefill dispatches
-        the chunks a full prefill would."""
+        per prompt chunk.  ``caches`` None: an eager prefill of ``tokens``
+        (B, S) over a fresh cache (``generate``).  Else ``caches`` is
+        :meth:`request_cache`, holding the first ``pos0`` tokens (zeros, a
+        restored snapshot or a loaded prefix), and each chunk of ``tokens``
+        (1, S) runs its graph; its logits are good until the engine's next
+        replay.  The chunk grid is anchored at position 0 (the chunk size is
+        picked from the *full* length ``pos0 + s``), so a continued prefill
+        dispatches the chunks a full prefill would."""
         cfg, params, unembed = self.cfg, self.params, self.unembed
         b, s = tokens.shape
-        if caches is None:
+        graphed = caches is not None
+        if graphed:
+            assert caches is self.request_cache(), "chunk graphs run over the request cache"
+            tokens = tokens.cpu().numpy() if isinstance(tokens, torch.Tensor) else tokens
+        else:
             assert pos0 == 0, "a continued prefill needs its context cache"
-            # The streamed prefill needs full-length caches (no SWA ring).
             caches = T.init_cache(cfg, b, self.scfg.max_seq, ring=False,
                                   device=self.device)
         chunk = min(self.scfg.prefill_chunk, pos0 + s)
         pos = pos0
         for lo in range(0, s, chunk):
             piece = tokens[:, lo: lo + chunk]
-            with torch.inference_mode():
-                logits, caches = T.prefill_chunk(cfg, params, piece, caches, pos,
-                                                 unembed=unembed)
-            pos += piece.shape[1]
+            n = piece.shape[1]
+            if graphed:
+                logits = self._prefill_chunk_fn(n, pos == 0, pos)(tokens=piece)
+            else:
+                with torch.inference_mode():
+                    logits, caches = T.prefill_chunk(cfg, params, piece, caches, pos,
+                                                     unembed=unembed)
+            pos += n
             yield logits, caches, pos
 
     def generate(self, tokens) -> torch.Tensor:
@@ -305,7 +375,11 @@ class StreamedBatchEngine:
         self.scfg = scfg
         # Imported here: model_iface imports this module eagerly.
         from repro_torch.runtime.model_iface import build_servable
-        self.servable = build_servable(cfg, params, scfg, device=self.device)
+        # The engine's step graphs (CUDA graphs on a card, eager on the CPU)
+        # and their one memory pool, freed with the engine.
+        self.graphs = Graphs(self.device)
+        self.servable = build_servable(cfg, params, scfg, device=self.device,
+                                       graphs=self.graphs)
         self.paged = scfg.paged
         self.prefixes_restored = 0  # registry entries restored from scfg.prefix_store
         if self.paged:
@@ -323,8 +397,7 @@ class StreamedBatchEngine:
         self.outputs: dict[int, np.ndarray] = {}
         self._next_uid = 0
         self._admit_seq = 0
-        self._chunk = self.servable.chunk_fn() if scfg.fused_prefill else None
-        self._decode = self.servable.decode_fn(paged=self.paged)
+        self._decode = self._tick_graph(self.servable.decode_fn(paged=self.paged), t=1)
         self.decode_steps = 0  # batched decode ticks run (plain and verify)
         self.prefill_chunks = 0  # prompt chunks run
         self.admissions = 0
@@ -347,7 +420,37 @@ class StreamedBatchEngine:
         if scfg.spec_decode:
             self.drafter = (drafter if drafter is not None
                             else spec.NGramDrafter(max_n=scfg.spec_ngram))
-            self._verify = self.servable.verify_fn(paged=self.paged)
+            self._verify = self._tick_graph(self.servable.verify_fn(paged=self.paged),
+                                            t=scfg.spec_k + 1, verify=True)
+
+    def _tick_graph(self, step, *, t: int, verify: bool = False) -> StepGraph:
+        """The graph of a batched tick, built once per engine: ``step`` is
+        the servable's decode or verify function over the engine's pools or
+        slot cache.  Static inputs (B = max_batch): ``toks`` (B, t), the
+        full-width ``page_table`` (paged), ``cur`` (B,), ``d_len`` (B,)
+        (verify) and, at temperature, ``uids`` and ``steps`` (B,).  Output:
+        the (B,) picks, or (B, t + 1) ``emit`` beside ``n_accept`` (verify),
+        for the tick's one device-to-host copy."""
+        b, i32 = self.scfg.max_batch, torch.int32
+        paged = self.paged
+        state = self.kv.pools if paged else self.caches
+        inputs = {"toks": ((b, t), i32), "cur": ((b,), i32)}
+        if paged:
+            inputs["page_table"] = ((b, self.kv.max_pages), i32)
+        if verify:
+            inputs["d_len"] = ((b,), i32)
+        if self.scfg.temperature > 0.0:
+            inputs["uids"], inputs["steps"] = ((b,), i32), ((b,), i32)
+
+        @torch.inference_mode()
+        def fn(toks, cur, page_table=None, d_len=None, uids=None, steps=None):
+            args = (toks, state, *((page_table,) if paged else ()), cur,
+                    *((d_len,) if verify else ()), uids, steps)
+            out = step(*args)
+            if verify:
+                return torch.cat([out[0], out[1][:, None]], dim=1)
+            return out[0]
+        return StepGraph(self.graphs, fn, inputs)
 
     # -- queue -------------------------------------------------------------------
 
@@ -496,17 +599,19 @@ class StreamedBatchEngine:
         row = np.zeros((1, self.kv.max_pages), np.int32)
         row[0, : len(own)] = own
         shared_len = shared_pages * self.scfg.block_size
-        tokens = torch.from_numpy(req.tokens[None, shared_len:].copy()).to(self.device)
+        tokens = req.tokens[None, shared_len:]
         s_total = tokens.shape[1]
         chunk = min(self.scfg.prefill_chunk, shared_len + s_total)
         pos = shared_len
         logits = None
         for lo in range(0, s_total, chunk):
             piece = tokens[:, lo: lo + chunk]
-            n_ctx = self.kv.pages_for(pos + piece.shape[1])
-            pt = torch.from_numpy(row[:, :n_ctx].copy()).to(self.device)
-            logits, self.kv.pools = self._chunk(self.kv.pools, pt, piece, pos)
-            pos += piece.shape[1]
+            n = piece.shape[1]
+            step = self.servable.single._fused_chunk_fn(n, pos, self.kv.pools)
+            logits = step(tokens=piece, page_table=row[:, : self.kv.pages_for(pos + n)])
+            pos += n
+            if pos == len(req.tokens):
+                logits = logits.clone()  # kept past the ticks' replays
             self.prefill_chunks += 1
             self._interleave()
         return logits, pos
@@ -521,22 +626,23 @@ class StreamedBatchEngine:
         shared ones, or overwrite its rows of the contiguous cache whole
         (padding ticks filled them with garbage).  Returns (last logits,
         prompt length)."""
+        caches = zero_cache(self.servable.single.request_cache())
         if shared_pages:
             # The pool pages are never rewritten: the slot reads them
             # through its table; the copy is the tail's prefill context.
             shared_len = shared_pages * self.scfg.block_size
-            caches = self.kv.load_prefix(self.servable.init_request_cache(),
-                                         self.kv.slot_pages(slot.index)[:shared_pages])
+            self.kv.load_prefix(caches, self.kv.slot_pages(slot.index)[:shared_pages])
         else:
-            shared_len, caches = self.servable.lookup_snapshot(req.tokens)
+            shared_len, _ = self.servable.lookup_snapshot(req.tokens, into=caches)
             if shared_len:
                 self.snapshot_hits += 1
                 self.snapshot_tokens_reused += shared_len
-        tokens = torch.from_numpy(req.tokens[None, shared_len:].copy()).to(self.device)
         logits, pos = None, shared_len
         for logits, caches, pos in self.servable.iter_prefill_chunks(
-                tokens, caches=caches, pos0=shared_len):
+                req.tokens[None, shared_len:], caches=caches, pos0=shared_len):
             self.servable.maybe_snapshot(req.tokens, caches, pos)
+            if pos == len(req.tokens):
+                logits = logits.clone()  # kept past the ticks' replays
             self.prefill_chunks += 1
             self._interleave()
         if self.paged:
@@ -596,17 +702,21 @@ class StreamedBatchEngine:
         else:
             self._plain_tick()
 
-    def _stream_args(self, act: list[_Slot]) -> tuple:
-        """At temperature, the (B,) uids and tokens emitted so far that key
-        each row's draws (zeros on padding rows); () when greedy."""
-        if self.scfg.temperature <= 0.0:
-            return ()
-        b = self.scfg.max_batch
-        uids, steps = np.zeros((b,), np.int32), np.zeros((b,), np.int32)
-        for s in act:
-            uids[s.index] = s.uid
-            steps[s.index] = len(s.emitted)
-        return (torch.from_numpy(uids).to(self.device), torch.from_numpy(steps).to(self.device))
+    def _tick_inputs(self, act: list[_Slot], toks: np.ndarray, cur: np.ndarray) -> dict:
+        """A tick graph's host inputs: ``toks`` and ``cur``, the host page
+        table as it stands (paged), and at temperature the (B,) uids and
+        tokens emitted so far that key each row's draws (zeros on padding
+        rows)."""
+        vals = {"toks": toks, "cur": cur}
+        if self.paged:
+            vals["page_table"] = self.kv.page_table
+        if self.scfg.temperature > 0.0:
+            b = self.scfg.max_batch
+            vals["uids"], vals["steps"] = np.zeros((b,), np.int32), np.zeros((b,), np.int32)
+            for s in act:
+                vals["uids"][s.index] = s.uid
+                vals["steps"][s.index] = len(s.emitted)
+        return vals
 
     def _plain_tick(self) -> None:
         """One batched decode step for all slots (free ones pad); the only
@@ -622,14 +732,7 @@ class StreamedBatchEngine:
         for s in act:
             toks[s.index, 0] = s.pending
             cur[s.index] = s.cur
-        toks_d = torch.from_numpy(toks).to(self.device)
-        cur_d = torch.from_numpy(cur).to(self.device)
-        keys = self._stream_args(act)
-        if self.paged:
-            nxt, self.kv.pools = self._decode(toks_d, self.kv.pools,
-                                              self.kv.device_page_table(), cur_d, *keys)
-        else:
-            nxt, self.caches = self._decode(toks_d, self.caches, cur_d, *keys)
+        nxt = self._decode(**self._tick_inputs(act, toks, cur))
         self.decode_steps += 1
         picks = nxt.cpu().numpy()  # the tick's one device-to-host copy
         for s in act:
@@ -691,20 +794,12 @@ class StreamedBatchEngine:
             # cost ~(k+1)x a plain tick with nothing to accept.
             self._plain_tick()
             return
-        dev = self.device
-        toks_d, cur_d, d_len_d = (torch.from_numpy(a).to(dev) for a in (toks, cur, d_len))
-        keys = self._stream_args(act)
-        if self.paged:
-            emit, n_accept, self.kv.pools = self._verify(
-                toks_d, self.kv.pools, self.kv.device_page_table(), cur_d, d_len_d, *keys)
-        else:
-            emit, n_accept, self.caches = self._verify(toks_d, self.caches, cur_d, d_len_d,
-                                                       *keys)
+        got = self._verify(**self._tick_inputs(act, toks, cur), d_len=d_len)
         self.decode_steps += 1
         self.spec_ticks += 1
         # The tick's one device-to-host copy: (B, k+1) emitted tokens and
         # (B,) acceptance counts side by side.
-        got = torch.cat([emit, n_accept[:, None]], dim=1).cpu().numpy()
+        got = got.cpu().numpy()
         for s in act:
             n = int(got[s.index, -1])
             self.spec_accepted += n

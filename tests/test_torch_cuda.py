@@ -33,6 +33,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import streams, wavefront
+from repro_torch.kernels import _build
 from repro_torch.kernels import fwt as FWT
 from repro_torch.kernels import nw_tile as NW
 from repro_torch.kernels import ref
@@ -899,3 +900,212 @@ def test_executor_on_card_refuses_emulation_and_pageable_tasks(cuda):
     ex = streams.HostStreamExecutor(lambda x: x * 2, num_streams=2, device=cuda)
     with pytest.raises(ValueError, match="pinned"):
         ex.multi_stream_run([torch.ones(4)])
+
+
+# -- compiled ticks: each graphed step against the eager step ------------------------
+
+
+def _full_width(arch):
+    """The arch's published widths cut to 2 layers, f32."""
+    from repro_torch.configs import mamba2_2_7b, qwen3_4b
+    base = {"qwen3-4b": qwen3_4b.CONFIG, "mamba2-2.7b": mamba2_2_7b.CONFIG}[arch]
+    return dataclasses.replace(base, n_layers=2, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _state(eng):
+    """Every tensor a step of ``eng`` updates in place."""
+    return _leaves(eng.kv.pools if eng.paged else eng.caches) + _leaves(
+        eng.servable.single.request_cache())
+
+
+def _graph_vs_eager(step, vals, state, **override):
+    """Run ``step`` from one saved state at its first use (eager) and at its
+    second (capture, then replay); with ``override``, a third run (a replay
+    with those inputs changed) against the step function run eagerly on the
+    same static inputs.  Returns [(outputs, state after)] per run, the
+    eager twin last, with the state restored."""
+    saved = [t.clone() for t in state]
+
+    def run(fn):
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        out = fn()
+        torch.cuda.synchronize()
+        return [t.clone() for t in _leaves(out)] if out is not None else [], \
+            [t.clone() for t in state]
+
+    runs = [run(lambda: step(**vals)), run(lambda: step(**vals))]
+    assert step.graph is not None and step.uses == 2
+    if override:
+        runs.append(run(lambda: step(**{**vals, **override})))
+        runs.append(run(lambda: step.fn(**step.inputs)))
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    return runs
+
+
+def _same(a, b) -> bool:
+    """Outputs and states of two runs agree (f32 within 1e-5, integers
+    exactly); True when they are bit-equal."""
+    bit = True
+    for x, y in zip(a[0] + a[1], b[0] + b[1]):
+        if x.is_floating_point():
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(x, y)
+        bit = bit and torch.equal(x, y)
+    return bit
+
+
+def _counted(step, vals, n=3):
+    """Launch counts of ``n`` replays of ``step``, per kernel."""
+    before = {k: k.launches for k in _build.KERNELS}
+    for _ in range(n):
+        step(**vals)
+    torch.cuda.synchronize()
+    return {k: k.launches - before[k] for k in _build.KERNELS if k.launches != before[k]}
+
+
+def _warm_engine(cfg, cuda, n_steps, **kw):
+    params = T.init_params(cfg, 0, device=cuda)
+    scfg = serving.ServeConfig(max_seq=128, prefill_chunk=32, max_new_tokens=32, max_batch=4,
+                               block_size=16, **kw)
+    eng = serving.StreamedBatchEngine(cfg, params, scfg, device=cuda)
+    rng = np.random.default_rng(11)
+    for n in (40, 33, 64, 20):
+        eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32))
+    for _ in range(n_steps):
+        eng.step()
+    assert len(eng.active_slots) == 4
+    return eng
+
+
+def _tick_vals(eng, t):
+    b = eng.scfg.max_batch
+    toks, cur = np.zeros((b, t), np.int32), np.zeros((b,), np.int32)
+    for s in eng.active_slots:
+        toks[s.index, 0], cur[s.index] = s.pending, s.cur
+        if eng.paged:
+            for pos in range(s.cur, s.cur + t):
+                assert eng.kv.ensure_write(s.index, pos)
+    return eng._tick_inputs(eng.active_slots, toks, cur)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_graphed_qwen_steps_equal_eager_steps(cuda, kv_dtype):
+    """2-layer full-width qwen3-4b, f32, paged: the decode tick, the verify
+    tick, a fused prefill chunk and the three page moves, each captured and
+    replayed, equal their eager first run (outputs and every pool leaf); a
+    replay after the host page table changed reads the new table; N
+    replays launch N x the captured counts."""
+    from repro_torch.runtime.graphs import StepGraph
+    cfg = _full_width("qwen3-4b")
+    eng = _warm_engine(cfg, cuda, 3, paged=True, kv_dtype=kv_dtype, spec_decode=True,
+                       spec_k=3)
+    state = _state(eng)
+    q = "QUANT_" if kv_dtype != "fp32" else ""
+    bits = {}
+
+    step = eng._tick_graph(eng.servable.decode_fn(paged=True), t=1)
+    vals = _tick_vals(eng, 1)
+    # Rows 0 and 1 trade their table rows (and their tokens and positions):
+    # a replay that reads the new table trades their picks and writes the
+    # same pages.  (Two rows mapping one page would race: which quantized
+    # write lands is unspecified.)
+    perm = [1, 0, 2, 3]
+    runs = _graph_vs_eager(step, vals, state, **{k: vals[k][perm]
+                                                 for k in ("page_table", "toks", "cur")})
+    bits["decode"] = _same(runs[0], runs[1])
+    bits["decode, new table"] = _same(runs[2], runs[3])
+    assert torch.equal(runs[2][0][0], runs[1][0][0][perm])
+    _same((runs[2][1], []), (runs[1][1], []))
+    assert step.launches == {getattr(PA, f"{q}KERNEL"): cfg.n_layers}
+    assert _counted(step, vals) == {getattr(PA, f"{q}KERNEL"): 3 * cfg.n_layers}
+
+    step = eng._tick_graph(eng.servable.verify_fn(paged=True), t=4, verify=True)
+    vals = dict(_tick_vals(eng, 4), d_len=np.array([3, 0, 2, 3], np.int32))
+    vals["toks"][:, 1:] = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 3))
+    runs = _graph_vs_eager(step, vals, state)
+    bits["verify"] = _same(runs[0], runs[1])
+    assert step.launches == {getattr(PA, f"MULTI_{q}KERNEL"): cfg.n_layers}
+    assert _counted(step, vals) == {getattr(PA, f"MULTI_{q}KERNEL"): 3 * cfg.n_layers}
+
+    eng.servable.single._chunk_jit.clear()
+    step = eng.servable.single._fused_chunk_fn(32, 32, eng.kv.pools)
+    pages = eng.kv.slot_pages(eng.active_slots[0].index)[:4]
+    vals = dict(tokens=np.arange(32, dtype=np.int32)[None] * 7,
+                page_table=np.asarray(pages, np.int32)[None])
+    runs = _graph_vs_eager(step, vals, state)
+    bits["fused chunk"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == {FA.KERNEL: 3 * cfg.n_layers}
+
+    kv, slot = eng.kv, eng.active_slots[1].index
+    own = kv.slot_pages(slot)
+    for name, make, vals in (
+            ("scatter", kv._make_scatter(2), dict(pages=own[:2], rows=np.arange(16, 48),
+                                                   slot=slot)),
+            ("gather", kv._make_gather(3), dict(pages=own[:3], slot=slot)),
+            ("load", kv._make_load(2), dict(pages=own[1:3]))):
+        assert isinstance(make, StepGraph)
+        runs = _graph_vs_eager(make, vals, state)
+        bits[name] = _same(runs[0], runs[1])
+        assert _counted(make, vals) == {}
+    print(f"graph replay bit-equal to the eager step ({kv_dtype}): {bits}")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_graphed_mamba_steps_equal_eager_steps(cuda, paged):
+    """2-layer full-width mamba2-2.7b, f32: the mamba step (state written in
+    place) and a b=1 streamed chunk over the request cache, captured and
+    replayed, equal their eager first run; the chunk's replays launch the
+    SSD kernel once a layer, the step none."""
+    cfg = _full_width("mamba2-2.7b")
+    eng = _warm_engine(cfg, cuda, 3, paged=paged)
+    state = _state(eng)
+    bits = {}
+    step = eng._tick_graph(eng.servable.decode_fn(paged=paged), t=1)
+    vals = _tick_vals(eng, 1)
+    runs = _graph_vs_eager(step, vals, state)
+    bits["step"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == {}
+    single = eng.servable.single
+    single._chunk_jit.clear()
+    step = single._prefill_chunk_fn(32, False, 32)
+    vals = dict(tokens=np.arange(32, dtype=np.int32)[None] * 5)
+    runs = _graph_vs_eager(step, vals, state)
+    bits["chunk"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == {SSD.KERNEL: 3 * cfg.n_layers}
+    if paged:
+        slot = eng.active_slots[0].index
+        for name, make, vals in (
+                ("scatter", eng.kv._make_scatter(1), dict(pages=eng.kv.slot_pages(slot)[:1],
+                                                          rows=np.arange(16), slot=slot)),
+                ("gather", eng.kv._make_gather(1), dict(pages=eng.kv.slot_pages(slot)[:1],
+                                                        slot=slot))):
+            runs = _graph_vs_eager(make, vals, state)
+            bits[name] = _same(runs[0], runs[1])
+    print(f"graph replay bit-equal to the eager step (mamba, paged={paged}): {bits}")
+
+
+def test_engine_graphs_free_with_the_engine(cuda):
+    """A graphed serve's pool goes with its engine: reserved memory after a
+    second engine's serve is what it was after the first's."""
+    import gc
+    cfg = _full_width("qwen3-4b")
+    reserved = []
+    for _ in range(3):
+        eng = _warm_engine(cfg, cuda, 3, paged=True)
+        eng.run()
+        assert eng.graphs.captured > 0 and eng.graphs.replays > 0
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+    assert reserved[2] <= reserved[1], reserved

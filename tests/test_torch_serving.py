@@ -80,7 +80,7 @@ QUANT_FLOOR = 0.5
 
 def test_engine_rejects_unported_features():
     """Every reference ServeConfig feature is ported: the port's fields are
-    the reference's (less its TPU kernel switch and compile-cache caps),
+    the reference's (less its TPU kernel switch),
     and the port accepts and rejects what the reference does, with its
     messages."""
     import dataclasses
