@@ -6,9 +6,12 @@ path at a small size, then serves requests through the full 36-layer bf16
 qwen3-4b on the card (plain, with speculative decode, over int8 and fp8 KV
 pages, over int8 pages with speculative decode, over the contiguous slot
 cache, in a page pool small enough to preempt, with and without prefix
-sharing, and at temperature) and through the full 64-layer bf16 mamba2-2.7b (contiguous slot cache, paged pool, state
-snapshots), and runs the paper's Fig. 9 experiment (matmul, FWT and NW
-tasks over CUDA streams and the PCIe link) at full size.
+sharing, and at temperature) and through the full 64-layer bf16
+mamba2-2.7b (contiguous slot cache, paged pool, state snapshots), runs
+the paper's Fig. 9 experiment (matmul, FWT and NW tasks over CUDA streams
+and the PCIe link) at full size, and serves the decoder-only zoo:
+gemma2-27b, qwen2-moe-a2.7b, internlm2-20b and phi4-mini-3.8b at full
+width and depth, mixtral-8x7b at full width cut to 16 of its 32 layers.
 
     python3 chip_smoke.py            # every phase, on one CUDA card
     python3 chip_smoke.py --profile  # the same, plus torch.profiler serves
@@ -44,6 +47,9 @@ Phases (any failed check raises, and the script exits non-zero):
      calls queued behind a spin kernel (device time; the host's issue rate
      is printed beside), the plain versions with CUDA events as issued.  The
      draft-block entries are held over row tiles (68 rows), g = 1 and 8,
+     the zoo's g = 2, 3 and 6 (all four paged entries at q_len 1, 5 and
+     blocks of 68-72 rows, and the prefill, with gemma2's query scale
+     144^-0.5 and softcap 50, with and without a window that bites),
      head_dim 64 and 256 and splits behind the window as well; the
      quantized entries over V codes that cancel (bf16 q, q_len 1 and 5)
      within 1e-4, which only P at f32 accuracy meets.  All four paged
@@ -124,6 +130,23 @@ Phases (any failed check raises, and the script exits non-zero):
      run; then the pinned
      H2D / D2H bandwidth of a 256 MB copy.  The improvement is reported,
      not asserted.
+  8. the decoder-only zoo: (a) gemma2-27b (one local and one global layer;
+     as published and with sliding_window 64, which bites on the 128-token
+     prompts) and qwen2-moe-a2.7b (2 layers; as published and with
+     capacity_factor 0.5, whose decode ticks drop choices) at full width,
+     f32, paged and contiguous, card vs CPU: admission logits allclose,
+     greedy tokens identical; the graphed MoE serve equals the eager card
+     serve.  (b) gemma2-27b, 46 layers, bf16 (54.4 GB of weights): fused
+     paged bf16 pages, int8 pages (agreement with the plain serve >= 0.5),
+     the contiguous cache, n-gram spec on tiled prompts; (c) qwen2-moe-
+     a2.7b, 24 layers: fused paged, n-gram spec; (d) internlm2-20b (48
+     layers) and phi4-mini-3.8b (32) fused paged, mixtral-8x7b at 16 of its
+     32 layers (the full bf16 weights, 93 GB, do not fit in 80 GB).  Each
+     model first checks that under 2 GiB is allocated, serves each option
+     once warm and once measured (launches 1 a layer a tick of its kind
+     and a chunk), prints tokens/s, tick p50, the graphed chunk, acceptance,
+     page bytes and a tick's weight-read floor, and is dropped with its
+     engines (memory_reserved printed).
 On the card every serve's ticks, chunks and page moves replay CUDA graphs
 (runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
 eager step functions and holds the graphed serve to it (tokens identical,
@@ -132,10 +155,11 @@ each full-width serve prints its graphs captured, replays, capture ms and
 memory_reserved before and after; phases 5 and 6 serve 3 more times,
 dropping each engine, and check that memory_reserved does not grow; the
 launch counts include the graphs' replays.
-With --profile, phases 5, 5b and 6 add a torch.profiler breakdown (device
+With --profile, phases 5, 5b, 6 and 8 add a torch.profiler breakdown (device
 busy time by kernel and by group, the paged-attention group's split and
 combine launches together; idle share) of the plain, oracle-spec, int8,
-qwen3 contiguous and mamba contiguous serves.  The last three lines of
+qwen3 contiguous and mamba contiguous serves and each zoo model's fused
+paged serve.  The last three lines of
 stdout are the card's name and power limit, the kernels JSON and the
 result JSON.
 """
@@ -410,6 +434,16 @@ DRAFT_CASES = [dict(t=5, cur=[139, 111, 88, 76]),  # the verify step's shapes
                # every split but the last behind the window
                dict(t=5, cur=[139, 130, 127, 100], window=16)]
 LONG_CUR, LONG_PAGES = [2043, 2027, 2011, 1995], 128  # the long-context timing shape
+# The zoo's grouped-query ratios (gemma2 g = 2, phi4-mini 3, internlm2 6) at
+# head_dim 128, gemma2's query scale and softcap 50, with and without a
+# window that bites: q_len 1, a verify block of 5, and blocks of 68-72 rows
+# (two row tiles of the split body).
+ZOO_SCALE = 144 ** -0.5
+ZOO_CASES = [dict(g=g, t=t, cur=[139, 111, 88, 40], **w)
+             for g, t_long in ((2, 34), (3, 23), (6, 12)) for t in (1, 5, t_long)
+             for w in ({}, dict(window=24))]
+ZOO_FLASH_CASES = [dict(g=g, sq=sq, q_offset=off, **w) for g in (2, 3, 6)
+                   for sq, off in ((64, 0), (64, 64), (36, 64)) for w in ({}, dict(window=48))]
 SINGLE_QUANT_CASES = [dict(t=1, cur=[143, 100, 15, 16]),
                       dict(t=1, cur=[0, 15, 16, 100], trash_row=0, window=32),
                       dict(t=1, cur=[143, 100, 15, 0], softcap=30.0, trash_row=3)]
@@ -483,6 +517,33 @@ def phase_kernels() -> dict:
                      ops.paged_attention_quant(q, kc, vc, ks, vs, pt, cl, **kw),
                      PA.paged_attention_quant_plain(q, kc, vc, ks, vs, pt, cl, scale=scale,
                                                     **kw))
+        for i, c in enumerate(ZOO_CASES):
+            kw = dict(window=c.get("window", 0), softcap=50.0, scale=ZOO_SCALE)
+            q, kp, vp, pt, cl = draft_case(dtype, c["cur"], c["t"], seed=40 + i, h=8 * c["g"],
+                                           n_pages=12)
+            single = c["t"] == 1
+            if single:
+                q = q[:, 0].contiguous()
+            label = f"zoo g={c['g']} q_len {c['t']} ({c['t'] * c['g']} rows) {kw}"
+            name = "paged_attention" if single else "paged_attention_multi"
+            plain = PA.paged_attention_plain if single else PA.paged_attention_multi_plain
+            held(res, name, dtype, label, getattr(ops, name)(q, kp, vp, pt, cl, **kw),
+                 plain(q, kp, vp, pt, cl, **kw))
+            for kd in ("int8", "fp8"):
+                (kc, ks), (vc, vs) = quantized(kp, kd), quantized(vp, kd)
+                qname = name + "_quant"
+                qplain = (PA.paged_attention_quant_plain if single
+                          else PA.paged_attention_multi_quant_plain)
+                held(res, qname, dtype, f"{kd} {label}",
+                     getattr(ops, qname)(q, kc, vc, ks, vs, pt, cl, **kw),
+                     qplain(q, kc, vc, ks, vs, pt, cl, **kw))
+        for i, c in enumerate(ZOO_FLASH_CASES):
+            kw = dict(window=c.get("window", 0), softcap=50.0, scale=ZOO_SCALE)
+            q, k, v = flash_case(dtype, c["sq"], c["q_offset"], seed=50 + i, h=8 * c["g"])
+            held(res, "flash_attention", dtype, f"zoo g={c['g']} Sq={c['sq']} "
+                 f"q_offset={c['q_offset']} {kw}",
+                 ops.flash_attention(q, k, v, q_offset=c["q_offset"], **kw),
+                 FA.flash_attention_plain(q, k, v, q_offset=c["q_offset"], **kw))
         if dtype == torch.bfloat16:  # P over code pools at f32 accuracy
             for kd in ("int8", "fp8"):
                 for t in (1, 5):
@@ -1056,6 +1117,26 @@ def counted_serve(cfg, params, reqs, **kw):
     return out, launches
 
 
+def time_chunk(eng, reqs) -> tuple[float, float]:
+    """One 64-token chunk at q_offset 64 on its own, its writes routed to the
+    trash page (an all-zero table row), timed with a synchronize: the
+    engine's graph of that key (captured in the serve), replayed, and the
+    same step run eagerly.  Returns the medians (ms) of 4 runs after one."""
+    graph = eng.servable.single._fused_chunk_fn(64, 64, eng.kv.pools)
+    piece = reqs[0][None, 64:128]
+    pt = np.zeros((1, 8), np.int32)
+    t_chunk, t_eager = [], []
+    for _ in range(5):
+        for times, run in ((t_chunk, lambda: graph(tokens=piece, page_table=pt)),
+                           (t_eager, lambda: graph.fn(**graph.inputs))):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+    return float(np.median(t_chunk[1:]) * 1e3), float(np.median(t_eager[1:]) * 1e3)
+
+
 def phase_main_path(res: dict, *, profile: bool = False) -> tuple[dict, list, dict]:
     from repro_torch.configs import qwen3_4b
     from repro_torch.models import transformer as T
@@ -1082,28 +1163,12 @@ def phase_main_path(res: dict, *, profile: bool = False) -> tuple[dict, list, di
         res[name]["launches"] = launches[name]
     check_engines_freed(cfg, params, reqs, "qwen3-4b fused paged")
 
-    # One 64-token chunk at q_offset 64 on its own, its writes routed to the
-    # trash page (an all-zero table row), timed with a synchronize: the
-    # engine's graph of that key (captured in the serve), replayed, and the
-    # same step run eagerly.
-    graph = eng.servable.single._fused_chunk_fn(64, 64, eng.kv.pools)
-    piece = reqs[0][None, 64:128]
-    pt = np.zeros((1, 8), np.int32)
-    t_chunk, t_eager = [], []
-    for _ in range(5):
-        for times, run in ((t_chunk, lambda: graph(tokens=piece, page_table=pt)),
-                           (t_eager, lambda: graph.fn(**graph.inputs))):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t1)
+    chunk_ms, chunk_eager_ms = time_chunk(eng, reqs)
     n_tok = sum(len(t) for t in toks)
     e2e = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
            "decode_ticks": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
            "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
-           "prefill_chunk_ms": float(np.median(t_chunk[1:]) * 1e3),
-           "prefill_chunk_eager_ms": float(np.median(t_eager[1:]) * 1e3),
+           "prefill_chunk_ms": chunk_ms, "prefill_chunk_eager_ms": chunk_eager_ms,
            "graphs_captured": eng.graphs.captured, "graph_replays": eng.graphs.replays,
            "launches": launches, "page_bytes": eng.kv.page_bytes,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1651,6 +1716,197 @@ def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
     return summary
 
 
+# -- phase 8: the decoder-only zoo --------------------------------------------------
+
+
+def zoo_config(arch: str, **over):
+    """A published config of the port's registry, with ``over`` replaced."""
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(arch), **over)
+
+
+#: 2-layer f32 cases held card vs CPU: gemma2 (one local and one global
+#: layer) as published and with a window that bites on 128-token prompts,
+#: qwen2-moe as published and with decode ticks that drop choices.
+ZOO_CPU_CASES = {"gemma2-27b": ({}, dict(sliding_window=64)),
+                 "qwen2-moe-a2.7b": ({}, dict(capacity_factor=0.5))}
+
+
+def phase_zoo_card_vs_cpu() -> None:
+    """Phase 8a: each ZOO_CPU_CASES config at published width cut to 2
+    layers, f32, serves PROMPT_LENS on the card (kernels, graphed) and on
+    the CPU (plain versions), paged (fused) and contiguous: admission logits
+    allclose, greedy tokens identical per request; the graphed MoE serve
+    equals the eager card serve.  The CPU serve counts the choices its
+    decode ticks' routings dropped for capacity (printed).  The weights
+    are drawn on the card once an arch and copied to the CPU."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    route = moe.route_topk_indices
+    for arch, variants in ZOO_CPU_CASES.items():
+        base = zoo_config(arch, n_layers=2, param_dtype=torch.float32,
+                          compute_dtype=torch.float32)
+        gpu_params = T.init_params(base, 0, device="cuda")  # drawn on the card (fast)
+        cpu_params = to_device(gpu_params, "cpu")
+        reqs = prompts(base.vocab_size)
+        for over, (label, kw) in itertools.product(
+                variants, (("paged", {}), ("contiguous", dict(paged=False)))):
+            cfg = dataclasses.replace(base, **over)
+            graphed = serve(cfg, gpu_params, "cuda", reqs, **kw)
+            _, tok_g, log_g, _, wall_g = graphed
+            drops = []
+
+            def counted(logits, *, top_k, capacity):
+                out = route(logits, top_k=top_k, capacity=capacity)
+                if logits.shape[0] == SLOTS:  # a decode tick's rows
+                    drops.append(int((out[1] >= capacity).sum()))
+                return out
+            moe.route_topk_indices = counted
+            try:
+                _, tok_c, log_c, _, wall_c = serve(cfg, cpu_params, "cpu", reqs, **kw)
+            finally:
+                moe.route_topk_indices = route
+            name = f"{arch} {json.dumps(over)} 2-layer f32 {label}"
+            for i, (a, b) in enumerate(zip(log_g, log_c)):
+                check(torch.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+                      f"{name} request {i}: card vs CPU admission logits differ by "
+                      f"{(a - b).abs().max().item():.3e}")
+            for i, (a, b) in enumerate(zip(tok_g, tok_c)):
+                check(np.array_equal(a, b), f"{name} request {i}: card {a} != CPU {b}")
+            worst = max((a - b).abs().max().item() for a, b in zip(log_g, log_c))
+            print(f"[zoo] {name}: admission logits max abs diff {worst:.3e} (atol "
+                  f"{LOGIT_ATOL}, rtol {LOGIT_RTOL}); greedy tokens identical card vs CPU for "
+                  f"{len(reqs)} requests x {NEW_TOKENS}"
+                  + (f"; decode-tick routings (one a layer a tick, CPU) that dropped "
+                     f"choices {sum(d > 0 for d in drops)} of {len(drops)}, {sum(drops)} "
+                     "choices dropped" if cfg.n_experts else "")
+                  + f"; card {wall_g:.2f}s, cpu {wall_c:.2f}s")
+            if cfg.n_experts and label == "paged":
+                graph_vs_eager(name, graphed,
+                               serve(cfg, gpu_params, "cuda", reqs, eager=True, **kw))
+        del gpu_params, cpu_params, graphed
+        print(f"[zoo] memory_reserved after {arch}: {reserved_gib():.3f} GiB")
+
+
+def phase_zoo_full(res: dict, arch: str, cfg, runs, *, note: str = "",
+                   profile: bool = False) -> dict:
+    """Phase 8b-d: ``cfg`` (published widths, bf16, random weights from
+    seed 0) serves each of ``runs`` ((label, prompts, ServeConfig options),
+    the first the plain fused paged serve) once to warm it and once with
+    the launch counts at 0 (each tick of its kind and each chunk launches
+    its kernel once a layer; the launches join the kernels line); tokens/s,
+    tick p50, the graphed chunk, acceptance, page bytes, the weight-read
+    floor of a tick, agreement with the plain serve (int8 pages: >= the
+    reference's floor).  Checks first that no earlier model is resident
+    (under 2 GiB allocated), and drops the model and its engines after.
+    ``profile`` adds a torch.profiler serve of the first run's options."""
+    from repro_torch.models import transformer as T
+
+    alloc = torch.cuda.memory_allocated() / 2**30
+    check(alloc < 2.0, f"{arch}: {alloc:.2f} GiB allocated before loading (an earlier model "
+          "or engine is alive)")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    wb = sum(t.numel() * t.element_size() for t in _leaves(params))
+    table = cfg.padded_vocab * cfg.d_model * 4  # unembed_f32's copy, read every tick
+    floor_ms = (wb + table) / HBM_BYTES_PER_S * 1e3
+    print(f"[zoo] {arch}: {cfg.n_layers} layers{note}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, bf16, "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f}B params = {wb / 1e9:.2f} GB "
+          f"(+ {table / 1e9:.2f} GB f32 table); a tick's weight-read floor {floor_ms:.2f} ms "
+          f"at 3.35 TB/s; init {time.perf_counter() - t0:.1f}s")
+    out = {"weights_gb": wb / 1e9, "floor_ms": floor_ms}
+    plain = None
+    for label, rq, kw in runs:
+        t1 = time.perf_counter()
+        serve(cfg, params, "cuda", rq, **kw)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        (eng, toks, logits, ticks, wall), launches = counted_serve(cfg, params, rq, **kw)
+        for i, (t, lg) in enumerate(zip(toks, logits)):
+            check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
+                  f"{arch} {label} request {i}: {t}")
+            check(bool(torch.isfinite(lg).all()), f"{arch} {label} request {i}: non-finite")
+        for name, n in launches.items():
+            if n:  # this path's launches join the earlier phases' in the kernels line
+                res[name]["launches"] += n
+        n = sum(len(t) for t in toks)
+        rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else None
+        row = {"tokens_per_s": n / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
+               "decode_ticks": eng.decode_steps, "verify_ticks": eng.spec_ticks,
+               "prefill_chunks": eng.prefill_chunks, "acceptance": rate,
+               "page_bytes": eng.kv.page_bytes if eng.paged else None,
+               "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if plain is None:
+            plain = toks
+            row["prefill_chunk_ms"], row["prefill_chunk_eager_ms"] = time_chunk(eng, rq)
+        elif rq is runs[0][1]:
+            row["agreement_with_plain"] = agreement(toks, plain)
+            if kw.get("kv_dtype") in ("int8", "fp8"):
+                check(row["agreement_with_plain"] >= QUANT_FLOOR,
+                      f"{arch} {label}: agreement with the plain serve "
+                      f"{row['agreement_with_plain']:.3f} < {QUANT_FLOOR}")
+        del eng
+        out[label] = row
+        if profile and plain is toks:
+            phase_profile(cfg, params, rq, f"{arch} {label}", **kw)
+        print(f"[zoo] {arch} {label}: {n} tokens in {wall:.3f}s = {n / wall:.1f} tok/s; tick "
+              f"p50 {row['decode_tick_ms_p50']:.2f} ms over {row['decode_ticks']} ticks "
+              f"({row['verify_ticks']} verify, acceptance "
+              f"{'-' if rate is None else f'{rate:.3f}'}); {row['prefill_chunks']} chunks"
+              + (f", a graphed 64-token chunk {row['prefill_chunk_ms']:.2f} ms (eager "
+                 f"{row['prefill_chunk_eager_ms']:.2f} ms)" if "prefill_chunk_ms" in row else "")
+              + f"; page_bytes {row['page_bytes']}"
+              + (f"; agreement with the plain serve {row['agreement_with_plain']:.3f}"
+                 if "agreement_with_plain" in row else "")
+              + f"; launches {launches}; peak {row['peak_mem_gb']:.2f} GB; "
+              f"{time.perf_counter() - t1:.1f}s")
+    del params
+    out["memory_reserved_gib_after"] = reserved_gib()
+    print(f"[zoo] {arch} dropped: memory_reserved {out['memory_reserved_gib_after']:.3f} GiB")
+    return out
+
+
+#: mixtral-8x7b's full 32 layers (46.7B parameters, 93 GB in bf16) do not
+#: fit in the card's 80 GB: its serve keeps the published widths at 16 layers.
+MIXTRAL_LAYERS = 16
+
+
+def phase_zoo(res: dict, *, profile: bool = False) -> dict:
+    """Phase 8: the decoder-only zoo.  (a) card vs CPU at 2 layers
+    (``phase_zoo_card_vs_cpu``); (b) gemma2-27b at full width and depth:
+    fused paged bf16 pages, int8 pages, the contiguous cache and n-gram
+    spec on tiled prompts; (c) qwen2-moe-a2.7b at full width and depth,
+    fused paged plain and with n-gram spec; (d) one fused paged serve each
+    of internlm2-20b and phi4-mini-3.8b (full) and mixtral-8x7b at published
+    width cut to MIXTRAL_LAYERS layers.  Each phase's wall is printed."""
+    out = {}
+    t0 = time.perf_counter()
+    phase_zoo_card_vs_cpu()
+    print(f"[zoo] (a) card vs CPU {time.perf_counter() - t0:.1f}s")
+    spec = dict(spec_decode=True, spec_k=SPEC_K)
+    for arch, cut, extra in (
+            ("gemma2-27b", None, [("int8 pages", dict(kv_dtype="int8")),
+                                  ("contiguous", dict(paged=False)),
+                                  ("spec, n-gram drafts (tiled prompts)", spec)]),
+            ("qwen2-moe-a2.7b", None, [("spec, n-gram drafts (tiled prompts)", spec)]),
+            ("internlm2-20b", None, []), ("phi4-mini-3.8b", None, []),
+            ("mixtral-8x7b", MIXTRAL_LAYERS, [])):
+        t0 = time.perf_counter()
+        cfg = zoo_config(arch) if cut is None else zoo_config(arch, n_layers=cut)
+        reqs, tiled = prompts(cfg.vocab_size), tiled_prompts(cfg.vocab_size)
+        runs = [("fused paged", reqs, {})] + [
+            (label, tiled if kw.get("spec_decode") else reqs, kw) for label, kw in extra]
+        note = (f" (published {zoo_config(arch).n_layers}, cut to {cut}: the full bf16 "
+                "weights do not fit in 80 GB)" if cut else "")
+        out[arch] = phase_zoo_full(res, arch, cfg, runs, note=note, profile=profile)
+        print(f"[zoo] {arch} {time.perf_counter() - t0:.1f}s")
+    print("[zoo] serves " + json.dumps(out))
+    return out
+
+
 # -- phases 3, 4 and 7: the paper's streaming path ------------------------------------
 
 NW_N, NW_BLOCK = 2048, 32  # the path's NW task: 64 x 64 tiles of 32, one launch
@@ -1992,6 +2248,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_streams(res)
     print(f"[streams] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_zoo(res, profile=args.profile)
+    print(f"[zoo] {time.perf_counter() - t0:.1f}s")
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0],
                 "replaces": KERNELS[n][1], "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -8,7 +8,9 @@ The layouts already agree (weights ``(in, out)``, a leading repeat axis on
 every block leaf), so the bridge checks each leaf's shape against
 ``transformer.param_shapes`` and converts it to its stored type
 (``transformer.leaf_dtype``: ``cfg.param_dtype``, but f32 for mamba's A_log,
-D and dt_bias).  It is for tests that hold the port against the reference
+D and dt_bias and the MoE router).  The leaves of every ported layer kind
+are covered: attention, sandwich norms, the dense FFN kinds, the MoE
+router, experts and shared expert, and mamba.  It is for tests that hold the port against the reference
 on equal weights.
 """
 

@@ -1,7 +1,9 @@
 """Architecture registry of the port.
 
-qwen3-4b and mamba2-2.7b are served so far; the reference's other eight
-architectures are listed in ROADMAP.md as still to port.
+Every decoder-only attention config of the reference (qwen3-4b,
+internlm2-20b, phi4-mini-3.8b, gemma2-27b, and the MoE configs
+qwen2-moe-a2.7b and mixtral-8x7b) and mamba2-2.7b are served; jamba,
+whisper and paligemma are listed in ROADMAP.md as still to port.
 """
 
 from __future__ import annotations
@@ -14,6 +16,11 @@ from repro_torch.configs.base import LayerSpec, ModelConfig, smoke_reduce
 _MODULES: dict[str, str] = {
     "qwen3-4b": "qwen3_4b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "internlm2-20b": "internlm2_20b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "gemma2-27b": "gemma2_27b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 

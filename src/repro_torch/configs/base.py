@@ -2,9 +2,8 @@
 
 Field for field the same as ``repro.models.transformer.ModelConfig`` and
 ``LayerSpec`` (a test holds them equal), with torch dtypes in place of jnp
-ones.  The serving slice runs only the dense attention + swiglu layer; the
-other fields are carried so later slices port configs without reshaping
-this one.
+ones.  The fields of the configs not ported yet (encoder-decoder, image
+prefix) are carried so later slices port them without reshaping this one.
 """
 
 from __future__ import annotations

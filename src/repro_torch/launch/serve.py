@@ -9,6 +9,10 @@ engine, or one batch at a time through ``ServingEngine.generate``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         [--paged] [--state-snapshots] [--device cpu]
 
+``--arch`` takes every arch of ``configs.list_archs()``: qwen3-4b,
+mamba2-2.7b, internlm2-20b, phi4-mini-3.8b, gemma2-27b, qwen2-moe-a2.7b and
+mixtral-8x7b.
+
 Without ``--paged`` each slot holds a contiguous cache of ``max_seq`` rows
 (the reference's default); with it the slots share a page pool, and a pool
 too small for every slot's growth preempts (the line counts preemptions).

@@ -3,8 +3,8 @@
 Port of the reference ``models/layers.py`` for the serving slice: the same
 init distributions (drawn from an explicit ``torch.Generator``), rmsnorm
 with the ``1 + scale`` convention in f32, half-split rope with f32 angles,
-the swiglu FFN and the tanh softcap.  Weights are stored ``(in, out)`` and
-applied as ``x @ w``, as in the reference.
+the FFN kinds (swiglu, geglu, gelu_mlp) and the tanh softcap.  Weights are
+stored ``(in, out)`` and applied as ``x @ w``, as in the reference.
 """
 
 from __future__ import annotations
@@ -77,19 +77,34 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)
 
 
-def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> Params:
-    """The swiglu FFN (the only kind the port has; ``transformer.
-    check_supported`` rejects the others)."""
-    return {
-        "wi": dense_init(gen, (d_model, d_ff), dtype),
-        "wg": dense_init(gen, (d_model, d_ff), dtype),
-        "wo": dense_init(gen, (d_ff, d_model), dtype),
-    }
+def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, dtype, *,
+             kind: str = "swiglu") -> Params:
+    """The FFN's weights: ``wi``, ``wg``, ``wo`` for the gated kinds
+    (swiglu, geglu), ``wi``, ``wo`` for ``gelu_mlp``."""
+    if kind in ("swiglu", "geglu"):
+        return {
+            "wi": dense_init(gen, (d_model, d_ff), dtype),
+            "wg": dense_init(gen, (d_model, d_ff), dtype),
+            "wo": dense_init(gen, (d_ff, d_model), dtype),
+        }
+    if kind == "gelu_mlp":
+        return {"wi": dense_init(gen, (d_model, d_ff), dtype),
+                "wo": dense_init(gen, (d_ff, d_model), dtype)}
+    raise ValueError(f"unknown ffn kind {kind}")
 
 
-def ffn_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """swiglu: (silu(x @ wg) * (x @ wi)) @ wo."""
-    return (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def ffn_apply(p: Params, x: torch.Tensor, *, kind: str = "swiglu") -> torch.Tensor:
+    """swiglu: (silu(x @ wg) * (x @ wi)) @ wo; geglu: the same with the
+    tanh-approximate gelu (as the reference's ``jax.nn.gelu(approximate=
+    True)``); gelu_mlp: gelu(x @ wi) @ wo."""
+    f = torch.nn.functional
+    if kind == "swiglu":
+        return (f.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    if kind == "geglu":
+        return (f.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wi"])) @ p["wo"]
+    if kind == "gelu_mlp":
+        return f.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    raise ValueError(f"unknown ffn kind {kind}")
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -3,8 +3,11 @@
 prefill chunk, paged decode (one token, or a draft block for speculative
 verify), the contiguous prefill chunk and decode steps (one token, or a
 draft block), and the on-device pick (greedy, or temperature sampling
-keyed by request).  Two layer kinds are ported: attention +
-swiglu FFN (qwen3-4b) and the mamba2 block with no FFN (mamba2-2.7b).
+keyed by request).  The layer kinds of every decoder-only attention
+config are ported -- full or sliding-window attention (gemma2 alternates
+them in a two-layer unit) with a dense FFN (swiglu, geglu, gelu_mlp) or a
+MoE FFN (``models/moe.py``), gemma2's sandwich norms, embedding scale and
+softcaps -- and the mamba2 block with no FFN (mamba2-2.7b).
 
 Parameters are nested dicts of tensors laid out as the reference's pytree:
 every leaf under ``blocks/layer{i}`` has a leading repeat axis ``r``, and a
@@ -18,6 +21,8 @@ layers carry slot-indexed ``ssm`` ``(r, B, H, P, N)`` f32 and ``conv``
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -26,6 +31,7 @@ from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import mamba
+from repro_torch.models import moe
 from repro_torch.runtime import sampling
 
 Params = dict
@@ -33,24 +39,30 @@ Params = dict
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for configs outside the ported layer
-    kinds: decoder-only attention + swiglu stacks (qwen3-4b and its kin) and
-    pure mamba2 stacks (mamba blocks, no FFN)."""
+    kinds: decoder-only attention stacks (full or sliding-window mixers,
+    dense or MoE FFN) and pure mamba2 stacks (mamba blocks, no FFN).  Each
+    message names the ROADMAP item that ports the rest."""
+    mixers = {spec.mixer for spec in cfg.layer_unit}
     for spec in cfg.layer_unit:
-        attn = spec.mixer in ("attn", "attn_local") and spec.ffn == "dense"
-        ssm = spec.mixer == "mamba" and spec.ffn == "none"
-        if not (attn or ssm) or spec.cross_attn:
+        if spec.cross_attn:
             raise NotImplementedError(
-                f"layer {spec} is not ported yet: ROADMAP A7, the rest of the zoo "
-                "(MoE, hybrids, encoder-decoder)")
-    unsupported = [f for f in ("sandwich_norm", "sinusoidal_pos", "embed_scale",
-                               "is_encoder_decoder", "prefix_len", "final_softcap")
-                   if getattr(cfg, f)]
-    if cfg.ffn_kind != "swiglu":
-        unsupported.append(f"ffn_kind={cfg.ffn_kind}")
-    if unsupported:
+                f"{cfg.name}: cross-attention is not ported yet: ROADMAP A7 (whisper)")
+        if spec.mixer == "mamba" and (spec.ffn != "none" or mixers != {"mamba"}):
+            raise NotImplementedError(
+                f"{cfg.name}: mamba + attention / FFN hybrids are not ported yet: "
+                "ROADMAP A7 (jamba)")
+        if spec.mixer not in ("attn", "attn_local", "mamba"):
+            raise NotImplementedError(f"{cfg.name}: mixer {spec.mixer!r} is not ported")
+        if spec.mixer != "mamba" and spec.ffn not in ("dense", "moe"):
+            raise NotImplementedError(f"{cfg.name}: ffn {spec.ffn!r} is not ported")
+    if cfg.is_encoder_decoder or cfg.sinusoidal_pos:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not ported yet: ROADMAP "
-            "A6 / A7 (the other dense configs, the rest of the zoo)")
+            f"{cfg.name}: the encoder and sinusoidal positions are not ported yet: "
+            "ROADMAP A7 (whisper)")
+    if cfg.prefix_len:
+        raise NotImplementedError(
+            f"{cfg.name}: the prefix-LM image prefix is not ported yet: ROADMAP A7 "
+            "(paligemma)")
 
 
 # ----------------------------------------------------------------------------
@@ -60,6 +72,13 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _mamba_kw(cfg: ModelConfig) -> dict:
     return dict(expand=cfg.mamba_expand, headdim=cfg.mamba_headdim, d_state=cfg.ssm_state)
+
+
+def _moe_kw(cfg: ModelConfig) -> dict:
+    return dict(d_model=cfg.d_model, d_ff=cfg.expert_d_ff or cfg.d_ff,
+                n_experts=cfg.n_experts, n_shared_experts=cfg.n_shared_experts,
+                shared_d_ff=cfg.shared_d_ff, expert_shards=cfg.expert_shards,
+                n_experts_pad=cfg.n_experts_pad)
 
 
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
@@ -73,9 +92,18 @@ def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
     if cfg.qk_norm:
         mixer["q_norm"] = {"scale": (hd,)}
         mixer["k_norm"] = {"scale": (hd,)}
-    return {"mixer_norm": {"scale": (d,)}, "mixer": mixer,
-            "ffn_norm": {"scale": (d,)},
-            "ffn": {"wi": (d, cfg.d_ff), "wg": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}}
+    out = {"mixer_norm": {"scale": (d,)}, "mixer": mixer, "ffn_norm": {"scale": (d,)}}
+    if spec.ffn == "moe":
+        out["ffn"] = moe.moe_shapes(**_moe_kw(cfg))
+    else:
+        out["ffn"] = {"wi": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}
+        if cfg.ffn_kind != "gelu_mlp":
+            out["ffn"]["wg"] = (d, cfg.d_ff)
+        if cfg.sandwich_norm:
+            out["post_ffn_norm"] = {"scale": (d,)}
+    if cfg.sandwich_norm:
+        out["post_mixer_norm"] = {"scale": (d,)}
+    return out
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -96,29 +124,43 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+#: Leaves stored in f32 whatever ``param_dtype`` is.
+F32_PARAMS = (*mamba.F32_PARAMS, "router")
+
+
 def leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
     """The stored type of parameter leaf ``name``: ``cfg.param_dtype``, but
-    f32 for mamba's A_log, D and dt_bias, as in the reference."""
-    return torch.float32 if name in mamba.F32_PARAMS else cfg.param_dtype
+    f32 for mamba's A_log, D and dt_bias and the MoE router, as in the
+    reference."""
+    return torch.float32 if name in F32_PARAMS else cfg.param_dtype
 
 
 def _layer_init(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator) -> Params:
     """One layer's parameters (no repeat axis), as the reference's
-    ``_layer_init`` for an attention + dense FFN layer or a mamba layer."""
+    ``_layer_init`` for an attention layer (dense or MoE FFN, sandwich
+    norms) or a mamba layer."""
     dt, dev = cfg.param_dtype, gen.device
     if spec.mixer == "mamba":
         return {"mixer_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
                 "mixer": mamba.mamba_init(gen, d_model=cfg.d_model, dtype=dt,
                                           **_mamba_kw(cfg))}
-    return {
+    p = {
         "mixer_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
         "mixer": attn_lib.attention_init(
             gen, d_model=cfg.d_model, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, dtype=dt,
             qk_norm=cfg.qk_norm),
         "ffn_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
-        "ffn": layers.ffn_init(gen, cfg.d_model, cfg.d_ff, dt),
     }
+    if spec.ffn == "moe":
+        p["ffn"] = moe.moe_init(gen, dtype=dt, **_moe_kw(cfg))
+    else:
+        p["ffn"] = layers.ffn_init(gen, cfg.d_model, cfg.d_ff, dt, kind=cfg.ffn_kind)
+        if cfg.sandwich_norm:
+            p["post_ffn_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+    if cfg.sandwich_norm:
+        p["post_mixer_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
@@ -231,10 +273,12 @@ def _at(tree: dict, i: int) -> dict:
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, *,
                  positions, cache, cur_len, q_offset, page_table) -> torch.Tensor:
-    """One layer (pre-norm, residual): attention + dense FFN, or a mamba
-    block (decode when ``cur_len`` is given, else a prefill piece that
-    continues from the cached state).  The cache views in ``cache`` are
-    written in place."""
+    """One layer (pre-norm, residual): attention + a dense or MoE FFN (with
+    sandwich norms, the mixer's and the FFN's outputs normed before their
+    residual adds; the MoE aux loss is dropped, as serving drops it), or a
+    mamba block (decode when ``cur_len`` is given, else a prefill piece
+    that continues from the cached state).  The cache views in ``cache``
+    are written in place."""
     if spec.mixer == "mamba":
         x = layers.rmsnorm(p["mixer_norm"], h)
         out, upd = mamba.mamba_apply(
@@ -251,9 +295,19 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, 
         rope_theta=cfg.rope_theta, window=window, softcap_val=cfg.attn_softcap,
         scale=cfg.query_scale, qk_norm=cfg.qk_norm, cache=cache,
         cur_len=cur_len, q_offset=q_offset, page_table=page_table)
+    if cfg.sandwich_norm:
+        out = layers.rmsnorm(p["post_mixer_norm"], out)
     h = h + out
     x = layers.rmsnorm(p["ffn_norm"], h)
-    return h + layers.ffn_apply(p["ffn"], x)
+    if spec.ffn == "moe":
+        out, _ = moe.moe_apply(p["ffn"], x, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor, moe_chunk=cfg.moe_chunk,
+                               impl=cfg.moe_impl, expert_shards=cfg.expert_shards)
+        return h + out
+    out = layers.ffn_apply(p["ffn"], x, kind=cfg.ffn_kind)
+    if cfg.sandwich_norm:
+        out = layers.rmsnorm(p["post_ffn_norm"], out)
+    return h + out
 
 
 def forward_hidden(
@@ -280,7 +334,14 @@ def forward_hidden(
 
 
 def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+    """The embedding rows in ``compute_dtype``; with ``embed_scale`` (gemma)
+    times sqrt(d_model) first rounded to ``compute_dtype``, as the
+    reference's ``jnp.asarray(math.sqrt(d), compute_dtype)`` (bf16: 68.0
+    for sqrt(4608) = 67.88)."""
+    h = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    if cfg.embed_scale:  # rounded on the host: no copy inside a captured step
+        h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype))
+    return h
 
 
 def _unembed(cfg: ModelConfig, params: Params) -> torch.Tensor:

@@ -58,8 +58,8 @@ def build_servable(cfg: ModelConfig, params: dict, scfg, *, device,
     kind = arch_kind_of(cfg)
     if kind in ("whisper", "prefix_lm"):
         raise NotImplementedError(
-            f"{cfg.name}: serving {kind} configs is not ported yet: ROADMAP A7, the rest "
-            "of the zoo (whisper, prefix-LM)")
+            f"{cfg.name}: serving {kind} configs is not ported yet: ROADMAP A7 "
+            f"({'whisper' if kind == 'whisper' else 'paligemma'})")
     scfg.arch_kind = kind
     scfg.validate_arch()
     cls = {"transformer": TransformerServable, "mamba": MambaServable}[kind]

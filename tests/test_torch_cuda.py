@@ -1,7 +1,10 @@
 """The port's CUDA kernels on a card: each against its plain version, and
 the engine (paged, contiguous, scatter-after-prefill, under page pressure,
 sharing a prefix, at temperature) on the card against the engine on the
-CPU, with the copy-on-write fork and the sampler's hash on the card.  Every test carries
+CPU, with the copy-on-write fork and the sampler's hash on the card; the
+paged and prefill kernels at the zoo's grouped-query ratios (g = 2, 3, 6)
+with gemma2's query scale and softcap; graphed steps (qwen3, mamba2 and a
+MoE config) against their eager runs.  Every test carries
 the ``cuda`` marker and skips without a card.  The file imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -285,6 +288,59 @@ def test_paged_quant_kernels_match_plain(cuda, dtype, kv_dtype, case):
     torch.cuda.synchronize()
     assert kern.launches == n0 + 1
     assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+# The zoo's grouped-query ratios (gemma2 g = 2, phi4-mini 3, internlm2 6) at
+# head_dim 128 with gemma2's query scale and softcap 50: q_len 1, a verify
+# block of 5, and blocks of 68-72 rows (two row tiles); a window that bites.
+ZOO_SCALE = 144 ** -0.5
+ZOO_CASES = [dict(g=g, t=t, cur=[139, 111, 88, 40], softcap=50.0, n_pages=12, **w)
+             for g, t_long in ((2, 34), (3, 23), (6, 12)) for t in (1, 5, t_long)
+             for w in ({}, dict(window=24))]
+
+
+@pytest.mark.parametrize("pool", ["full", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", ZOO_CASES, ids=str)
+def test_paged_kernels_at_zoo_groups_match_plain(cuda, dtype, pool, case):
+    kw = dict(window=case.get("window", 0), softcap=case["softcap"], scale=ZOO_SCALE)
+    q, kp, vp, pt, cl = _draft_inputs(dtype, case, cuda)
+    if case["t"] == 1:
+        q = q[:, 0].contiguous()
+    single = case["t"] == 1
+    if pool == "full":
+        args = (q, kp, vp, pt, cl)
+        kern = PA.KERNEL if single else PA.MULTI_KERNEL
+        fn = ops.paged_attention if single else ops.paged_attention_multi
+        plain = PA.paged_attention_plain if single else PA.paged_attention_multi_plain
+    else:
+        (kc, ks), (vc, vs) = _quantize(kp.float(), pool), _quantize(vp.float(), pool)
+        args = (q, kc, vc, ks, vs, pt, cl)
+        kern = PA.QUANT_KERNEL if single else PA.MULTI_QUANT_KERNEL
+        fn = ops.paged_attention_quant if single else ops.paged_attention_multi_quant
+        plain = (PA.paged_attention_quant_plain if single
+                 else PA.paged_attention_multi_quant_plain)
+    n0 = kern.launches
+    got = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", [dict(g=g, sq=sq, q_offset=off, softcap=50.0, **w)
+                                  for g in (2, 3, 6) for sq, off in ((64, 0), (64, 64), (36, 64))
+                                  for w in ({}, dict(window=48))], ids=str)
+def test_flash_kernel_at_zoo_groups_matches_plain(cuda, dtype, case):
+    (q, k, v), kw, _ = _flash_case(cuda, dtype, case)
+    n0 = FA.KERNEL.launches
+    got = ops.flash_attention(q, k, v, q_offset=case["q_offset"], scale=ZOO_SCALE, **kw)
+    want = FA.flash_attention_plain(q, k, v, scale=ZOO_SCALE, q_offset=case["q_offset"], **kw)
+    torch.cuda.synchronize()
+    assert FA.KERNEL.launches == n0 + 1
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
@@ -907,10 +963,8 @@ def test_executor_on_card_refuses_emulation_and_pageable_tasks(cuda):
 
 def _full_width(arch):
     """The arch's published widths cut to 2 layers, f32."""
-    from repro_torch.configs import mamba2_2_7b, qwen3_4b
-    base = {"qwen3-4b": qwen3_4b.CONFIG, "mamba2-2.7b": mamba2_2_7b.CONFIG}[arch]
-    return dataclasses.replace(base, n_layers=2, param_dtype=torch.float32,
-                               compute_dtype=torch.float32)
+    return dataclasses.replace(configs.get_config(arch), n_layers=2,
+                               param_dtype=torch.float32, compute_dtype=torch.float32)
 
 
 def _leaves(tree):
@@ -1092,6 +1146,38 @@ def test_graphed_mamba_steps_equal_eager_steps(cuda, paged):
             runs = _graph_vs_eager(make, vals, state)
             bits[name] = _same(runs[0], runs[1])
     print(f"graph replay bit-equal to the eager step (mamba, paged={paged}): {bits}")
+
+
+def test_graphed_moe_steps_equal_eager_steps(cuda):
+    """2-layer full-width qwen2-moe-a2.7b, f32, paged: the decode tick (4
+    slots: capacity 1 an expert, so choices drop), the verify tick and a
+    fused prefill chunk, captured and replayed, equal their eager first run
+    (outputs and every pool leaf); the MoE step adds no launch of a port
+    kernel."""
+    cfg = _full_width("qwen2-moe-a2.7b")
+    eng = _warm_engine(cfg, cuda, 3, paged=True, spec_decode=True, spec_k=3)
+    state = _state(eng)
+    bits = {}
+    step = eng._tick_graph(eng.servable.decode_fn(paged=True), t=1)
+    vals = _tick_vals(eng, 1)
+    runs = _graph_vs_eager(step, vals, state)
+    bits["decode"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == {PA.KERNEL: 3 * cfg.n_layers}
+    step = eng._tick_graph(eng.servable.verify_fn(paged=True), t=4, verify=True)
+    vals = dict(_tick_vals(eng, 4), d_len=np.array([3, 0, 2, 3], np.int32))
+    vals["toks"][:, 1:] = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 3))
+    runs = _graph_vs_eager(step, vals, state)
+    bits["verify"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == {PA.MULTI_KERNEL: 3 * cfg.n_layers}
+    eng.servable.single._chunk_jit.clear()
+    step = eng.servable.single._fused_chunk_fn(32, 32, eng.kv.pools)
+    pages = eng.kv.slot_pages(eng.active_slots[0].index)[:4]
+    vals = dict(tokens=np.arange(32, dtype=np.int32)[None] * 7,
+                page_table=np.asarray(pages, np.int32)[None])
+    runs = _graph_vs_eager(step, vals, state)
+    bits["fused chunk"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == {FA.KERNEL: 3 * cfg.n_layers}
+    print(f"graph replay bit-equal to the eager step (qwen2-moe): {bits}")
 
 
 def test_engine_graphs_free_with_the_engine(cuda):

@@ -36,7 +36,9 @@ def test_port_files_are_found():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "serving.py", "paged_attention.py", "device.py", "mamba.py",
             "ssd_chunk.py", "mamba2_2_7b.py", "streams.py", "wavefront.py", "rmetric.py",
-            "streamed_matmul.py", "fwt.py", "nw_tile.py"} <= names
+            "streamed_matmul.py", "fwt.py", "nw_tile.py", "moe.py", "gemma2_27b.py",
+            "internlm2_20b.py", "phi4_mini_3_8b.py", "qwen2_moe_a2_7b.py",
+            "mixtral_8x7b.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

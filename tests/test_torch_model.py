@@ -63,7 +63,9 @@ def _j(tree):
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 def test_config_matches_reference_field_by_field(getter):
-    assert PC.list_archs() == ["qwen3-4b", "mamba2-2.7b"]
+    assert PC.list_archs() == ["qwen3-4b", "mamba2-2.7b", "internlm2-20b", "phi4-mini-3.8b",
+                               "gemma2-27b", "qwen2-moe-a2.7b", "mixtral-8x7b"]
+    assert set(PC.list_archs()) <= set(RC.list_archs())
     for arch in PC.list_archs():
         ref = getattr(RC, getter)(arch)
         port = getattr(PC, getter)(arch)
@@ -76,7 +78,8 @@ def test_config_matches_reference_field_by_field(getter):
             else:
                 assert a == b, (arch, f.name)
         assert (port.padded_vocab, port.n_repeats) == (ref.padded_vocab, ref.n_repeats)
-        assert port.spec_window(port.layer_unit[0]) == ref.spec_window(ref.layer_unit[0])
+        for sp, sr in zip(port.layer_unit, ref.layer_unit, strict=True):
+            assert port.spec_window(sp) == ref.spec_window(sr), arch
 
 
 def test_bridge_copies_every_leaf(smoke):
