@@ -9,9 +9,13 @@ cache, in a page pool small enough to preempt, with and without prefix
 sharing, and at temperature) and through the full 64-layer bf16
 mamba2-2.7b (contiguous slot cache, paged pool, state snapshots), runs
 the paper's Fig. 9 experiment (matmul, FWT and NW tasks over CUDA streams
-and the PCIe link) at full size, and serves the decoder-only zoo:
+and the PCIe link) at full size, serves the decoder-only zoo:
 gemma2-27b, qwen2-moe-a2.7b, internlm2-20b and phi4-mini-3.8b at full
-width and depth, mixtral-8x7b at full width cut to 16 of its 32 layers.
+width and depth, mixtral-8x7b at full width cut to 16 of its 32 layers,
+and the rest of the zoo: jamba-1.5-large (a mamba + attention + MoE
+hybrid) at full width cut to its unit's first 4 layers, whisper-medium (24
++ 24 layers, 1500 encoder frames a request) and paligemma-3b (18 layers, a
+256-row image prefix through ServingEngine.generate).
 
     python3 chip_smoke.py            # every phase, on one CUDA card
     python3 chip_smoke.py --profile  # the same, plus torch.profiler serves
@@ -50,7 +54,19 @@ Phases (any failed check raises, and the script exits non-zero):
      the zoo's g = 2, 3 and 6 (all four paged entries at q_len 1, 5 and
      blocks of 68-72 rows, and the prefill, with gemma2's query scale
      144^-0.5 and softcap 50, with and without a window that bites),
-     head_dim 64 and 256 and splits behind the window as well; the
+     head_dim 64 and 256 and splits behind the window as well; phase 9's
+     shapes: the prefill with paligemma's prefix_len 256 (hd 256, g = 8:
+     the 320-row first chunk, later chunks at q_offset 320, a ragged
+     prefix, a prefix past a chunk's causal limit), non-causal at whisper's
+     hd 64, g = 1 (Sq = Sk = 1500, Sq 64 and 37 against Sk 1500), paged
+     decode at hd 64, g = 1, the SSD scan at jamba's H 128, P 128
+     (zero and random initial states), jamba's attention (H 64, Hkv 8,
+     hd 128: the single-token paged entry over the main path's four
+     cases, and chunks of 64 rows at q_offset 0 and 64 and a 36-row tail)
+     and whisper's causal decoder prefill (hd 64, g = 1) at the same
+     chunks, each of the first four then timed beside its plain
+     version, the library call (SDPA with the prefix-LM boolean mask, SDPA
+     without a mask; none for SSD) and its bound (a "[kernels] rows" line); the
      quantized entries over V codes that cancel (bf16 q, q_len 1 and 5)
      within 1e-4, which only P at f32 accuracy meets.  All four paged
      entries run the split body, print its split plan and grid beside their
@@ -147,6 +163,26 @@ Phases (any failed check raises, and the script exits non-zero):
      and a chunk), prints tokens/s, tick p50, the graphed chunk, acceptance,
      page bytes and a tick's weight-read floor, and is dropped with its
      engines (memory_reserved printed).
+  9. the rest of the zoo: (a) card vs CPU, f32 at published widths cut in
+     depth: jamba (unit positions 0 and 3: mamba + dense FFN, attention +
+     MoE; 4 of its 16 experts) and whisper-medium (2 decoder and 2 encoder
+     layers, 1500 frames, one evict / readmit mid decode) serve the 6
+     requests paged and contiguous (admission logits allclose, greedy
+     tokens identical, the graphed card serve equal to the eager one);
+     paligemma-3b (2 layers) generates for 4 rows of 256 image rows + 64
+     tokens (first-chunk logits allclose, tokens identical).  (b) bf16,
+     random weights from seed 0, each model dropped before the next:
+     jamba-1.5-large at full width cut to its unit's first 4 layers (one
+     8-layer unit, ~86 GB, does not fit in 80 GB) and whisper-medium (each
+     request with its own 1500 frames; encode time per admission) serve
+     paged and contiguous, warm then counted (jamba: 3 SSD and 1 prefill
+     launches a chunk, 1 paged a paged tick; whisper: 24 paged a tick, 48
+     prefill a chunk, 24 an encode); paligemma-3b generates (the 320-row
+     first chunk timed alone; 18 prefill launches, nothing else: decode is
+     torch ops over the contiguous cache, eager).  Each prints tokens/s,
+     the tick beside its weight-read floor (block weights + the f32 table,
+     + the slots' cross K/V for whisper), launches, peak GB and
+     memory_reserved.
 On the card every serve's ticks, chunks and page moves replay CUDA graphs
 (runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
 eager step functions and holds the graphed serve to it (tokens identical,
@@ -155,11 +191,11 @@ each full-width serve prints its graphs captured, replays, capture ms and
 memory_reserved before and after; phases 5 and 6 serve 3 more times,
 dropping each engine, and check that memory_reserved does not grow; the
 launch counts include the graphs' replays.
-With --profile, phases 5, 5b, 6 and 8 add a torch.profiler breakdown (device
+With --profile, phases 5, 5b, 6, 8 and 9 add a torch.profiler breakdown (device
 busy time by kernel and by group, the paged-attention group's split and
 combine launches together; idle share) of the plain, oracle-spec, int8,
-qwen3 contiguous and mamba contiguous serves and each zoo model's fused
-paged serve.  The last three lines of
+qwen3 contiguous and mamba contiguous serves and each zoo model's first
+(paged) serve.  The last three lines of
 stdout are the card's name and power limit, the kernels JSON and the
 result JSON.
 """
@@ -365,14 +401,31 @@ def flash_case(dtype, sq, q_offset, *, seed=0, h=32, hkv=8, hd=128):
     return q, k, v
 
 
-def flash_bytes_flops(q, k, q_offset, window):
+def flash_bytes_flops(q, k, q_offset, window, *, causal=True, prefix_len=0):
+    """Bytes (q, k, v read once, out written once) and the flops of the
+    scores and P V over the keys each query may see: causal up to its
+    position or the end of a bidirectional prefix, else every key."""
     sq, h, hd = q.shape[1], q.shape[2], q.shape[3]
+    sk = k.shape[1]
     keys = 0
     for i in range(sq):
         qpos = q_offset + i
-        keys += qpos + 1 - (max(0, qpos - window + 1) if window else 0)
+        if not causal:
+            keys += sk
+            continue
+        hi = min(sk, max(qpos + 1, prefix_len))
+        keys += hi - (max(0, qpos - window + 1) if window else 0)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     return nbytes, 4.0 * keys * h * hd
+
+
+def attn_case(dtype, sq, sk, *, h, hkv, hd, seed):
+    """q (1, Sq, H, hd), k/v (1, Sk, Hkv, hd) normal draws on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((1, sq, h, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((1, sk, hkv, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((1, sk, hkv, hd), generator=g, device="cuda").to(dtype)
+    return q, k, v
 
 
 def held(res, name, dtype, label, got, want, tol: float | None = None) -> None:
@@ -444,6 +497,37 @@ ZOO_CASES = [dict(g=g, t=t, cur=[139, 111, 88, 40], **w)
              for w in ({}, dict(window=24))]
 ZOO_FLASH_CASES = [dict(g=g, sq=sq, q_offset=off, **w) for g in (2, 3, 6)
                    for sq, off in ((64, 0), (64, 64), (36, 64)) for w in ({}, dict(window=48))]
+# Phase 9's attention shapes.  paligemma (hd 256, g = 8): its first chunk
+# (256 image rows + 64 tokens, prefix_len 256), a later chunk at q_offset
+# 320 (with and without the prefix, which it cannot change there), a
+# ragged prefix, and a prefix past a later chunk's causal limit (rows see
+# keys beyond their own position).  whisper (hd 64, g = 1), non-causal:
+# the encoder (1500 x 1500), the cross-attention of a chunk (64 and 37
+# rows against 1500 frames).
+PALI_ATTN = dict(h=8, hkv=1, hd=256)
+PREFIX_CASES = [dict(sq=320, sk=320, q_offset=0, prefix_len=256),
+                dict(sq=64, sk=384, q_offset=320, prefix_len=256),
+                dict(sq=64, sk=384, q_offset=320, prefix_len=0),
+                dict(sq=90, sk=90, q_offset=0, prefix_len=70),
+                dict(sq=48, sk=300, q_offset=200, prefix_len=280)]
+WHISPER_ATTN = dict(h=16, hkv=16, hd=64)
+NONCAUSAL_CASES = [dict(sq=1500, sk=1500), dict(sq=64, sk=1500), dict(sq=37, sk=1500)]
+# whisper's paged decode (hd 64, g = 1) and jamba's SSD (H 128, P 128, N 128)
+PAGED_HD64_CASES = [dict(cur=[143, 100, 15, 16]), dict(cur=[0, 15, 16, 100], trash_row=0)]
+JAMBA_SSD = dict(h=128, p=128, n=128)
+SSD_P128_CASES = [(1, 64, 256, True), (1, 64, 256, False), (2, 300, 256, True),
+                  (1, 512, 256, False)]
+# jamba's attention layer (H 64, Hkv 8, hd 128: g = 8, no rope) and
+# whisper's causal decoder self-attention (H = Hkv = 16, hd 64: g = 1) at
+# phase 9's bf16 serve: the single-token paged entry of every paged tick
+# (PAGED_CASES) and the prefill of every chunk (64 rows at q_offset 0 and
+# 64, a 36-row tail).
+JAMBA_ATTN = dict(h=64, hkv=8, hd=128)
+CHUNK_CASES = [(64, 0), (64, 64), (36, 64)]
+PAGED_CASES = [dict(cur=[0, 15, 16, 100], trash_row=0),
+               dict(cur=[143, 100, 15, 16]),
+               dict(cur=[143, 100, 15, 16], window=32),
+               dict(cur=[143, 100, 15, 0], softcap=30.0, trash_row=3)]
 SINGLE_QUANT_CASES = [dict(t=1, cur=[143, 100, 15, 16]),
                       dict(t=1, cur=[0, 15, 16, 100], trash_row=0, window=32),
                       dict(t=1, cur=[143, 100, 15, 0], softcap=30.0, trash_row=3)]
@@ -481,17 +565,14 @@ def phase_kernels() -> dict:
     scale = 1.0 / math.sqrt(128)
     res = {name: {"err": 0.0} for name in KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
-        cases = [dict(cur=[0, 15, 16, 100], trash_row=0),
-                 dict(cur=[143, 100, 15, 16]),
-                 dict(cur=[143, 100, 15, 16], window=32),
-                 dict(cur=[143, 100, 15, 0], softcap=30.0, trash_row=3)]
-        for i, c in enumerate(cases):
-            kw = {k: c[k] for k in ("window", "softcap") if k in c}
-            q, kp, vp, pt, cl = paged_case(dtype, c["cur"], trash_row=c.get("trash_row"),
-                                           seed=i)
-            held(res, "paged_attention", dtype, str(c),
-                 ops.paged_attention(q, kp, vp, pt, cl, **kw),
-                 PA.paged_attention_plain(q, kp, vp, pt, cl, scale=scale, **kw))
+        for shape, label in ((dict(h=32, hkv=8, hd=128), ""), (JAMBA_ATTN, "jamba g=8 ")):
+            for i, c in enumerate(PAGED_CASES):
+                kw = {k: c[k] for k in ("window", "softcap") if k in c}
+                q, kp, vp, pt, cl = paged_case(dtype, c["cur"], trash_row=c.get("trash_row"),
+                                               seed=i + (100 if label else 0), **shape)
+                held(res, "paged_attention", dtype, label + str(c),
+                     ops.paged_attention(q, kp, vp, pt, cl, **kw),
+                     PA.paged_attention_plain(q, kp, vp, pt, cl, scale=scale, **kw))
         for i, c in enumerate(DRAFT_CASES):
             kw = {k: c[k] for k in ("window", "softcap") if k in c}
             shape = {k: c[k] for k in ("h", "hd") if k in c}
@@ -568,6 +649,41 @@ def phase_kernels() -> dict:
             held(res, "flash_attention", dtype, f"Sq={sq} q_offset={off} {kw}",
                  ops.flash_attention(q, k, v, q_offset=off, **kw),
                  FA.flash_attention_plain(q, k, v, scale=scale, q_offset=off, **kw))
+        for shape, label in ((JAMBA_ATTN, "jamba g=8 hd 128"),
+                             (WHISPER_ATTN, "whisper causal hd 64 g=1")):
+            for i, (sq, off) in enumerate(CHUNK_CASES):
+                q, k, v = flash_case(dtype, sq, off, seed=110 + i, **shape)
+                sc = shape["hd"] ** -0.5
+                held(res, "flash_attention", dtype, f"{label} Sq={sq} q_offset={off}",
+                     ops.flash_attention(q, k, v, q_offset=off),
+                     FA.flash_attention_plain(q, k, v, scale=sc, q_offset=off))
+        for i, c in enumerate(PREFIX_CASES):
+            q, k, v = attn_case(dtype, c["sq"], c["sk"], seed=60 + i, **PALI_ATTN)
+            kw = dict(q_offset=c["q_offset"], prefix_len=c["prefix_len"], scale=256 ** -0.5)
+            held(res, "flash_attention", dtype, f"paligemma prefix {c}",
+                 ops.flash_attention(q, k, v, **kw), FA.flash_attention_plain(q, k, v, **kw))
+        for i, c in enumerate(NONCAUSAL_CASES):
+            q, k, v = attn_case(dtype, c["sq"], c["sk"], seed=70 + i, **WHISPER_ATTN)
+            held(res, "flash_attention", dtype, f"whisper non-causal {c}",
+                 ops.flash_attention(q, k, v, causal=False),
+                 FA.flash_attention_plain(q, k, v, causal=False, scale=64 ** -0.5))
+        for i, c in enumerate(PAGED_HD64_CASES):
+            q, kp, vp, pt, cl = paged_case(dtype, c["cur"], trash_row=c.get("trash_row"),
+                                           seed=80 + i, **WHISPER_ATTN)
+            held(res, "paged_attention", dtype, f"whisper hd 64 g=1 {c}",
+                 ops.paged_attention(q, kp, vp, pt, cl),
+                 PA.paged_attention_plain(q, kp, vp, pt, cl, scale=64 ** -0.5))
+        for i, (b, s_len, chunk, init) in enumerate(SSD_P128_CASES):
+            x, dt_, a, bm, cm, st = ssd_case(dtype, b, s_len, init=init, seed=90 + i,
+                                             **JAMBA_SSD)
+            y, fs = SSD.ssd_chunked(x, dt_, a, bm, cm, chunk=chunk, init_state=st)
+            y_p, fs_p = SSD.ssd_chunked_plain(x, dt_, a, bm, cm, chunk=chunk, init_state=st)
+            label = (f"jamba H=128 P=128 b={b} S={s_len} chunk={chunk} "
+                     f"init={'random' if init else 'zero'}")
+            held(res, "ssd", dtype, label + " y", y, y_p,
+                 SSD_RTOL[dtype] * max(1.0, y_p.float().abs().max().item()))
+            held(res, "ssd", torch.float32, label + " final state", fs, fs_p,
+                 SSD_RTOL[torch.float32] * max(1.0, fs_p.abs().max().item()))
         # The SSD scan: the serve's 64-token chunk, its tails of 36 and 13,
         # two full Q = 256 chunks, and 256 + a 44-token tail.
         for i, (b, s_len, chunk, init) in enumerate(
@@ -654,7 +770,76 @@ def phase_kernels() -> dict:
               + (f"; {flash_plan(qf, kf)}" if name == "flash_attention" else ""))
     long_context(scale)
     prefill_long_context(scale)
+    slice_rows()
     return res
+
+
+def sdpa_masked(q, k, v, scale, mask=None):
+    """SDPA over (B, S, H, hd) inputs, heads-first copies made once outside
+    the call, with an optional boolean (Sq, Sk) mask; returns the call."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
+                                                  enable_gqa=True)
+
+
+def slice_rows() -> dict:
+    """Rows 4b, 4c and 5b of PERF.md's kernel table, and whisper's paged
+    decode, bf16: each kernel at phase 9's shapes beside its plain version,
+    the library call (SDPA with the prefix-LM boolean mask for 4b, without a
+    mask for 4c; none for the SSD scan) and its bound.  Printed as one
+    ``[kernels] rows`` JSON line; the kernels JSON keeps the serve shapes'
+    numbers."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_chunk as SSD
+
+    dt = torch.bfloat16
+    entries = {}
+    sc = 256 ** -0.5
+    q, k, v = attn_case(dt, 320, 320, seed=7, **PALI_ATTN)
+    pos = torch.arange(320, device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) | (pos[None, :] < 256)
+    entries["4b prefill, prefix_len 256 (paligemma's first chunk: Sq 320, hd 256, g 8)"] = (
+        lambda: ops.flash_attention(q, k, v, prefix_len=256, scale=sc),
+        lambda: FA.flash_attention_plain(q, k, v, prefix_len=256, scale=sc),
+        sdpa_masked(q, k, v, sc, mask), flash_bytes_flops(q, k, 0, 0, prefix_len=256))
+    sw = 64 ** -0.5
+    for sq in (1500, 64):
+        qe, ke, ve = attn_case(dt, sq, 1500, seed=8, **WHISPER_ATTN)
+        name = ("4c prefill, non-causal (whisper's encoder: Sq = Sk 1500, hd 64, g 1)"
+                if sq == 1500 else "4c prefill, non-causal (whisper's cross-attention: "
+                "Sq 64, Sk 1500)")
+        entries[name] = (
+            lambda qe=qe, ke=ke, ve=ve: ops.flash_attention(qe, ke, ve, causal=False),
+            lambda qe=qe, ke=ke, ve=ve: FA.flash_attention_plain(qe, ke, ve, causal=False,
+                                                                 scale=sw),
+            sdpa_masked(qe, ke, ve, sw), flash_bytes_flops(qe, ke, 0, 0, causal=False))
+    qp, kp, vp, pt, cl = paged_case(dt, [143, 115, 92, 80], seed=9, **WHISPER_ATTN)
+    entries["1 paged decode (whisper: hd 64, g 1, B 4, 9 pages)"] = (
+        lambda: ops.paged_attention(qp, kp, vp, pt, cl),
+        lambda: PA.paged_attention_plain(qp, kp, vp, pt, cl, scale=sw),
+        sdpa_paged(qp, kp, vp, pt, cl, sw), paged_bytes_flops(qp, kp, pt, cl, 0))
+    xs, dts, as_, bs_, cs_, sts = ssd_case(dt, 1, 64, init=True, seed=9, **JAMBA_SSD)
+    entries["5b SSD scan (jamba: b 1, a 64-token chunk, H 128, P 128, N 128)"] = (
+        lambda: SSD.ssd_chunked(xs, dts, as_, bs_, cs_, chunk=256, init_state=sts),
+        lambda: SSD.ssd_chunked_plain(xs, dts, as_, bs_, cs_, chunk=256, init_state=sts),
+        None, ssd_bytes_flops(xs, bs_, 64, True))
+    rows = {}
+    for name, (kern, plain, lib, (nbytes, flops)) in entries.items():
+        b_ms, b_by = bound(nbytes, flops, dt)
+        row = {"ms": device_ms(kern, iters=QUEUED), "plain_ms": time_ms(plain, iters=10),
+               "library_ms": device_ms(lib, iters=QUEUED) if lib is not None else None,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+        rows[name] = row
+        lib_ms = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        print(f"[kernels] row {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+              f"ms, library {lib_ms}, bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes, "
+              f"{flops:.0f} flops), {row['ms'] / b_ms:.1f}x bound")
+    print("[kernels] rows " + json.dumps(rows))
+    return rows
 
 
 def split_plan(q, kp, pt) -> str:
@@ -833,7 +1018,8 @@ def check_engines_freed(cfg, params, reqs, label: str, n: int = 3) -> None:
           f"{n} serves whose engines were dropped")
 
 
-def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, **extra):
+def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, encs=None,
+          evict_mid=False, **extra):
     """Serve ``reqs`` on ``device`` over a paged pool (or, with
     ``paged=False``, the contiguous slot cache) with ServeConfig options
     ``extra``; returns (engine, tokens per request, admission logits per
@@ -846,7 +1032,10 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, *
     capture backend away, so the card runs the step functions eagerly (the
     yardstick the graphs are held to).  A full-width card serve prints its
     graphs captured, replays, capture ms and ``memory_reserved`` before and
-    after it."""
+    after it.  ``encs``: each request's encoder input (whisper), whose
+    encode the engine times (host clock around a synchronize);
+    ``evict_mid``: after 3 scheduling steps the oldest active request is
+    evicted and readmitted."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
 
     class Engine(StreamedBatchEngine):
@@ -855,7 +1044,11 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, *
             if eager:
                 self.graphs.capture = None
             self.logits, self.ticks, self.snapshot_s = {}, [], []
-            self.evict_s, self.readmit_s = [], []
+            self.evict_s, self.readmit_s, self.encode_s = [], [], []
+            single = self.servable.single
+            if cfg.is_encoder_decoder:
+                encode = single.encode
+                single.encode = lambda x: self._synced(encode, self.encode_s, x)
             offer = self.servable.maybe_snapshot
 
             def timed_offer(tokens, caches, pos):
@@ -897,7 +1090,13 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, *
                        max_batch=SLOTS, block_size=BLOCK, paged=paged, **extra)
     eng = Engine(cfg, params, scfg, device=device, drafter=drafter)
     t0 = time.perf_counter()
-    uids = [eng.submit(p) for p in reqs]
+    uids = [eng.submit(p) if encs is None else eng.submit(p, enc_inputs=e)
+            for p, e in zip(reqs, encs if encs is not None else [None] * len(reqs))]
+    if evict_mid:
+        for _ in range(3):
+            eng.step()
+        check(bool(eng.active_slots), "no active request to evict")
+        eng.readmit(eng.evict(eng.active_slots[0].uid))
     out = eng.run()
     if device == "cuda":
         torch.cuda.synchronize()
@@ -918,6 +1117,8 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, *
     # device caches are freed as soon as the caller lets go of them (else
     # they wait for the garbage collector and inflate the next serve's peak).
     del eng.servable.maybe_snapshot
+    if cfg.is_encoder_decoder:
+        del eng.servable.single.encode
     return (eng, [out[u] for u in uids], [eng.logits[u] for u in uids], eng.ticks, wall)
 
 
@@ -1083,6 +1284,22 @@ def kernel_counters() -> dict:
             "fwt_columns": FWT.COLUMNS_KERNEL, "nw_tile": NW.KERNEL}
 
 
+def zero_counters() -> dict:
+    """Every kernel's launch count set to 0; returns the counters."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def fold_launches(res: dict, launches: dict) -> None:
+    """A measured run's launches join the earlier phases' in the kernels line
+    (a kernel that no phase has launched yet has no count to add to)."""
+    for name, n in launches.items():
+        if n:
+            res[name]["launches"] += n
+
+
 def counted_serve(cfg, params, reqs, **kw):
     """One serve on the card with every launch count set to 0 just before
     it; returns serve()'s tuple and the counts read just after.  Checks
@@ -1090,44 +1307,53 @@ def counted_serve(cfg, params, reqs, **kw):
     single-token entry per plain tick, the draft-block entry per verify
     tick (the fused-dequant pair over quantized pages; none over the
     contiguous cache, whose decode is torch ops), the prefill kernel per
-    chunk, and nothing else; for mamba, the SSD kernel once per layer per
-    prefill chunk and nothing else."""
-    counters = kernel_counters()
-    for c in counters.values():
-        c.launches = 0
+    chunk, and nothing else; the SSD kernel once per mamba layer per prefill
+    chunk; a whisper chunk's cross-attention launches the prefill kernel
+    once more a layer, and its encode once per encoder layer an admission
+    (cross-attention decode is torch ops)."""
+    counters = zero_counters()
     out = serve(cfg, params, "cuda", reqs, **kw)
     launches = {name: c.launches for name, c in counters.items()}
     eng = out[0]
     want = {name: 0 for name in counters}
-    if eng.scfg.arch_kind == "mamba":
-        want["ssd"] = cfg.n_layers * eng.prefill_chunks
-    else:
-        q = "_quant" if eng.scfg.kv_dtype != "fp32" else ""
-        if eng.paged:  # contiguous decode is torch ops (decode_attention)
-            want[f"paged_attention{q}"] = cfg.n_layers * (eng.decode_steps - eng.spec_ticks)
-            want[f"paged_attention_multi{q}"] = cfg.n_layers * eng.spec_ticks
-        want["flash_attention"] = cfg.n_layers * eng.prefill_chunks
-    check(launches == want, f"{kw}: launches {launches} != {want} ({cfg.n_layers} layers "
+    r = cfg.n_repeats
+    n_attn = r * sum(s.mixer in ("attn", "attn_local") for s in cfg.layer_unit)
+    n_cross = r * sum(s.cross_attn for s in cfg.layer_unit)
+    want["ssd"] = r * sum(s.mixer == "mamba" for s in cfg.layer_unit) * eng.prefill_chunks
+    q = "_quant" if eng.scfg.kv_dtype != "fp32" else ""
+    if eng.paged and n_attn:  # contiguous decode is torch ops (decode_attention)
+        want[f"paged_attention{q}"] = n_attn * (eng.decode_steps - eng.spec_ticks)
+        want[f"paged_attention_multi{q}"] = n_attn * eng.spec_ticks
+    want["flash_attention"] = ((n_attn + n_cross) * eng.prefill_chunks
+                               + cfg.n_encoder_layers * eng.admissions)
+    opts = {k: v for k, v in kw.items() if k != "encs"}
+    check(launches == want, f"{opts}: launches {launches} != {want} ({cfg.n_layers} layers "
           f"x {eng.decode_steps} ticks ({eng.spec_ticks} verify), {eng.prefill_chunks} chunks)")
     # The counts above include the graphs' replays (runtime/graphs.py adds a
     # graph's captured launches at each replay): every tick after a key's
     # first replays a graph.
     check(eng.graphs.replays > 0 and eng.graphs.captured > 0,
-          f"{kw}: {eng.graphs.captured} graphs captured, {eng.graphs.replays} replays")
+          f"{opts}: {eng.graphs.captured} graphs captured, {eng.graphs.replays} replays")
     return out, launches
 
 
 def time_chunk(eng, reqs) -> tuple[float, float]:
-    """One 64-token chunk at q_offset 64 on its own, its writes routed to the
-    trash page (an all-zero table row), timed with a synchronize: the
-    engine's graph of that key (captured in the serve), replayed, and the
-    same step run eagerly.  Returns the medians (ms) of 4 runs after one."""
-    graph = eng.servable.single._fused_chunk_fn(64, 64, eng.kv.pools)
+    """One 64-token chunk at q_offset 64 on its own, timed with a
+    synchronize: the engine's graph of that key (captured in the serve),
+    replayed, and the same step run eagerly.  A fused chunk's writes go to
+    the trash page (an all-zero table row); a b=1 chunk (not fused) writes
+    the request cache, which the next admission zeroes.  Returns the medians
+    (ms) of 4 runs after one."""
     piece = reqs[0][None, 64:128]
-    pt = np.zeros((1, 8), np.int32)
+    if eng.paged and eng.scfg.fused_prefill:
+        graph = eng.servable.single._fused_chunk_fn(64, 64, eng.kv.pools)
+        inputs = dict(tokens=piece, page_table=np.zeros((1, 8), np.int32))
+    else:
+        graph = eng.servable.single._prefill_chunk_fn(64, False, 64)
+        inputs = dict(tokens=piece)
     t_chunk, t_eager = [], []
     for _ in range(5):
-        for times, run in ((t_chunk, lambda: graph(tokens=piece, page_table=pt)),
+        for times, run in ((t_chunk, lambda: graph(**inputs)),
                            (t_eager, lambda: graph.fn(**graph.inputs))):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -1339,9 +1565,7 @@ def phase_cache_paths(res: dict, main: tuple, *, profile: bool = False) -> dict:
                   f"{label} request {i}: {t}")
             check(bool(torch.isfinite(lg).all()), f"{label} request {i}: non-finite logits")
         check(launches["flash_attention"] > 0, f"{label}: no flash_attention launch")
-        for name, n in launches.items():
-            if n:  # this path's launches join phase 5's in the kernels line
-                res[name]["launches"] += n
+        fold_launches(res, launches)
         n = sum(len(t) for t in toks)
         row = {"tokens_per_s": n / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
                "decode_ticks": eng.decode_steps, "prefill_chunks": eng.prefill_chunks,
@@ -1476,9 +1700,7 @@ def phase_sharing_sampling(res: dict, main: tuple) -> dict:
             check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
                   f"{label} request {i}: {t}")
             check(bool(torch.isfinite(lg).all()), f"{label} request {i}: non-finite logits")
-        for name, n in launches.items():
-            if n:  # this path's launches join the earlier phases' in the kernels line
-                res[name]["launches"] += n
+        fold_launches(res, launches)
         n = sum(len(t) for t in toks)
         rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else None
         row = {"tokens_per_s": n / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
@@ -1791,7 +2013,7 @@ def phase_zoo_card_vs_cpu() -> None:
 
 
 def phase_zoo_full(res: dict, arch: str, cfg, runs, *, note: str = "",
-                   profile: bool = False) -> dict:
+                   profile: bool = False, floor_bytes=None, encs=None) -> dict:
     """Phase 8b-d: ``cfg`` (published widths, bf16, random weights from
     seed 0) serves each of ``runs`` ((label, prompts, ServeConfig options),
     the first the plain fused paged serve) once to warm it and once with
@@ -1801,44 +2023,34 @@ def phase_zoo_full(res: dict, arch: str, cfg, runs, *, note: str = "",
     floor of a tick, agreement with the plain serve (int8 pages: >= the
     reference's floor).  Checks first that no earlier model is resident
     (under 2 GiB allocated), and drops the model and its engines after.
-    ``profile`` adds a torch.profiler serve of the first run's options."""
-    from repro_torch.models import transformer as T
-
-    alloc = torch.cuda.memory_allocated() / 2**30
-    check(alloc < 2.0, f"{arch}: {alloc:.2f} GiB allocated before loading (an earlier model "
-          "or engine is alive)")
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, 0, device="cuda")
-    torch.cuda.synchronize()
-    wb = sum(t.numel() * t.element_size() for t in _leaves(params))
-    table = cfg.padded_vocab * cfg.d_model * 4  # unembed_f32's copy, read every tick
-    floor_ms = (wb + table) / HBM_BYTES_PER_S * 1e3
-    print(f"[zoo] {arch}: {cfg.n_layers} layers{note}, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, bf16, "
-          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f}B params = {wb / 1e9:.2f} GB "
-          f"(+ {table / 1e9:.2f} GB f32 table); a tick's weight-read floor {floor_ms:.2f} ms "
-          f"at 3.35 TB/s; init {time.perf_counter() - t0:.1f}s")
-    out = {"weights_gb": wb / 1e9, "floor_ms": floor_ms}
+    ``profile`` adds a torch.profiler serve of the first run's options.
+    ``floor_bytes(params)``: the bytes a tick reads, when not every weight
+    and the f32 table; ``encs``: the requests' encoder inputs (whisper),
+    whose encode times are printed."""
+    params, out = load_full(arch, cfg, note=note, floor_bytes=floor_bytes)
     plain = None
     for label, rq, kw in runs:
         t1 = time.perf_counter()
-        serve(cfg, params, "cuda", rq, **kw)  # warm-up
+        serve(cfg, params, "cuda", rq, encs=encs, **kw)  # warm-up
         torch.cuda.reset_peak_memory_stats()
-        (eng, toks, logits, ticks, wall), launches = counted_serve(cfg, params, rq, **kw)
+        reserved0 = reserved_gib()
+        (eng, toks, logits, ticks, wall), launches = counted_serve(cfg, params, rq, encs=encs,
+                                                                   **kw)
         for i, (t, lg) in enumerate(zip(toks, logits)):
             check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
                   f"{arch} {label} request {i}: {t}")
             check(bool(torch.isfinite(lg).all()), f"{arch} {label} request {i}: non-finite")
-        for name, n in launches.items():
-            if n:  # this path's launches join the earlier phases' in the kernels line
-                res[name]["launches"] += n
+        fold_launches(res, launches)
         n = sum(len(t) for t in toks)
         rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else None
         row = {"tokens_per_s": n / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
                "decode_ticks": eng.decode_steps, "verify_ticks": eng.spec_ticks,
                "prefill_chunks": eng.prefill_chunks, "acceptance": rate,
                "page_bytes": eng.kv.page_bytes if eng.paged else None,
-               "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+               "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "memory_reserved_gib": [reserved0, reserved_gib()]}
+        if eng.encode_s:
+            row["encode_ms"] = [x * 1e3 for x in eng.encode_s]
         if plain is None:
             plain = toks
             row["prefill_chunk_ms"], row["prefill_chunk_eager_ms"] = time_chunk(eng, rq)
@@ -1861,9 +2073,44 @@ def phase_zoo_full(res: dict, arch: str, cfg, runs, *, note: str = "",
               + f"; page_bytes {row['page_bytes']}"
               + (f"; agreement with the plain serve {row['agreement_with_plain']:.3f}"
                  if "agreement_with_plain" in row else "")
-              + f"; launches {launches}; peak {row['peak_mem_gb']:.2f} GB; "
+              + (f"; encode per admission (ms) {[round(x, 2) for x in row['encode_ms']]}"
+                 if "encode_ms" in row else "")
+              + f"; launches {launches}; peak {row['peak_mem_gb']:.2f} GB; memory_reserved "
+              f"{row['memory_reserved_gib'][0]:.3f} -> {row['memory_reserved_gib'][1]:.3f} GiB; "
               f"{time.perf_counter() - t1:.1f}s")
     del params
+    return dropped(arch, out)
+
+
+def load_full(arch: str, cfg, *, note: str = "", floor_bytes=None) -> tuple[dict, dict]:
+    """``cfg``'s weights (bf16, random from seed 0) drawn on the card, after
+    checking that no earlier model is resident (under 2 GiB allocated);
+    prints its size and a tick's weight-read floor: every weight and the f32
+    table at 3.35 TB/s, or ``floor_bytes(params)``.  Returns the params and
+    the model's result dict (weights_gb, floor_ms)."""
+    from repro_torch.models import transformer as T
+
+    alloc = torch.cuda.memory_allocated() / 2**30
+    check(alloc < 2.0, f"{arch}: {alloc:.2f} GiB allocated before loading (an earlier model "
+          "or engine is alive)")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    wb = sum(t.numel() * t.element_size() for t in _leaves(params))
+    table = cfg.padded_vocab * cfg.d_model * 4  # unembed_f32's copy, read every tick
+    tick_bytes = wb + table if floor_bytes is None else floor_bytes(params)
+    floor_ms = tick_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[zoo] {arch}: {cfg.n_layers} layers{note}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab_size}, bf16, "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f}B params = {wb / 1e9:.2f} GB "
+          f"(+ {table / 1e9:.2f} GB f32 table); a tick's weight-read floor {floor_ms:.2f} ms "
+          f"({tick_bytes / 1e9:.2f} GB) at 3.35 TB/s; init {time.perf_counter() - t0:.1f}s")
+    return params, {"weights_gb": wb / 1e9, "floor_ms": floor_ms}
+
+
+def dropped(arch: str, out: dict) -> dict:
+    """``out`` with memory_reserved read after the caller dropped the model
+    and its engines."""
     out["memory_reserved_gib_after"] = reserved_gib()
     print(f"[zoo] {arch} dropped: memory_reserved {out['memory_reserved_gib_after']:.3f} GiB")
     return out
@@ -1904,6 +2151,223 @@ def phase_zoo(res: dict, *, profile: bool = False) -> dict:
         out[arch] = phase_zoo_full(res, arch, cfg, runs, note=note, profile=profile)
         print(f"[zoo] {arch} {time.perf_counter() - t0:.1f}s")
     print("[zoo] serves " + json.dumps(out))
+    return out
+
+
+# -- phase 9: the rest of the zoo (jamba, whisper, paligemma) ------------------------
+
+#: jamba-1.5-large's unit positions held card vs CPU at 2 layers (mamba +
+#: dense FFN, attention + MoE), with its experts cut to JAMBA_CPU_EXPERTS.
+JAMBA_CPU_UNIT, JAMBA_CPU_EXPERTS = (0, 3), 4
+#: The full-width bf16 jamba serve keeps the unit's first JAMBA_LAYERS layers
+#: (mamba + dense, mamba + MoE, mamba + dense, attention + MoE: 21.9B
+#: parameters); one whole 8-layer unit is ~86 GB in bf16, past the card's 80.
+JAMBA_LAYERS = 4
+PALI_ROWS, PALI_TOKENS = 4, 64  # generate: 4 rows of 256 image rows + 64 tokens
+
+
+def jamba_config(positions, **over):
+    """jamba-1.5-large at published widths with the unit cut to its layers
+    at ``positions`` (one repeat)."""
+    full = zoo_config("jamba-1.5-large-398b")
+    unit = tuple(full.layer_unit[i] for i in positions)
+    return dataclasses.replace(full, layer_unit=unit, n_layers=len(unit), **over)
+
+
+def enc_inputs(cfg, n: int, seed: int = 2) -> list[np.ndarray]:
+    """``n`` requests' encoder frames (encoder_seq, d_model): 0.1 x a normal
+    draw from ``seed``, as the launcher's."""
+    rng = np.random.default_rng(seed)
+    return [(0.1 * rng.standard_normal((cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+            for _ in range(n)]
+
+
+def pali_inputs(cfg, seed: int = 3) -> tuple[np.ndarray, np.ndarray]:
+    """PALI_ROWS rows of PALI_TOKENS tokens and their (prefix_len, d_model)
+    image embeddings (0.1 x a normal draw), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (PALI_ROWS, PALI_TOKENS), dtype=np.int32)
+    pre = (0.1 * rng.standard_normal((PALI_ROWS, cfg.prefix_len, cfg.d_model))
+           ).astype(np.float32)
+    return toks, pre
+
+
+def hold_card_cpu(name, card, cpu) -> float:
+    """Card vs CPU serves of the same requests: admission logits allclose,
+    greedy tokens identical per request; returns the worst logit gap."""
+    (_, tok_g, log_g, _, _), (_, tok_c, log_c, _, _) = card, cpu
+    for i, (a, b) in enumerate(zip(log_g, log_c)):
+        check(torch.allclose(a, b, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+              f"{name} request {i}: card vs CPU admission logits differ by "
+              f"{(a - b).abs().max().item():.3e}")
+    for i, (a, b) in enumerate(zip(tok_g, tok_c)):
+        check(np.array_equal(a, b), f"{name} request {i}: card {a} != CPU {b}")
+    return max((a - b).abs().max().item() for a, b in zip(log_g, log_c))
+
+
+def pali_engine(cfg, params, device):
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serving import ServeConfig, ServingEngine
+
+    max_seq = -(-(cfg.prefix_len + PALI_TOKENS + NEW_TOKENS) // BLOCK) * BLOCK
+    scfg = ServeConfig(max_seq=max_seq, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS)
+    return ServingEngine(cfg, params, scfg, device=device, unembed=T.unembed_f32(cfg, params))
+
+
+def pali_generate(single, toks, pre):
+    """The first chunk's last logits (4, V) on the host and ``generate``'s
+    tokens (4, NEW_TOKENS) as numpy."""
+    t = torch.from_numpy(toks).to(single.device)
+    first = next(single.iter_prefill_chunks(t, prefix_embeds=pre))[0][:, -1].float().cpu()
+    return first, single.generate(toks, prefix_embeds=pre).cpu().numpy()
+
+
+def phase_rest_card_vs_cpu() -> None:
+    """Phase 9a, f32 at published widths, cut in depth, weights drawn on the
+    card from seed 0 and copied to the CPU: jamba (unit positions 0 and 3,
+    JAMBA_CPU_EXPERTS experts top-2) and whisper-medium (2 decoder and 2
+    encoder layers, 1500 frames, one evict / readmit mid decode) serve
+    PROMPT_LENS paged and contiguous on the card (graphed) and on the CPU:
+    admission logits allclose, greedy tokens identical, and the graphed
+    card serve equal to the eager one; paligemma-3b (2 layers) generates
+    for 4 rows of 256 image rows + 64 tokens on both: first-chunk logits
+    allclose, tokens identical."""
+    from repro_torch.models import transformer as T
+
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    cases = [("jamba 2-layer f32", jamba_config(JAMBA_CPU_UNIT, n_experts=JAMBA_CPU_EXPERTS,
+                                                 **f32), {}),
+             ("whisper-medium 2+2-layer f32",
+              zoo_config("whisper-medium", n_layers=2, n_encoder_layers=2, **f32),
+              dict(evict_mid=True))]
+    for base, cfg, extra in cases:
+        t0 = time.perf_counter()
+        gpu_params = T.init_params(cfg, 0, device="cuda")
+        cpu_params = to_device(gpu_params, "cpu")
+        reqs = prompts(cfg.vocab_size)
+        if cfg.is_encoder_decoder:
+            extra = dict(extra, encs=enc_inputs(cfg, len(reqs)))
+        for label, kw in (("paged", {}), ("contiguous", dict(paged=False))):
+            name = f"{base} {label}"
+            graphed = serve(cfg, gpu_params, "cuda", reqs, **extra, **kw)
+            cpu = serve(cfg, cpu_params, "cpu", reqs, **extra, **kw)
+            worst = hold_card_cpu(name, graphed, cpu)
+            graph_vs_eager(name, graphed,
+                           serve(cfg, gpu_params, "cuda", reqs, eager=True, **extra, **kw))
+            eng = graphed[0]
+            print(f"[rest] {name}: admission logits max abs diff {worst:.3e} (atol "
+                  f"{LOGIT_ATOL}, rtol {LOGIT_RTOL}); greedy tokens identical card vs CPU for "
+                  f"{len(reqs)} requests x {NEW_TOKENS}; {eng.decode_steps} ticks, "
+                  f"{eng.prefill_chunks} chunks; card {graphed[4]:.2f}s, cpu {cpu[4]:.2f}s")
+        del gpu_params, cpu_params, graphed, cpu, eng
+        print(f"[rest] {base}: {time.perf_counter() - t0:.1f}s; memory_reserved after "
+              f"{reserved_gib():.3f} GiB")
+    cfg = zoo_config("paligemma-3b", n_layers=2, **f32)
+    gpu_params = T.init_params(cfg, 0, device="cuda")
+    cpu_params = to_device(gpu_params, "cpu")
+    toks, pre = pali_inputs(cfg)
+    lg_g, tok_g = pali_generate(pali_engine(cfg, gpu_params, "cuda"), toks, pre)
+    lg_c, tok_c = pali_generate(pali_engine(cfg, cpu_params, "cpu"), toks, pre)
+    worst = (lg_g - lg_c).abs().max().item()
+    check(torch.allclose(lg_g, lg_c, atol=LOGIT_ATOL, rtol=LOGIT_RTOL),
+          f"paligemma 2-layer f32: card vs CPU first-chunk logits differ by {worst:.3e}")
+    check(np.array_equal(tok_g, tok_c), f"paligemma 2-layer f32: card {tok_g} != CPU {tok_c}")
+    print(f"[rest] paligemma-3b 2-layer f32 generate ({PALI_ROWS} rows x {cfg.prefix_len} "
+          f"image rows + {PALI_TOKENS} tokens): first-chunk logits max abs diff {worst:.3e}; "
+          f"greedy tokens identical card vs CPU ({NEW_TOKENS} a row)")
+    del gpu_params, cpu_params
+
+
+def block_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params["blocks"]))
+
+
+def phase_pali_full(res: dict) -> dict:
+    """Phase 9b, paligemma-3b at full width and depth (18 layers, bf16,
+    random weights from seed 0): ``generate`` over 4 rows of 256 image rows
+    + 64 tokens, warm, then with the launch counts at 0 (the prefill kernel
+    once a layer a chunk, nothing else: decode is torch ops over the
+    contiguous cache); tokens/s, the first chunk (320 rows) timed alone, the
+    decode step (mean over the wall after the first chunk), a tick's
+    weight-read floor (blocks + the f32 table)."""
+    cfg = zoo_config("paligemma-3b")
+    params, row = load_full("paligemma-3b", cfg, floor_bytes=lambda p: (
+        block_bytes(p) + cfg.padded_vocab * cfg.d_model * 4))
+    single = pali_engine(cfg, params, "cuda")
+    toks, pre = pali_inputs(cfg)
+    t = torch.from_numpy(toks).to("cuda")
+    pre_d = torch.from_numpy(pre).to("cuda")
+    single.generate(toks, prefix_embeds=pre_d)  # warm-up
+    first = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        next(single.iter_prefill_chunks(t, prefix_embeds=pre_d))
+        torch.cuda.synchronize()
+        first.append(time.perf_counter() - t0)
+    counters = zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = single.generate(toks, prefix_embeds=pre_d).cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    want = {name: 0 for name in counters}
+    want["flash_attention"] = cfg.n_layers  # one chunk: 64 tokens
+    check(launches == want, f"paligemma generate: launches {launches} != {want}")
+    check(out.shape == (PALI_ROWS, NEW_TOKENS)
+          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()), f"paligemma: {out}")
+    fold_launches(res, launches)
+    chunk_ms = float(np.median(first[1:]) * 1e3)
+    step_ms = (wall * 1e3 - chunk_ms) / (NEW_TOKENS - 1)
+    row.update({"tokens_per_s": out.size / wall, "first_chunk_ms": chunk_ms,
+                "decode_step_ms_mean": step_ms, "launches": launches,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    print(f"[rest] paligemma-3b generate {PALI_ROWS} rows x ({cfg.prefix_len} image rows + "
+          f"{PALI_TOKENS} tokens) -> {NEW_TOKENS}: {out.size} tokens in {wall:.3f}s = "
+          f"{row['tokens_per_s']:.1f} tok/s; first chunk (320 rows) {chunk_ms:.2f} ms; decode "
+          f"step {step_ms:.2f} ms (mean, eager); launches {launches}; peak "
+          f"{row['peak_mem_gb']:.2f} GB")
+    del params, single, t, pre_d
+    return dropped("paligemma-3b", row)
+
+
+def phase_rest(res: dict, *, profile: bool = False) -> dict:
+    """Phase 9: (a) card vs CPU (``phase_rest_card_vs_cpu``); (b)
+    jamba-1.5-large at full width cut to its unit's first JAMBA_LAYERS
+    layers, paged and contiguous; whisper-medium, 24 + 24 layers, each
+    request with 1500 frames from the seed, paged and contiguous; paligemma
+    through ``generate`` (``phase_pali_full``).  Each model is dropped
+    before the next."""
+    out = {}
+    t0 = time.perf_counter()
+    phase_rest_card_vs_cpu()
+    print(f"[rest] (a) card vs CPU {time.perf_counter() - t0:.1f}s")
+    runs = [("paged", {}), ("contiguous", dict(paged=False))]
+    t0 = time.perf_counter()
+    cfg = jamba_config(range(JAMBA_LAYERS))
+    reqs = prompts(cfg.vocab_size)
+    out["jamba-1.5-large-398b"] = phase_zoo_full(
+        res, "jamba-1.5-large-398b", cfg, [(lb, reqs, kw) for lb, kw in runs],
+        note=f" (published 72, cut to the unit's first {JAMBA_LAYERS}: one 8-layer unit "
+             "does not fit in 80 GB)", profile=profile,
+        floor_bytes=lambda p: block_bytes(p) + cfg.padded_vocab * cfg.d_model * 4)
+    print(f"[rest] jamba {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    wcfg = zoo_config("whisper-medium")
+    reqs = prompts(wcfg.vocab_size)
+    cross = (SLOTS * wcfg.n_layers * 2 * wcfg.encoder_seq * wcfg.n_kv_heads * wcfg.head_dim
+             * 2)  # bf16 cross K/V of the 4 slots, read every tick
+    out["whisper-medium"] = phase_zoo_full(
+        res, "whisper-medium", wcfg, [(lb, reqs, kw) for lb, kw in runs],
+        note=f" + {wcfg.n_encoder_layers} encoder layers", profile=profile,
+        floor_bytes=lambda p: block_bytes(p) + wcfg.padded_vocab * wcfg.d_model * 4 + cross,
+        encs=enc_inputs(wcfg, len(reqs)))
+    print(f"[rest] whisper {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    out["paligemma-3b"] = phase_pali_full(res)
+    print(f"[rest] paligemma {time.perf_counter() - t0:.1f}s")
+    print("[rest] serves " + json.dumps(out))
     return out
 
 
@@ -2251,6 +2715,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_zoo(res, profile=args.profile)
     print(f"[zoo] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_rest(res, profile=args.profile)
+    print(f"[rest] {time.perf_counter() - t0:.1f}s")
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0],
                 "replaces": KERNELS[n][1], "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

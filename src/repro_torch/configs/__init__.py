@@ -1,9 +1,10 @@
 """Architecture registry of the port.
 
-Every decoder-only attention config of the reference (qwen3-4b,
-internlm2-20b, phi4-mini-3.8b, gemma2-27b, and the MoE configs
-qwen2-moe-a2.7b and mixtral-8x7b) and mamba2-2.7b are served; jamba,
-whisper and paligemma are listed in ROADMAP.md as still to port.
+All ten configs of the reference: the decoder-only attention stacks
+(qwen3-4b, internlm2-20b, phi4-mini-3.8b, gemma2-27b, and the MoE configs
+qwen2-moe-a2.7b and mixtral-8x7b), mamba2-2.7b, the jamba hybrid
+(jamba-1.5-large-398b), the encoder-decoder whisper-medium and the
+image-prefix paligemma-3b.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ _MODULES: dict[str, str] = {
     "gemma2-27b": "gemma2_27b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "whisper-medium": "whisper_medium",
+    "paligemma-3b": "paligemma_3b",
 }
 
 

@@ -2,8 +2,7 @@
 
 Field for field the same as ``repro.models.transformer.ModelConfig`` and
 ``LayerSpec`` (a test holds them equal), with torch dtypes in place of jnp
-ones.  The fields of the configs not ported yet (encoder-decoder, image
-prefix) are carried so later slices port them without reshaping this one.
+ones.
 """
 
 from __future__ import annotations

@@ -5,8 +5,11 @@
 // (flash_attention_kernel / ops.flash_attention) and covers what the
 // reference model path runs as the jnp flash_attention_ref for a prefill
 // chunk: q_offset, GQA (kv head = h / g, indexed directly, no broadcast
-// copy), window, softcap, and lengths that are not multiples of the tile
-// (masked here).
+// copy), window, softcap, a bidirectional prefix (prefix_len: with causal,
+// key j is seen by query position p when j <= p or j < prefix_len, the
+// prefix-LM mask of paligemma's image prefix), non-causal attention (an
+// encoder, cross-attention), and lengths that are not multiples of the
+// tile (masked here).
 //
 //   q    (B, Sq, H, hd)     f32 or bf16
 //   k/v  (B, Sk, Hkv, hd)
@@ -73,8 +76,9 @@
 //   block; l sums P in f32 before the rounding, as there.
 // * Skipping.  A block starts at the window's start of its first row
 //   (rounded down to a stage) and stops at the causal limit of its last
-//   row; a warp skips each sub-tile that none of its rows may see, so only
-//   the edge sub-tiles are masked.
+//   row, or at prefix_len when that is further (every row sees the whole
+//   prefix); a warp skips each sub-tile that none of its rows may see, so
+//   only the edge sub-tiles are masked.
 
 #include "common.cuh"
 
@@ -92,7 +96,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int sq, int sk, int n_heads, int n_kv, int head_dim,
-    int q_offset, int causal, int window, float softcap, float scale) {
+    int q_offset, int causal, int prefix_len, int window, float softcap, float scale) {
   extern __shared__ float smem[];
   const int bh = blockIdx.x;
   const int b = bh / n_heads;
@@ -119,10 +123,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(
   }
 
   // Key range of this query tile: the window's start of its first row up
-  // to the causal limit of its last row.
+  // to the causal limit of its last row (or the end of the prefix).
   const int q_lo = q_offset + q0;
   const int q_hi = q_offset + min(q0 + kBlockQ, sq) - 1;
-  const int k_end = causal ? min(sk, q_hi + 1) : sk;
+  const int k_end = causal ? min(sk, max(q_hi + 1, prefix_len)) : sk;
   int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
   k_begin = (k_begin / kBlockK) * kBlockK;
   const int nd = (hd + 31) / 32;
@@ -163,7 +167,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(
       for (int d = 0; d < hd; ++d) s += q_s[r * hd + d] * k_s[lane * kstride + d];
       s = apply_softcap(s * scale, softcap);
       bool ok = kj < sk && qi < sq;
-      if (causal) ok = ok && kj <= qpos;
+      if (causal) ok = ok && (kj <= qpos || kj < prefix_len);
       if (window > 0) ok = ok && (qpos - kj < window);
       s = ok ? s : NEG_INF;
       const float m_new = fmaxf(m[rr], warp_max(s));
@@ -211,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(
 template <typename T>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, int batch,
                         int sq, int sk, int n_heads, int n_kv, int head_dim, int q_offset,
-                        int causal, int window, float softcap, float scale,
+                        int causal, int prefix_len, int window, float softcap, float scale,
                         cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBlockQ) * head_dim +
@@ -222,8 +226,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, 
   const dim3 grid(batch * n_heads, (sq + kBlockQ - 1) / kBlockQ);
   flash_attention_simt_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, sk, n_heads, n_kv, head_dim, q_offset, causal, window,
-      softcap, scale);
+      static_cast<T*>(out), sq, sk, n_heads, n_kv, head_dim, q_offset, causal, prefix_len,
+      window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -261,7 +265,7 @@ template <int kNT>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, int sq, int sk, int n_heads, int n_kv, int head_dim,
-    int q_offset, int causal, int window, float softcap, float scale) {
+    int q_offset, int causal, int prefix_len, int window, float softcap, float scale) {
   constexpr int kStages = kTcStages<kNT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kvh = blockIdx.y;
@@ -298,10 +302,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   }
 
   // The block's keys: from the window's start of its oldest row (rounded
-  // down to a stage) to the causal limit of its youngest.
+  // down to a stage) to the causal limit of its youngest, or to the end of
+  // the prefix when that is further.
   const int pos_lo = q_offset + r0 / g;
   const int pos_hi = q_offset + (r0 + nr - 1) / g;
-  const int k_end = causal ? min(sk, pos_hi + 1) : sk;
+  const int k_end = causal ? min(sk, max(pos_hi + 1, prefix_len)) : sk;
   int k_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
   k_begin = (k_begin / kStageKeys) * kStageKeys;
   const int n_stages = k_end > k_begin ? (k_end - k_begin + kStageKeys - 1) / kStageKeys : 0;
@@ -334,7 +339,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   const int qpos_a = q_offset + (r0 + ra) / g;
   const int qpos_b = q_offset + (r0 + rb) / g;
   const int w_lo = window > 0 ? pos_lo - window + 1 : 0;
-  const int w_hi = causal ? min(sk - 1, pos_hi) : sk - 1;
+  const int w_hi = causal ? min(sk - 1, max(pos_hi, prefix_len - 1)) : sk - 1;
   const float scale2 = scale * kLog2e;
 
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;  // l: this thread's part
@@ -435,7 +440,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
           const float x = softcap > 0.f ? apply_softcap(s[nt][c] * scale, softcap) * kLog2e
                                         : s[nt][c] * scale2;
           bool good = (c < 2 ? ok_a : ok_b) && key < sk;
-          if (causal) good = good && key <= qpos;
+          if (causal) good = good && (key <= qpos || key < prefix_len);
           if (window > 0) good = good && qpos - key < window;
           ok[nt][c] = good;
           s[nt][c] = x;
@@ -595,7 +600,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
 template <int kNT>
 cudaError_t launch_tc_nt(const void* q, const void* k, const void* v, void* out, int batch,
                          int sq, int sk, int n_heads, int n_kv, int head_dim, int q_offset,
-                         int causal, int window, float softcap, float scale,
+                         int causal, int prefix_len, int window, float softcap, float scale,
                          cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<kNT>(head_dim);
   auto kernel = flash_attention_tc_kernel<kNT>;
@@ -605,28 +610,28 @@ cudaError_t launch_tc_nt(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((rows + 15) / 16, n_kv, batch);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), sq, sk, n_heads, n_kv, head_dim, q_offset, causal, window,
-      softcap, scale);
+      static_cast<bf16*>(out), sq, sk, n_heads, n_kv, head_dim, q_offset, causal, prefix_len,
+      window, softcap, scale);
   return cudaGetLastError();
 }
 
 // head_dim / 8 accumulator tiles, rounded up to 4, 8, 16 or 32.
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int batch,
                       int sq, int sk, int n_heads, int n_kv, int head_dim, int q_offset,
-                      int causal, int window, float softcap, float scale,
+                      int causal, int prefix_len, int window, float softcap, float scale,
                       cudaStream_t stream) {
   const int tiles = head_dim / 8;
   if (tiles <= 4)
     return launch_tc_nt<4>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
-                           q_offset, causal, window, softcap, scale, stream);
+                           q_offset, causal, prefix_len, window, softcap, scale, stream);
   if (tiles <= 8)
     return launch_tc_nt<8>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
-                           q_offset, causal, window, softcap, scale, stream);
+                           q_offset, causal, prefix_len, window, softcap, scale, stream);
   if (tiles <= 16)
     return launch_tc_nt<16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
-                            q_offset, causal, window, softcap, scale, stream);
+                            q_offset, causal, prefix_len, window, softcap, scale, stream);
   return launch_tc_nt<32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
-                          q_offset, causal, window, softcap, scale, stream);
+                          q_offset, causal, prefix_len, window, softcap, scale, stream);
 }
 
 }  // namespace
@@ -637,9 +642,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, in
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                void* out, int batch, int sq, int sk, int n_heads,
                                int n_kv, int head_dim, int q_offset, int causal,
-                               int window, float softcap, float scale, int tc,
-                               void* stream) {
+                               int prefix_len, int window, float softcap, float scale,
+                               int tc, void* stream) {
   if (n_kv <= 0 || n_heads % n_kv != 0 || head_dim > 32 * kMaxDPerLane || head_dim < 1 ||
+      prefix_len < 0 ||
       sq < 1 || sk < 1 || batch < 1 || batch > 65535 ||
       (sq + kBlockQ - 1) / kBlockQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -649,13 +655,13 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
     if (dtype != DTYPE_BF16 || head_dim % 16 != 0 || n_kv > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
     err = launch_tc(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim, q_offset, causal,
-                    window, softcap, scale, s);
+                    prefix_len, window, softcap, scale, s);
   } else if (dtype == DTYPE_BF16) {
     err = launch_simt<__nv_bfloat16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
-                                     q_offset, causal, window, softcap, scale, s);
+                                     q_offset, causal, prefix_len, window, softcap, scale, s);
   } else {
     err = launch_simt<float>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim, q_offset,
-                             causal, window, softcap, scale, s);
+                             causal, prefix_len, window, softcap, scale, s);
   }
   return static_cast<int>(err);
 }

@@ -2,8 +2,10 @@
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
 (``flash_attention_kernel``) and covers what the reference model runs as
-``attention.flash_attention_ref`` for a prefill chunk: ``q_offset``, GQA
-without a broadcast copy, and lengths that are not tile multiples.  Two
+``attention.flash_attention_ref`` for a prefill chunk: ``q_offset``, a
+bidirectional prefix (``prefix_len``, prefix-LM), non-causal attention
+(an encoder, cross-attention), GQA without a broadcast copy, and lengths
+that are not tile multiples.  Two
 CUDA bodies, as :func:`plan_flash` picks them: bf16 with head_dim a multiple
 of 16 runs on the tensor cores (``"tc"``), f32 or any other head_dim on the
 SIMT body (``"simt"``).  The bodies' designs and bounds are in the CUDA
@@ -31,7 +33,7 @@ MAX_HEAD_DIM = 256
 _I, _P = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
     "flash_attention.cu", "flash_attention",
-    [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, ctypes.c_float, _I, _P])
 
 TC_WARPS = 4  # warps a block of the tensor-core body
@@ -104,12 +106,18 @@ def flash_attention(
     softcap: float = 0.0,
     scale: float,
     q_offset: int = 0,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
+    """Causal: key j is seen by query i when ``j <= q_offset + i`` or ``j <
+    prefix_len`` (a bidirectional prefix, prefix-LM); ``causal=False``
+    sees every key (an encoder, cross-attention)."""
     _check_inputs(q, k, v)
+    if prefix_len < 0:
+        raise ValueError(f"flash_attention: prefix_len must be >= 0, got {prefix_len}")
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, softcap=softcap,
-            scale=scale, q_offset=q_offset)
+            scale=scale, q_offset=q_offset, prefix_len=prefix_len)
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:
@@ -121,6 +129,6 @@ def flash_attention(
     out = torch.empty_like(q)
     KERNEL.launch(
         _DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), b, sq, sk, h, hkv,
-        hd, int(q_offset), int(bool(causal)), int(window), float(softcap),
+        hd, int(q_offset), int(bool(causal)), int(prefix_len), int(window), float(softcap),
         float(scale), int(plan.body == "tc"), ctypes.c_void_p(stream_of(q)))
     return out

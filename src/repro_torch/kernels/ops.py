@@ -40,11 +40,14 @@ def flash_attention(
     softcap: float = 0.0,
     scale: float | None = None,
     q_offset: int = 0,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """GQA attention of a query chunk at positions ``q_offset + i`` over
-    keys ``0..Sk-1``; kv head ``h // g`` is indexed, never broadcast."""
+    keys ``0..Sk-1``; kv head ``h // g`` is indexed, never broadcast.
+    Keys below ``prefix_len`` are seen by every query (prefix-LM)."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap, scale=_scale(q, scale), q_offset=q_offset)
+                               softcap=softcap, scale=_scale(q, scale), q_offset=q_offset,
+                               prefix_len=prefix_len)
 
 
 def paged_attention(

@@ -247,11 +247,14 @@ def flash_attention_ref(
     softcap: float = 0.0,
     scale: float | None = None,
     q_offset: int = 0,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """Masked attention of a query chunk at absolute positions
     ``q_offset + i`` over keys at positions ``0..Sk-1`` (the semantics of
-    the reference's ``flash_attention_ref`` without a prefix), GQA by
-    indexing kv head ``h // g``.  Materializes the score matrix."""
+    the reference's ``flash_attention_ref``), GQA by indexing kv head
+    ``h // g``.  Causal: key j is seen by query i when ``j <= q_offset +
+    i``, or when ``j < prefix_len`` (a bidirectional prefix, prefix-LM).
+    Materializes the score matrix."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -263,7 +266,7 @@ def flash_attention_ref(
     kpos = torch.arange(sk, device=q.device)[None, :]
     ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
-        ok = qpos >= kpos
+        ok = (qpos >= kpos) | (kpos < prefix_len)
     if window > 0:
         ok = ok & (qpos - kpos < window)
     s = s.masked_fill(~ok, NEG_INF)
@@ -282,6 +285,7 @@ def flash_attention_tc_plain(
     softcap: float = 0.0,
     scale: float | None = None,
     q_offset: int = 0,
+    prefix_len: int = 0,
     key_tile: int = 16,
     key_splits: int = 1,
 ) -> torch.Tensor:
@@ -292,7 +296,8 @@ def flash_attention_tc_plain(
     tile (l summed from the f32 P), f32 l and acc.  ``key_splits`` > 1: tile
     j goes to split j % key_splits, each split keeps its own (m, l, acc)
     over its tiles in order, and the splits are combined with weights
-    exp(m_s - max m) at the end, as the kernel's warps do.  Masked keys
+    exp(m_s - max m) at the end, as the kernel's warps do.  The mask is
+    :func:`flash_attention_ref`'s, ``prefix_len`` included.  Masked keys
     take no part (p = 0, not in the max); a row that sees no key gives 0.
     ``key_splits`` 1 is the reference's ``flash_attention_ref`` at chunk =
     ``key_tile`` up to f32 sums in another order."""
@@ -310,7 +315,7 @@ def flash_attention_tc_plain(
     kpos = torch.arange(n_tiles * key_tile, device=q.device)[None, :]
     ok = kpos < sk
     if causal:
-        ok = ok & (kpos <= qpos)
+        ok = ok & ((kpos <= qpos) | (kpos < prefix_len))
     if window > 0:
         ok = ok & (qpos - kpos < window)
     ok = ok.expand(sq, -1)

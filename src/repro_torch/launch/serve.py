@@ -8,10 +8,16 @@ engine, or one batch at a time through ``ServingEngine.generate``.
         [--spec-decode --spec-k 4 --spec-ngram 3] [--sequential]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         [--paged] [--state-snapshots] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium [--paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
 
 ``--arch`` takes every arch of ``configs.list_archs()``: qwen3-4b,
-mamba2-2.7b, internlm2-20b, phi4-mini-3.8b, gemma2-27b, qwen2-moe-a2.7b and
-mixtral-8x7b.
+mamba2-2.7b, internlm2-20b, phi4-mini-3.8b, gemma2-27b, qwen2-moe-a2.7b,
+mixtral-8x7b, jamba-1.5-large-398b, whisper-medium and paligemma-3b.
+whisper-medium gives each request synthetic encoder frames (0.1 x a
+normal draw from a fixed seed, ``enc_inputs``); paligemma-3b is served one
+batch at a time through ``ServingEngine.generate`` with synthetic image
+embeddings (``prefix_embeds``), as the reference launcher does.
 
 Without ``--paged`` each slot holds a contiguous cache of ``max_seq`` rows
 (the reference's default); with it the slots share a page pool, and a pool
@@ -101,6 +107,16 @@ def main(argv: list[str] | None = None) -> None:
                        state_snapshots=args.state_snapshots, prefix_store=args.prefix_store)
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int32)
+    enc_inputs = prefix = None
+    if cfg.is_encoder_decoder:  # whisper: each request's encoded-audio frames
+        enc_inputs = 0.1 * np.random.default_rng(2).standard_normal(
+            (args.requests, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.prefix_len:  # paligemma: each row's image embeddings
+        prefix = 0.1 * np.random.default_rng(3).standard_normal(
+            (args.requests, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+        max_seq = -(-(cfg.prefix_len + args.prompt_len + args.new_tokens)
+                    // args.block_size) * args.block_size
+        scfg.max_seq = max_seq
     if args.prefix_sharing:
         # The shared-system-prompt workload: the first page-aligned half of
         # every prompt is one prefix, the tails stay unique.
@@ -108,11 +124,12 @@ def main(argv: list[str] | None = None) -> None:
                       (args.prompt_len // 2) // args.block_size * args.block_size)
         tokens[:, :sys_len] = rng.integers(0, cfg.vocab_size, sys_len, dtype=np.int32)
 
-    if args.sequential:
+    if args.sequential or cfg.prefix_len:
         single = ServingEngine(cfg, params, scfg, device=device,
                                unembed=T.unembed_f32(cfg, params))
         t0 = time.perf_counter()
-        rows = single.generate(tokens).cpu().numpy().tolist()
+        rows = single.generate(tokens, enc_inputs=enc_inputs,
+                               prefix_embeds=prefix).cpu().numpy().tolist()
         dt = time.perf_counter() - t0
         total_new = sum(len(r) for r in rows)
         print(f"[serve] {args.arch} on {device} (sequential-batch, contiguous cache): "
@@ -124,7 +141,8 @@ def main(argv: list[str] | None = None) -> None:
         return
     eng = StreamedBatchEngine(cfg, params, scfg, device=device)
     t0 = time.perf_counter()
-    uids = [eng.submit(t) for t in tokens]
+    uids = [eng.submit(t, enc_inputs=None if enc_inputs is None else enc_inputs[i])
+            for i, t in enumerate(tokens)]
     outs = eng.run()
     saved = eng.save_prefixes()
     dt = time.perf_counter() - t0

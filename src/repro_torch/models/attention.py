@@ -29,9 +29,11 @@ the page on grow (:func:`_quant_paged_write`), prefill writes quantize
 page by page, decode reads dequantize inside the paged kernel, and prefill
 reads the context dequantized by torch ops into the prefill kernel.
 
-Caches are updated in place (the reference returns new arrays); the
-caller's cache dict is returned for symmetry.  Positions past a row's page
-table go to trash block 0.
+Every prefill branch passes ``causal`` and ``prefix_len`` (paligemma's
+bidirectional image prefix) to the prefill kernel; ``causal=False`` is the
+encoder's self-attention.  Caches are updated in place (the reference
+returns new arrays); the caller's cache dict is returned for symmetry.
+Positions past a row's page table go to trash block 0.
 """
 
 from __future__ import annotations
@@ -159,6 +161,7 @@ def attention_apply(
     rope_theta: float = 1e4,
     causal: bool = True,
     window: int = 0,
+    prefix_len: int = 0,  # keys below it are seen by every query (prefix-LM)
     softcap_val: float = 0.0,
     scale: float | None = None,
     qk_norm: bool = False,
@@ -186,8 +189,8 @@ def attention_apply(
 
     if cache is not None and page_table is not None:
         out = _paged_attend(q, k, v, cache, page_table, cur_len=cur_len, q_offset=q_offset,
-                            causal=causal, window=window, softcap_val=softcap_val,
-                            scale=scale)
+                            causal=causal, window=window, prefix_len=prefix_len,
+                            softcap_val=softcap_val, scale=scale)
     elif cache is not None and cur_len is not None:
         # Contiguous decode: write, then attend (ring-buffered if SWA).
         k_cache, v_cache = cache["k"], cache["v"]
@@ -210,14 +213,14 @@ def attention_apply(
         out = ops.flash_attention(
             q.contiguous(), k_cache[:, :ctx_len].contiguous(),
             v_cache[:, :ctx_len].contiguous(), causal=causal, window=window,
-            softcap=softcap_val, scale=scale, q_offset=q_offset)
+            softcap=softcap_val, scale=scale, q_offset=q_offset, prefix_len=prefix_len)
     else:
         # First chunk (or no cache): attend over the chunk itself, then store
         # the rope'd K/V; a ring shorter than the chunk keeps the last rows,
         # rolled so that position p lands in slot p % s_cache.
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=causal, window=window, softcap=softcap_val,
-                                  scale=scale)
+                                  scale=scale, prefix_len=prefix_len)
         if cache is not None:
             s_cache = cache["k"].shape[1]
             for key, rows in (("k", k), ("v", v)):
@@ -289,7 +292,7 @@ def _contiguous_write(cache: torch.Tensor, rows: torch.Tensor, cur_len: torch.Te
 
 
 def _paged_attend(q, k, v, cache: dict, page_table: torch.Tensor, *, cur_len, q_offset: int,
-                  causal: bool, window: int, softcap_val: float,
+                  causal: bool, window: int, prefix_len: int, softcap_val: float,
                   scale: float | None) -> torch.Tensor:
     """The two paged branches: decode (``cur_len`` given) through the paged
     kernels, or the fused prefill chunk through the prefill kernel.  Writes
@@ -359,6 +362,6 @@ def _paged_attend(q, k, v, cache: dict, page_table: torch.Tensor, *, cur_len, q_
         out = ops.flash_attention(
             q.contiguous(), k_ctx[:, :ctx_len].contiguous(),
             v_ctx[:, :ctx_len].contiguous(), causal=causal, window=window,
-            softcap=softcap_val, scale=scale, q_offset=q_offset)
+            softcap=softcap_val, scale=scale, q_offset=q_offset, prefix_len=prefix_len)
     return out
 

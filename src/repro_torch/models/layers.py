@@ -3,7 +3,8 @@
 Port of the reference ``models/layers.py`` for the serving slice: the same
 init distributions (drawn from an explicit ``torch.Generator``), rmsnorm
 with the ``1 + scale`` convention in f32, half-split rope with f32 angles,
-the FFN kinds (swiglu, geglu, gelu_mlp) and the tanh softcap.  Weights are
+whisper's sinusoidal absolute positions, the FFN kinds (swiglu, geglu,
+gelu_mlp) and the tanh softcap.  Weights are
 stored ``(in, out)`` and applied as ``x @ w``, as in the reference.
 """
 
@@ -75,6 +76,24 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     sin = sin[..., None, :]
     cos = cos[..., None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int, dtype, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (S, D)."""
+    return sinusoidal_positions_at(torch.arange(seq, dtype=torch.float32, device=device),
+                                   d_model, dtype)
+
+
+def sinusoidal_positions_at(positions: torch.Tensor, d_model: int, dtype) -> torch.Tensor:
+    """Sinusoidal embeddings at ``positions`` (any shape, on any device):
+    (..., D), sin then cos of ``position * exp(-ln(1e4) i / (D/2 - 1))``
+    in f32.  Row p equals ``sinusoidal_positions(seq)[p]``; a decode step
+    passes its device ``cur_len``, so nothing is read back to the host."""
+    half = d_model // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10000.0) * idx / max(1, half - 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, dtype, *,

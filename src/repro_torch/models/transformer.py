@@ -3,11 +3,16 @@
 prefill chunk, paged decode (one token, or a draft block for speculative
 verify), the contiguous prefill chunk and decode steps (one token, or a
 draft block), and the on-device pick (greedy, or temperature sampling
-keyed by request).  The layer kinds of every decoder-only attention
-config are ported -- full or sliding-window attention (gemma2 alternates
-them in a two-layer unit) with a dense FFN (swiglu, geglu, gelu_mlp) or a
-MoE FFN (``models/moe.py``), gemma2's sandwich norms, embedding scale and
-softcaps -- and the mamba2 block with no FFN (mamba2-2.7b).
+keyed by request).  Every layer kind of the reference is ported: full or
+sliding-window attention (gemma2 alternates them in a two-layer unit) or a
+mamba2 block as the mixer (mamba2-2.7b: no FFN; jamba: mamba and
+attention layers in one unit, each followed by a dense or MoE FFN), a
+dense FFN (swiglu, geglu, gelu_mlp) or a MoE FFN (``models/moe.py``),
+gemma2's sandwich norms, embedding scale and softcaps; whisper's encoder
+(:func:`encode`, non-causal), its decoder's cross-attention block over the
+request's encoder output and its sinusoidal positions; paligemma's image
+prefix, prepended to the first prefill chunk and seen bidirectionally
+(``prefix_len``).
 
 Parameters are nested dicts of tensors laid out as the reference's pytree:
 every leaf under ``blocks/layer{i}`` has a leading repeat axis ``r``, and a
@@ -16,17 +21,21 @@ are ``(r, num_blocks, block_size, n_kv_heads, head_dim)`` per unit position
 (plus ``(r, num_blocks, n_kv_heads)`` f32 scales when quantized), or
 contiguous ``(r, B, s_cache, n_kv_heads, head_dim)`` rows per slot; mamba
 layers carry slot-indexed ``ssm`` ``(r, B, H, P, N)`` f32 and ``conv``
-``(r, B, 3, conv_dim)`` leaves.  Caches are updated in place.
+``(r, B, 3, conv_dim)`` leaves, cross-attention layers slot-indexed
+``cross_k`` / ``cross_v`` ``(r, B, encoder_seq, n_kv_heads, head_dim)``
+(written at prefill, read at decode).  Caches are updated in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
@@ -37,32 +46,20 @@ from repro_torch.runtime import sampling
 Params = dict
 
 
+MIXERS = ("attn", "attn_local", "mamba", "none")
+FFNS = ("dense", "moe", "none")
+#: The encoder's layer unit (whisper): attention, then a gelu_mlp FFN.
+ENC_UNIT = (LayerSpec(mixer="attn", ffn="dense"),)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for configs outside the ported layer
-    kinds: decoder-only attention stacks (full or sliding-window mixers,
-    dense or MoE FFN) and pure mamba2 stacks (mamba blocks, no FFN).  Each
-    message names the ROADMAP item that ports the rest."""
-    mixers = {spec.mixer for spec in cfg.layer_unit}
+    """Raise ``NotImplementedError`` for a layer kind the reference does
+    not have either (every reference config passes)."""
     for spec in cfg.layer_unit:
-        if spec.cross_attn:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention is not ported yet: ROADMAP A7 (whisper)")
-        if spec.mixer == "mamba" and (spec.ffn != "none" or mixers != {"mamba"}):
-            raise NotImplementedError(
-                f"{cfg.name}: mamba + attention / FFN hybrids are not ported yet: "
-                "ROADMAP A7 (jamba)")
-        if spec.mixer not in ("attn", "attn_local", "mamba"):
+        if spec.mixer not in MIXERS:
             raise NotImplementedError(f"{cfg.name}: mixer {spec.mixer!r} is not ported")
-        if spec.mixer != "mamba" and spec.ffn not in ("dense", "moe"):
+        if spec.ffn not in FFNS:
             raise NotImplementedError(f"{cfg.name}: ffn {spec.ffn!r} is not ported")
-    if cfg.is_encoder_decoder or cfg.sinusoidal_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder and sinusoidal positions are not ported yet: "
-            "ROADMAP A7 (whisper)")
-    if cfg.prefix_len:
-        raise NotImplementedError(
-            f"{cfg.name}: the prefix-LM image prefix is not ported yet: ROADMAP A7 "
-            "(paligemma)")
 
 
 # ----------------------------------------------------------------------------
@@ -81,46 +78,72 @@ def _moe_kw(cfg: ModelConfig) -> dict:
                 n_experts_pad=cfg.n_experts_pad)
 
 
-def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    """Per-layer leaf shapes (no repeat axis), as the reference's pytree."""
-    if spec.mixer == "mamba":
-        return {"mixer_norm": {"scale": (cfg.d_model,)},
-                "mixer": mamba.mamba_shapes(cfg.d_model, **_mamba_kw(cfg))}
+def _attn_shapes(cfg: ModelConfig, *, qk_norm: bool) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
-    mixer = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
-             "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
-    if cfg.qk_norm:
-        mixer["q_norm"] = {"scale": (hd,)}
-        mixer["k_norm"] = {"scale": (hd,)}
-    out = {"mixer_norm": {"scale": (d,)}, "mixer": mixer, "ffn_norm": {"scale": (d,)}}
-    if spec.ffn == "moe":
-        out["ffn"] = moe.moe_shapes(**_moe_kw(cfg))
-    else:
+    out = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+           "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
+    if qk_norm:
+        out["q_norm"] = {"scale": (hd,)}
+        out["k_norm"] = {"scale": (hd,)}
+    return out
+
+
+def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    """Per-layer leaf shapes (no repeat axis), as the reference's pytree:
+    the mixer (attention with its sandwich norm, or mamba), the
+    cross-attention block, then the FFN (dense with its sandwich norm, or
+    MoE)."""
+    d = cfg.d_model
+    out: dict = {}
+    if spec.mixer in ("attn", "attn_local"):
+        out["mixer_norm"] = {"scale": (d,)}
+        out["mixer"] = _attn_shapes(cfg, qk_norm=cfg.qk_norm)
+        if cfg.sandwich_norm:
+            out["post_mixer_norm"] = {"scale": (d,)}
+    elif spec.mixer == "mamba":
+        out["mixer_norm"] = {"scale": (d,)}
+        out["mixer"] = mamba.mamba_shapes(d, **_mamba_kw(cfg))
+    if spec.cross_attn:
+        out["cross_norm"] = {"scale": (d,)}
+        out["cross"] = _attn_shapes(cfg, qk_norm=False)
+    if spec.ffn == "dense":
+        out["ffn_norm"] = {"scale": (d,)}
         out["ffn"] = {"wi": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}
         if cfg.ffn_kind != "gelu_mlp":
             out["ffn"]["wg"] = (d, cfg.d_ff)
         if cfg.sandwich_norm:
             out["post_ffn_norm"] = {"scale": (d,)}
-    if cfg.sandwich_norm:
-        out["post_mixer_norm"] = {"scale": (d,)}
+    elif spec.ffn == "moe":
+        out["ffn_norm"] = {"scale": (d,)}
+        out["ffn"] = moe.moe_shapes(**_moe_kw(cfg))
     return out
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's view of the config (reference ``encode``): gelu_mlp
+    FFNs, no rope."""
+    return dataclasses.replace(cfg, ffn_kind="gelu_mlp", use_rope=False)
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """Every leaf's shape, repeat axis included (the bridge checks against
     it)."""
-    r = cfg.n_repeats
-
-    def stack(tree):
-        return {k: stack(v) if isinstance(v, dict) else (r, *v)
+    def stack(tree, r):
+        return {k: stack(v, r) if isinstance(v, dict) else (r, *v)
                 for k, v in tree.items()}
 
     out = {"embed": (cfg.padded_vocab, cfg.d_model),
            "final_norm": {"scale": (cfg.d_model,)},
-           "blocks": {f"layer{i}": stack(_layer_shapes(cfg, spec))
+           "blocks": {f"layer{i}": stack(_layer_shapes(cfg, spec), cfg.n_repeats)
                       for i, spec in enumerate(cfg.layer_unit)}}
     if not cfg.tie_embeddings:
         out["unembed"] = (cfg.padded_vocab, cfg.d_model)
+    if cfg.is_encoder_decoder:
+        out["encoder"] = {
+            "blocks": {f"layer{i}": stack(_layer_shapes(_enc_cfg(cfg), spec),
+                                          cfg.n_encoder_layers)
+                       for i, spec in enumerate(ENC_UNIT)},
+            "final_norm": {"scale": (cfg.d_model,)}}
     return out
 
 
@@ -137,29 +160,32 @@ def leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
 
 def _layer_init(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator) -> Params:
     """One layer's parameters (no repeat axis), as the reference's
-    ``_layer_init`` for an attention layer (dense or MoE FFN, sandwich
-    norms) or a mamba layer."""
+    ``_layer_init``: the mixer, the cross-attention block, the FFN."""
     dt, dev = cfg.param_dtype, gen.device
-    if spec.mixer == "mamba":
-        return {"mixer_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
-                "mixer": mamba.mamba_init(gen, d_model=cfg.d_model, dtype=dt,
-                                          **_mamba_kw(cfg))}
-    p = {
-        "mixer_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
-        "mixer": attn_lib.attention_init(
-            gen, d_model=cfg.d_model, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, dtype=dt,
-            qk_norm=cfg.qk_norm),
-        "ffn_norm": layers.rmsnorm_init(cfg.d_model, dt, dev),
-    }
-    if spec.ffn == "moe":
-        p["ffn"] = moe.moe_init(gen, dtype=dt, **_moe_kw(cfg))
-    else:
+    p: Params = {}
+    if spec.mixer in ("attn", "attn_local"):
+        p["mixer_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+        p["mixer"] = attn_lib.attention_init(
+            gen, d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, dtype=dt, qk_norm=cfg.qk_norm)
+        if cfg.sandwich_norm:
+            p["post_mixer_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+    elif spec.mixer == "mamba":
+        p["mixer_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+        p["mixer"] = mamba.mamba_init(gen, d_model=cfg.d_model, dtype=dt, **_mamba_kw(cfg))
+    if spec.cross_attn:
+        p["cross_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+        p["cross"] = attn_lib.attention_init(
+            gen, d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, dtype=dt)
+    if spec.ffn == "dense":
+        p["ffn_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
         p["ffn"] = layers.ffn_init(gen, cfg.d_model, cfg.d_ff, dt, kind=cfg.ffn_kind)
         if cfg.sandwich_norm:
             p["post_ffn_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
-    if cfg.sandwich_norm:
-        p["post_mixer_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+    elif spec.ffn == "moe":
+        p["ffn_norm"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+        p["ffn"] = moe.moe_init(gen, dtype=dt, **_moe_kw(cfg))
     return p
 
 
@@ -198,6 +224,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
     for i in range(cfg.n_repeats):
         for j, spec in enumerate(cfg.layer_unit):
             copy_into(p["blocks"][f"layer{j}"], _layer_init(cfg, spec, gen), i)
+    if cfg.is_encoder_decoder:
+        enc_cfg = _enc_cfg(cfg)
+        p["encoder"] = {"blocks": empty(shapes["encoder"]["blocks"]),
+                        "final_norm": layers.rmsnorm_init(cfg.d_model, dt, dev)}
+        for i in range(cfg.n_encoder_layers):
+            for j, spec in enumerate(ENC_UNIT):
+                copy_into(p["encoder"]["blocks"][f"layer{j}"],
+                          _layer_init(enc_cfg, spec, gen), i)
     return p
 
 
@@ -210,6 +244,15 @@ def _slot_state(cfg: ModelConfig, bsz: int, dev) -> Params:
     return {k: v.view(r, bsz, *v.shape[1:]) for k, v in c.items()}
 
 
+def _cross_state(cfg: ModelConfig, bsz: int, dev) -> Params:
+    """A cross-attention layer's slot-indexed encoder K/V: ``cross_k`` /
+    ``cross_v`` (r, B, encoder_seq, n_kv_heads, head_dim) in
+    ``compute_dtype``, written by the prefill, read by decode."""
+    shape = (cfg.n_repeats, bsz, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"cross_k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+            "cross_v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+
+
 def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, *, ring: bool = True,
                device=None) -> Params:
     """Contiguous decode caches of ``bsz`` rows, stacked over the repeat
@@ -218,18 +261,22 @@ def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, *, ring: bool = True,
     ``compute_dtype``, where ``s_cache`` is ``max_seq`` or, for an SWA
     layer with ``ring=True``, ``min(window, max_seq)`` (a ring buffer; the
     streamed prefill needs ``ring=False``); mamba layers' slot-indexed
-    state."""
+    state; cross-attention layers' slot-indexed encoder K/V."""
     dev = resolve_device(device)
     blocks = {}
     for i, spec in enumerate(cfg.layer_unit):
-        if spec.mixer == "mamba":
-            blocks[f"layer{i}"] = _slot_state(cfg, bsz, dev)
-            continue
-        window = cfg.spec_window(spec)
-        s_cache = min(window, max_seq) if (window > 0 and ring) else max_seq
-        shape = (cfg.n_repeats, bsz, s_cache, cfg.n_kv_heads, cfg.head_dim)
-        blocks[f"layer{i}"] = {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-                               "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+        c: Params = {}
+        if spec.mixer in ("attn", "attn_local"):
+            window = cfg.spec_window(spec)
+            s_cache = min(window, max_seq) if (window > 0 and ring) else max_seq
+            shape = (cfg.n_repeats, bsz, s_cache, cfg.n_kv_heads, cfg.head_dim)
+            c["k"] = torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
+            c["v"] = torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)
+        elif spec.mixer == "mamba":
+            c.update(_slot_state(cfg, bsz, dev))
+        if spec.cross_attn:
+            c.update(_cross_state(cfg, bsz, dev))
+        blocks[f"layer{i}"] = c
     return {"blocks": blocks}
 
 
@@ -240,7 +287,8 @@ def init_paged_cache(cfg: ModelConfig, bsz: int, num_blocks: int, block_size: in
     "int8" / "fp8" store codes plus ``k_scale``/``v_scale`` leaves of
     shape ``(r, num_blocks, n_kv_heads)`` f32 (see ``kernels/quant``).
     Mamba layers' state is O(1) per slot and stays slot-indexed (``bsz``
-    rows), as in :func:`init_cache`.  An unknown ``kv_dtype`` raises
+    rows), as in :func:`init_cache`; so do cross-attention K/V, fixed at
+    ``encoder_seq`` rows a slot.  An unknown ``kv_dtype`` raises
     ``ValueError``."""
     quantized = quant.is_quantized(kv_dtype)
     dev = resolve_device(device)
@@ -249,14 +297,17 @@ def init_paged_cache(cfg: ModelConfig, bsz: int, num_blocks: int, block_size: in
     sshape = (cfg.n_repeats, num_blocks, cfg.n_kv_heads)
     blocks = {}
     for i, spec in enumerate(cfg.layer_unit):
-        if spec.mixer == "mamba":
-            blocks[f"layer{i}"] = _slot_state(cfg, bsz, dev)
-            continue
-        c = {"k": torch.zeros(shape, dtype=pool_dt, device=dev),
-             "v": torch.zeros(shape, dtype=pool_dt, device=dev)}
-        if quantized:
-            c["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
-            c["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+        c: Params = {}
+        if spec.mixer in ("attn", "attn_local"):
+            c["k"] = torch.zeros(shape, dtype=pool_dt, device=dev)
+            c["v"] = torch.zeros(shape, dtype=pool_dt, device=dev)
+            if quantized:
+                c["k_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+                c["v_scale"] = torch.zeros(sshape, dtype=torch.float32, device=dev)
+        elif spec.mixer == "mamba":
+            c.update(_slot_state(cfg, bsz, dev))
+        if spec.cross_attn:
+            c.update(_cross_state(cfg, bsz, dev))
         blocks[f"layer{i}"] = c
     return {"blocks": blocks}
 
@@ -271,43 +322,95 @@ def _at(tree: dict, i: int) -> dict:
     return {k: _at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+_KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, *,
-                 positions, cache, cur_len, q_offset, page_table) -> torch.Tensor:
-    """One layer (pre-norm, residual): attention + a dense or MoE FFN (with
-    sandwich norms, the mixer's and the FFN's outputs normed before their
-    residual adds; the MoE aux loss is dropped, as serving drops it), or a
-    mamba block (decode when ``cur_len`` is given, else a prefill piece
-    that continues from the cached state).  The cache views in ``cache``
-    are written in place."""
-    if spec.mixer == "mamba":
+                 positions, cache, cur_len, q_offset, page_table, enc_out=None,
+                 prefix_len: int = 0, causal: bool = True) -> torch.Tensor:
+    """One layer (pre-norm, residual): the mixer -- attention (with
+    sandwich norms, its output normed before the residual add) or a mamba
+    block (decode when ``cur_len`` is given, else a prefill piece that
+    continues from the cached state) --, then the cross-attention block,
+    then a dense or MoE FFN (the MoE aux loss is dropped, as serving drops
+    it).  The cache views in ``cache`` (None: no cache, as the encoder) are
+    written in place."""
+    if spec.mixer in ("attn", "attn_local"):
+        kv = (None if cache is None or "k" not in cache
+              else {k: cache[k] for k in _KV_LEAVES if k in cache})
+        x = layers.rmsnorm(p["mixer_norm"], h)
+        out, _ = attn_lib.attention_apply(
+            p["mixer"], x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, positions=positions if cfg.use_rope else None,
+            rope_theta=cfg.rope_theta, causal=causal, window=cfg.spec_window(spec),
+            prefix_len=prefix_len, softcap_val=cfg.attn_softcap, scale=cfg.query_scale,
+            qk_norm=cfg.qk_norm, cache=kv, cur_len=cur_len, q_offset=q_offset,
+            page_table=page_table)
+        if cfg.sandwich_norm:
+            out = layers.rmsnorm(p["post_mixer_norm"], out)
+        h = h + out
+    elif spec.mixer == "mamba":
         x = layers.rmsnorm(p["mixer_norm"], h)
         out, upd = mamba.mamba_apply(
-            p["mixer"], x, chunk=cfg.ssd_chunk, state=cache["ssm"],
-            conv_state=cache["conv"], decode=cur_len is not None, **_mamba_kw(cfg))
-        cache["ssm"].copy_(upd["ssm"])
-        cache["conv"].copy_(upd["conv"])
-        return h + out
-    window = cfg.spec_window(spec)
-    x = layers.rmsnorm(p["mixer_norm"], h)
-    out, _ = attn_lib.attention_apply(
-        p["mixer"], x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, positions=positions if cfg.use_rope else None,
-        rope_theta=cfg.rope_theta, window=window, softcap_val=cfg.attn_softcap,
-        scale=cfg.query_scale, qk_norm=cfg.qk_norm, cache=cache,
-        cur_len=cur_len, q_offset=q_offset, page_table=page_table)
-    if cfg.sandwich_norm:
-        out = layers.rmsnorm(p["post_mixer_norm"], out)
-    h = h + out
-    x = layers.rmsnorm(p["ffn_norm"], h)
-    if spec.ffn == "moe":
+            p["mixer"], x, chunk=cfg.ssd_chunk,
+            state=cache["ssm"] if cache is not None else None,
+            conv_state=cache["conv"] if cache is not None else None,
+            decode=cur_len is not None, **_mamba_kw(cfg))
+        if cache is not None:
+            cache["ssm"].copy_(upd["ssm"])
+            cache["conv"].copy_(upd["conv"])
+        h = h + out
+    if spec.cross_attn:
+        h = h + _cross_attend(cfg, p, h, cache=cache, cur_len=cur_len, enc_out=enc_out)
+    if spec.ffn == "dense":
+        x = layers.rmsnorm(p["ffn_norm"], h)
+        out = layers.ffn_apply(p["ffn"], x, kind=cfg.ffn_kind)
+        if cfg.sandwich_norm:
+            out = layers.rmsnorm(p["post_ffn_norm"], out)
+        h = h + out
+    elif spec.ffn == "moe":
+        x = layers.rmsnorm(p["ffn_norm"], h)
         out, _ = moe.moe_apply(p["ffn"], x, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor, moe_chunk=cfg.moe_chunk,
                                impl=cfg.moe_impl, expert_shards=cfg.expert_shards)
-        return h + out
-    out = layers.ffn_apply(p["ffn"], x, kind=cfg.ffn_kind)
-    if cfg.sandwich_norm:
-        out = layers.rmsnorm(p["post_ffn_norm"], out)
-    return h + out
+        h = h + out
+    return h
+
+
+def _cross_attend(cfg: ModelConfig, p: Params, h: torch.Tensor, *, cache, cur_len,
+                  enc_out) -> torch.Tensor:
+    """The cross-attention block's output (reference ``_apply_layer``'s
+    ``cross_attn`` branch), before the residual add.  Prefill: the encoder
+    output's K/V (``enc_out`` given: computed and stored into the slot's
+    ``cross_k`` / ``cross_v``; else, a later chunk of the prompt, the ones
+    the first chunk stored), attended without a mask by the prefill kernel.
+    Decode: the stored K/V, every frame visible, by torch ops
+    (:func:`attention.decode_attention`, as the reference's jnp)."""
+    x = layers.rmsnorm(p["cross_norm"], h)
+    b, s, _ = x.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["cross"]["wq"]).reshape(b, s, cfg.n_heads, hd)
+    stored = cache is not None and "cross_k" in cache
+    if cur_len is not None and stored:
+        kc, vc = cache["cross_k"], cache["cross_v"]
+        # Every encoder frame is visible: the last frame's position.
+        last = torch.full((b,), kc.shape[1] - 1, dtype=torch.long, device=q.device)
+        out = attn_lib.decode_attention(q, kc, vc, cur_len=last)
+    else:
+        if enc_out is not None:
+            es = enc_out.shape[1]
+            kc = (enc_out @ p["cross"]["wk"]).reshape(b, es, hkv, hd)
+            vc = (enc_out @ p["cross"]["wv"]).reshape(b, es, hkv, hd)
+            if stored:
+                cache["cross_k"].copy_(kc)
+                cache["cross_v"].copy_(vc)
+        elif stored:
+            kc, vc = cache["cross_k"], cache["cross_v"]
+        else:
+            raise ValueError(f"{cfg.name}: cross-attention needs enc_out or stored K/V")
+        out = ops.flash_attention(q.contiguous(), kc.contiguous(), vc.contiguous(),
+                                  causal=False)
+    return out.reshape(b, s, cfg.n_heads * hd) @ p["cross"]["wo"]
 
 
 def forward_hidden(
@@ -320,6 +423,8 @@ def forward_hidden(
     page_table: torch.Tensor | None = None,  # (B, n_pages) int32, shared by every layer
     cur_len: torch.Tensor | None = None,  # decode: (B,) int32
     q_offset: int = 0,
+    enc_out: torch.Tensor | None = None,  # (B, encoder_seq, D): the first chunk's
+    prefix_len: int = 0,  # the first chunk's bidirectional image prefix
 ) -> tuple[torch.Tensor, Params]:
     """Run the stacked blocks over the caches (updated in place)."""
     blocks, pools = params["blocks"], caches["blocks"]
@@ -329,8 +434,25 @@ def forward_hidden(
             h = _apply_layer(
                 cfg, spec, _at(blocks[name], i), h, positions=positions,
                 cache=_at(pools[name], i), cur_len=cur_len, q_offset=q_offset,
-                page_table=page_table)
+                page_table=page_table, enc_out=enc_out, prefix_len=prefix_len)
     return h, caches
+
+
+def encode(cfg: ModelConfig, params: Params, enc_inputs: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over the stub frame embeddings (B, encoder_seq,
+    D): sinusoidal positions, ``n_encoder_layers`` non-causal attention +
+    gelu_mlp layers, the final norm (reference ``encode``).  Returns (B,
+    encoder_seq, D) in ``compute_dtype``."""
+    h = enc_inputs.to(cfg.compute_dtype)
+    h = h + layers.sinusoidal_positions(h.shape[1], cfg.d_model, cfg.compute_dtype,
+                                        device=h.device)[None]
+    enc_cfg, enc = _enc_cfg(cfg), params["encoder"]
+    for i in range(cfg.n_encoder_layers):
+        for j, spec in enumerate(ENC_UNIT):
+            h = _apply_layer(enc_cfg, spec, _at(enc["blocks"][f"layer{j}"], i), h,
+                             positions=None, cache=None, cur_len=None, q_offset=0,
+                             page_table=None, causal=False)
+    return layers.rmsnorm(enc["final_norm"], h)
 
 
 def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -338,10 +460,21 @@ def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> tor
     times sqrt(d_model) first rounded to ``compute_dtype``, as the
     reference's ``jnp.asarray(math.sqrt(d), compute_dtype)`` (bf16: 68.0
     for sqrt(4608) = 67.88)."""
-    h = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    return _scaled(cfg, params["embed"][tokens.long()].to(cfg.compute_dtype))
+
+
+def _scaled(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.embed_scale:  # rounded on the host: no copy inside a captured step
         h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype))
     return h
+
+
+def _add_positions(cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Whisper's sinusoidal embeddings at ``positions`` ((S,) at prefill,
+    (B, T) at decode, on the device); a no-op for rope / NoPE configs."""
+    if not cfg.sinusoidal_pos:
+        return h
+    return h + layers.sinusoidal_positions_at(positions, cfg.d_model, cfg.compute_dtype)
 
 
 def _unembed(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -373,6 +506,7 @@ def prefill_chunk_paged(
     last position's logits (B, 1, V) and the pools."""
     h = _embed_tokens(cfg, params, tokens)
     positions = pos0 + torch.arange(h.shape[1], device=h.device)
+    h = _add_positions(cfg, h, positions)
     h, pools = forward_hidden(cfg, params, h, positions=positions, caches=pools,
                               page_table=page_table, q_offset=pos0)
     return _logits(cfg, params, h[:, -1:], unembed), pools
@@ -384,7 +518,7 @@ def decode_step_paged(
 ) -> tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, 1) at per-slot positions ``cur_len``
     (B,).  Returns logits (B, 1, V) and the pools."""
-    h = _embed_tokens(cfg, params, tokens)
+    h = _add_positions(cfg, _embed_tokens(cfg, params, tokens), cur_len[:, None])
     h, caches = forward_hidden(cfg, params, h, positions=cur_len[:, None],
                                caches=caches, page_table=page_table,
                                cur_len=cur_len)
@@ -402,6 +536,7 @@ def decode_step_multi_paged(
     logits (B, T, V) and the pools."""
     h = _embed_tokens(cfg, params, tokens)
     positions = cur_len.long()[:, None] + torch.arange(tokens.shape[1], device=h.device)
+    h = _add_positions(cfg, h, positions)
     h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
                                page_table=page_table, cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
@@ -409,15 +544,25 @@ def decode_step_multi_paged(
 
 def prefill_chunk(
     cfg: ModelConfig, params: Params, tokens: torch.Tensor, caches: Params, pos0: int,
-    *, unembed: torch.Tensor,
+    *, unembed: torch.Tensor, enc_out: torch.Tensor | None = None,
+    prefix: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """One prompt chunk at absolute positions ``pos0..`` over a contiguous
-    cache (``init_cache``), continuing from the state it holds.  Returns
-    the last position's logits (B, 1, V) and the caches."""
+    cache (``init_cache``), continuing from the state it holds.  The first
+    chunk of a whisper prompt carries ``enc_out`` (B, encoder_seq, D), whose
+    cross K/V it stores; the first chunk of a paligemma prompt carries the
+    image ``prefix`` (B, prefix_len, D), scaled as the embeddings, put
+    before the tokens and seen bidirectionally.  Returns the last
+    position's logits (B, 1, V) and the caches."""
     h = _embed_tokens(cfg, params, tokens)
+    prefix_len = 0
+    if prefix is not None:
+        h = torch.cat([_scaled(cfg, prefix.to(cfg.compute_dtype)), h], dim=1)
+        prefix_len = cfg.prefix_len
     positions = pos0 + torch.arange(h.shape[1], device=h.device)
+    h = _add_positions(cfg, h, positions)
     h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
-                               q_offset=pos0)
+                               q_offset=pos0, enc_out=enc_out, prefix_len=prefix_len)
     return _logits(cfg, params, h[:, -1:], unembed), caches
 
 
@@ -427,7 +572,7 @@ def decode_step(
 ) -> tuple[torch.Tensor, Params]:
     """One decode step over a contiguous cache: tokens (B, 1) at per-slot
     positions ``cur_len`` (B,).  Returns logits (B, 1, V) and the caches."""
-    h = _embed_tokens(cfg, params, tokens)
+    h = _add_positions(cfg, _embed_tokens(cfg, params, tokens), cur_len[:, None])
     h, caches = forward_hidden(cfg, params, h, positions=cur_len[:, None], caches=caches,
                                cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
@@ -465,6 +610,7 @@ def decode_step_multi(
     _multi_unit_check(cfg, caches)
     h = _embed_tokens(cfg, params, tokens)
     positions = cur_len.long()[:, None] + torch.arange(tokens.shape[1], device=h.device)
+    h = _add_positions(cfg, h, positions)
     h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
                                cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches

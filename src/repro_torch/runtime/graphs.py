@@ -53,14 +53,13 @@ def lru_get(cache: collections.OrderedDict, key, make: Callable[[], Any], *,
     """Fetch-or-build an entry of a small LRU cache (the reference's
     ``_lru_jit``): a hit moves ``key`` to the end, a miss builds it with
     ``make`` and drops the oldest entry past ``cap``."""
-    fn = cache.get(key)
-    if fn is None:
-        fn = make()
-        cache[key] = fn
-        if len(cache) > cap:
-            cache.popitem(last=False)
-    else:
+    if key in cache:  # an entry may be None: a step with nothing to capture
         cache.move_to_end(key)
+        return cache[key]
+    fn = make()
+    cache[key] = fn
+    if len(cache) > cap:
+        cache.popitem(last=False)
     return fn
 
 
@@ -98,9 +97,10 @@ class Graphs:
 class StepGraph:
     """One step over static inputs: ``fn(**inputs)`` returns the step's
     outputs (a tensor, a tree of them, or None).  ``inputs`` maps each name
-    to its (shape, dtype); calling the step with ``name=host array`` fills
-    those buffers first, then runs, captures or replays as the module
-    docstring says."""
+    to its (shape, dtype); calling the step with ``name=host array`` (or a
+    tensor already on the device, copied on the device: whisper's encoder
+    output) fills those buffers first, then runs, captures or replays as
+    the module docstring says."""
 
     def __init__(self, graphs: Graphs, fn: Callable[..., Any],
                  inputs: dict[str, tuple[tuple[int, ...], torch.dtype]]):
@@ -123,6 +123,9 @@ class StepGraph:
             # The staging may still feed the last run's copies.
             self._copied.synchronize()
         for name, v in values.items():
+            if isinstance(v, torch.Tensor):  # on the device: no host staging
+                self.inputs[name].copy_(v)
+                continue
             self._host[name].numpy()[...] = v
             if self._copied is not None:
                 self.inputs[name].copy_(self._host[name], non_blocking=True)

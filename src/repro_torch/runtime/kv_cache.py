@@ -18,7 +18,8 @@ Each attention unit position owns K and V pools of shape
 ``(r, num_blocks, block_size, n_kv_heads, head_dim)`` on the device (int8
 or fp8 codes plus ``(r, num_blocks, n_kv_heads)`` f32 scales when the pool
 is quantized); mamba unit positions keep their O(1) state slot-indexed
-(``(r, max_batch, ...)``) beside the pages.  One host-side page table
+(``(r, max_batch, ...)``) beside the pages, and so do whisper's
+cross-attention K/V (``encoder_seq`` rows a slot).  One host-side page table
 ``(max_batch, max_pages)`` int32 is shared by every layer and copied to the
 device per step.  **Block 0 is the trash page**: free and shielded slots'
 table rows point at it, so padding rows of the batched decode step write
@@ -625,7 +626,7 @@ class PagedKVCache:
             for name, c in pools["blocks"].items():
                 src = src_tree["blocks"][name]
                 for key, leaf in c.items():
-                    if key not in PAGED_LEAVES:  # per-slot state (mamba ssm/conv)
+                    if key not in PAGED_LEAVES:  # per-slot state (ssm/conv, cross K/V)
                         leaf.index_copy_(1, slot, src[key])
                         continue
                     if key.endswith("_scale"):
@@ -652,34 +653,41 @@ class PagedKVCache:
         n = self.pages_for(length)
         assert len(self._owned[slot]) >= n, (slot, length, self._owned[slot])
         step = lru_get(self._gather_jit, n, lambda: self._make_gather(n), cap=self._jit_cap)
-        out = step(pages=self._owned[slot][:n], slot=slot)
-        return {"blocks": {name: {k: v.clone() for k, v in c.items()}
-                           for name, c in out["blocks"].items()}}
+        out = step(pages=self._owned[slot][:n]) if step is not None else {}
+        blocks = {}
+        for name, c in self.pools["blocks"].items():
+            oc = {k: v.clone() for k, v in out.get(name, {}).items()}
+            for key, leaf in c.items():
+                # Per-slot state is copied outside the graph: a graph's outputs
+                # stay in its pool, and whisper's cross K/V are ~147 MB a slot.
+                if key not in PAGED_LEAVES:
+                    oc[key] = leaf[:, slot: slot + 1].clone()
+            blocks[name] = oc
+        return {"blocks": blocks}
 
-    def _make_gather(self, n: int) -> StepGraph:
-        """Static inputs ``pages`` (n,) and ``slot`` (1,)."""
+    def _make_gather(self, n: int) -> StepGraph | None:
+        """Static input ``pages`` (n,); the graph gathers the paged leaves
+        only (None when there are none: a pure mamba pool)."""
         bs, pools, dtype = self.block_size, self.pools, self.compute_dtype
+        if not any(k in PAGED_LEAVES for c in pools["blocks"].values() for k in c):
+            return None
 
         @torch.inference_mode()
-        def fn(pages, slot):
+        def fn(pages):
             out = {}
             for name, c in pools["blocks"].items():
                 oc = {}
                 for key, leaf in c.items():
-                    if key not in PAGED_LEAVES:
-                        oc[key] = leaf.index_select(1, slot)
-                        continue
-                    if key.endswith("_scale"):
-                        continue  # folded into the dequantized rows
+                    if key not in PAGED_LEAVES or key.endswith("_scale"):
+                        continue  # per-slot state; scales fold into the rows
                     g = leaf[:, pages]  # (r, n, bs, hkv, hd), a copy
                     skey = f"{key}_scale"
                     if skey in c:
                         g = quant.dequantize(g, c[skey][:, pages]).to(dtype)
                     oc[key] = g.reshape(g.shape[0], n * bs, *g.shape[3:])[:, None]
                 out[name] = oc
-            return {"blocks": out}
-        return StepGraph(self.graphs, fn, {"pages": ((n,), torch.long),
-                                           "slot": ((1,), torch.long)})
+            return out
+        return StepGraph(self.graphs, fn, {"pages": ((n,), torch.long)})
 
     def load_prefix(self, caches: dict, blocks: list[int]) -> dict:
         """Copy ``blocks``' rows into the front of a b=1 contiguous cache,

@@ -12,11 +12,15 @@ shareable — so the engine never calls the model directly.
                 or b=1 streamed        contiguous slot cache; prefix
                 chunks, then a scatter pages shared copy-on-write
   mamba         b=1 streamed chunks    one recurrence step per tick over
-                over the O(1) SSM      slot state; sharing degrades to
-                state, then a scatter  state snapshots at chunk boundaries
+                over the O(1) SSM      slot state (hybrids: and paged or
+                state, then a scatter  contiguous attention K/V); pure SSM
+                                       sharing degrades to state snapshots
+  whisper       the slot's own encode, one token per tick, cross-attention
+                then b=1 streamed      over the slot's encoder K/V;
+                chunks, then a scatter nothing to share
+  prefix_lm     not served here: ``ServingEngine.generate(tokens,
+                prefix_embeds=)`` only, as in the reference
   ============  =====================  ===================================
-
-whisper and prefix-LM configs are rejected until they are ported.
 
 Import order: this module imports ``runtime.serving`` eagerly (for
 ``ServingEngine``); ``serving`` imports this module inside
@@ -56,13 +60,15 @@ def build_servable(cfg: ModelConfig, params: dict, scfg, *, device,
     ``scfg.arch_kind`` and re-runs the arch-dependent flag validation, so a
     ``ServeConfig`` built before the model was known still fails fast."""
     kind = arch_kind_of(cfg)
-    if kind in ("whisper", "prefix_lm"):
+    if kind == "prefix_lm":  # before the params are touched, as the reference
         raise NotImplementedError(
-            f"{cfg.name}: serving {kind} configs is not ported yet: ROADMAP A7 "
-            f"({'whisper' if kind == 'whisper' else 'paligemma'})")
+            "continuous batching does not serve prefix-LM (image-prefix) configs: the "
+            "image prefix is a per-request SYNC stage with no token key for slot caches; "
+            "use ServingEngine.generate with prefix_embeds")
     scfg.arch_kind = kind
     scfg.validate_arch()
-    cls = {"transformer": TransformerServable, "mamba": MambaServable}[kind]
+    cls = {"transformer": TransformerServable, "mamba": MambaServable,
+           "whisper": WhisperServable}[kind]
     return cls(cfg, params, scfg, device=device, graphs=graphs)
 
 
@@ -99,10 +105,24 @@ class ServableModel:
         return T.init_cache(self.cfg, bsz, self.scfg.max_seq, ring=False,
                             device=self.device)
 
-    def iter_prefill_chunks(self, tokens, *, caches=None, pos0: int = 0):
+    def validate_request(self, tokens: np.ndarray, enc_inputs) -> np.ndarray | None:
+        """Arch-specific validation at ``submit``; returns the normalized
+        ``enc_inputs`` the request carries (None here)."""
+        if enc_inputs is not None:
+            raise ValueError(
+                f"{self.scfg.arch_kind!r} servables take no enc_inputs (encoder-decoder only)")
+        return None
+
+    def iter_prefill_chunks(self, req, tokens, *, caches=None, pos0: int = 0):
         """The streamed b=1 prefill of one admission (non-fused path): the
-        chunk graphs over ``single.request_cache()``."""
+        chunk graphs over ``single.request_cache()``.  ``req`` carries the
+        request's inputs beyond its tokens."""
         return self.single.iter_prefill_chunks(tokens, caches=caches, pos0=pos0)
+
+    def probe_enc_out(self) -> torch.Tensor | None:
+        """An encoder output stand-in for synthetic stage probes; None for
+        decoder-only archs."""
+        return None
 
     def decode_fn(self, *, paged: bool) -> Callable:
         """The batched decode step with its pick on the device (greedy, or
@@ -155,16 +175,23 @@ class TransformerServable(ServableModel):
 
 
 class MambaServable(ServableModel):
-    """Pure SSM (mamba2) configs.  Per-slot state is O(1) recurrent (SSM
-    state + conv tail), slot-indexed in the contiguous cache or beside the
-    pages.  Page-granular prefix sharing is impossible (the state at
-    position t summarizes all of [0, t)), so sharing degrades to **state
-    snapshots**: admission restores the longest stored chunk-aligned proper
-    prefix of the prompt and streams only the uncovered tail.  Snapshots
-    are host copies, since the port updates caches in place."""
+    """SSM (mamba2) and hybrid (jamba) configs.  Per-slot state is O(1)
+    recurrent (SSM state + conv tail), slot-indexed in the contiguous cache
+    or beside the pages, where a hybrid's attention layers keep their K/V.
+    Page-granular prefix sharing is impossible (the state at position t
+    summarizes all of [0, t)), so for a pure SSM sharing degrades to
+    **state snapshots**: admission restores the longest stored
+    chunk-aligned proper prefix of the prompt and streams only the
+    uncovered tail.  Snapshots are host copies, since the port updates
+    caches in place.  A hybrid rejects them, as the reference does."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device,
                  graphs: Graphs | None = None):
+        if scfg.state_snapshots and any(s.mixer != "mamba" for s in cfg.layer_unit):
+            raise NotImplementedError(
+                "state_snapshots reuse O(1) recurrent state; hybrid configs (jamba) also "
+                "carry attention KV whose snapshot would be O(max_seq) per entry — serve "
+                "hybrids without state_snapshots")
         super().__init__(cfg, params, scfg, device=device, graphs=graphs)
         if scfg.state_snapshots:
             self.snapshots = StateStore()
@@ -191,6 +218,45 @@ class MambaServable(ServableModel):
         if 0 < pos < len(tokens) and pos % self.scfg.prefill_chunk == 0:
             self.snapshots.put(np.asarray(tokens[:pos], np.int32),
                                _tree_to(caches, torch.device("cpu")))
+
+
+class WhisperServable(ServableModel):
+    """Encoder-decoder (whisper): each admission encodes its request's
+    frames (the paper's SYNC stage, staged once per slot), the first
+    prefill chunk stores the cross-attention K/V into the slot's
+    ``cross_k`` / ``cross_v``, and decode is one token a tick with
+    cross-attention over them.  Those K/V are per-slot state of a fixed
+    ``encoder_seq`` rows, so evict / readmit carry them whole.  Prefix
+    sharing is rejected (``ServeConfig.validate_arch``): the self-attention
+    K/V depend on each request's encoder output, not on its tokens alone."""
+
+    def validate_request(self, tokens: np.ndarray, enc_inputs) -> np.ndarray:
+        cfg = self.cfg
+        if enc_inputs is None:
+            raise ValueError(
+                "whisper serving needs enc_inputs per request: the encoded audio frames, "
+                f"shape (encoder_seq={cfg.encoder_seq}, d_model={cfg.d_model})")
+        raw = enc_inputs.cpu().numpy() if isinstance(enc_inputs, torch.Tensor) else enc_inputs
+        enc = np.asarray(raw, np.float32)
+        if enc.ndim == 2:
+            enc = enc[None]
+        if enc.shape != (1, cfg.encoder_seq, cfg.d_model):
+            raise ValueError(
+                f"enc_inputs must be (encoder_seq={cfg.encoder_seq}, d_model={cfg.d_model}); "
+                f"got {tuple(np.shape(raw))} (the slot's cross-attention K/V is sized for "
+                "the full encoder_seq)")
+        return enc
+
+    def iter_prefill_chunks(self, req, tokens, *, caches=None, pos0: int = 0):
+        # Every admission starts at 0 with its own encode (nothing is shared).
+        assert pos0 == 0, "whisper admissions never resume a shared prefix"
+        return self.single.iter_prefill_chunks(tokens, caches=caches,
+                                               enc_inputs=req.enc_inputs)
+
+    def probe_enc_out(self) -> torch.Tensor:
+        cfg = self.cfg
+        return torch.zeros((1, cfg.encoder_seq, cfg.d_model), dtype=cfg.compute_dtype,
+                           device=self.device)
 
 
 def _tree_to(tree: dict, device: torch.device) -> dict:

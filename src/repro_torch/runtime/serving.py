@@ -1,9 +1,11 @@
 """Continuous-batching engine with chunked prefill (reference
 ``runtime/serving.py``): transformer serving over a contiguous slot cache
-or a paged pool (fused prefill, or scatter-after-prefill), and mamba
-serving over a contiguous slot cache or beside a paged pool.
-``ServingEngine`` holds the b=1 streamed prefill of one admission and
-``generate``, the one-batch-at-a-time oracle.
+or a paged pool (fused prefill, or scatter-after-prefill), mamba and
+hybrid (jamba) serving over a contiguous slot cache or beside a paged
+pool, and whisper serving, each request with its own encoder input
+(``submit(..., enc_inputs=)``).  ``ServingEngine`` holds the b=1 streamed
+prefill of one admission and ``generate``, the one-batch-at-a-time oracle,
+which also serves paligemma's image prefix (``prefix_embeds=``).
 
 * **Slots**: ``max_batch`` decode slots share the cache; each carries its
   own position ``cur``, so rope, the cache write and the attention cut are
@@ -95,8 +97,8 @@ class ServeConfig:
     fused_prefill: bool | None = None
     # mamba: reuse chunk-aligned SSM-state snapshots across admissions.
     state_snapshots: bool = False
-    # Stamped by build_servable from the model ("transformer" | "mamba");
-    # setting it up front validates arch-dependent flags early.
+    # Stamped by build_servable from the model ("transformer" | "mamba" |
+    # "whisper"); setting it up front validates arch-dependent flags early.
     arch_kind: str | None = None
     # Path: persist the prefix registry across engines (restored at
     # construction, saved by engine.save_prefixes; a stale store is ignored).
@@ -151,8 +153,9 @@ class ServeConfig:
         kind = self.arch_kind
         if kind is None:
             return
-        if kind not in ("transformer", "mamba"):
-            raise ValueError(f"unknown arch_kind {kind!r}; expected transformer | mamba")
+        if kind not in ("transformer", "mamba", "whisper"):
+            raise ValueError(
+                f"unknown arch_kind {kind!r}; expected transformer | mamba | whisper")
         if kind == "mamba":
             if self.prefix_sharing:
                 raise NotImplementedError(
@@ -164,11 +167,23 @@ class ServeConfig:
                 raise NotImplementedError(
                     "speculative decode rolls rejected positions back by masking KV "
                     "writes; mamba/hybrid archs advance irreversible per-slot SSM state")
+        if kind == "whisper":
+            if self.prefix_sharing:
+                raise NotImplementedError(
+                    "prefix sharing keys pages by prompt tokens alone, but whisper's "
+                    "self-attention KV depends on each request's encoder output — "
+                    "identical text prefixes are not shareable across requests")
+            if self.spec_decode:
+                raise NotImplementedError(
+                    "speculative decode needs the multi-token verify step, which has no "
+                    "cross-attention path; serve encoder-decoder configs with "
+                    "spec_decode=False")
+        if kind != "transformer":
             if quant.is_quantized(self.kv_dtype):
                 raise NotImplementedError(
                     "quantized KV pages cover attention K/V pool blocks; "
-                    f"arch_kind={kind!r} carries cache state (SSM rows) with no per-page "
-                    "scale — serve it with kv_dtype='fp32'")
+                    f"arch_kind={kind!r} carries cache state (SSM rows / cross-attention "
+                    "slabs) with no per-page scale — serve it with kv_dtype='fp32'")
             if self.fused_prefill:
                 raise NotImplementedError(
                     "fused_prefill routes prefill K/V through the decoder page table; "
@@ -189,9 +204,11 @@ class ServingEngine:
     ``ServingEngine.iter_prefill_chunks``) and the batched engine's prefill
     chunk graphs, in the LRU cache ``_chunk_jit`` capped by
     ``_chunk_jit_cap`` as the reference's: b=1 streamed chunks keyed
-    ``(chunk_len, first, pos0)`` over the engine-owned request cache, fused
-    chunks keyed ``("fused", chunk_len, pos0)`` over the page pool.  Also
-    ``generate``, the one-batch-at-a-time decode, which stays eager."""
+    ``(chunk_len, first, pos0)`` over the engine-owned request cache (a
+    whisper first chunk takes the encoder output as an input, not as part
+    of its key), fused chunks keyed ``("fused", chunk_len, pos0)`` over the
+    page pool.  Also ``generate``, the one-batch-at-a-time decode, which
+    stays eager, as does whisper's encode of each admission."""
 
     def __init__(self, cfg: ModelConfig, params: dict, scfg, *, device, unembed,
                  graphs: Graphs | None = None):
@@ -215,15 +232,21 @@ class ServingEngine:
 
     def _prefill_chunk_fn(self, chunk_len: int, first: bool, pos0: int) -> StepGraph:
         """The graph of one b=1 prompt chunk over the request cache; static
-        input ``tokens`` (1, chunk_len), output the last logits (1, 1, V)."""
+        input ``tokens`` (1, chunk_len) and, for a whisper first chunk,
+        ``enc_out`` (1, encoder_seq, D), whose cross K/V it stores; output
+        the last logits (1, 1, V)."""
         def make():
             cfg, params, unembed = self.cfg, self.params, self.unembed
             caches = self.request_cache()
+            inputs = {"tokens": ((1, chunk_len), torch.int32)}
+            if first and cfg.is_encoder_decoder:
+                inputs["enc_out"] = ((1, cfg.encoder_seq, cfg.d_model), cfg.compute_dtype)
 
             @torch.inference_mode()
-            def fn(tokens):
-                return T.prefill_chunk(cfg, params, tokens, caches, pos0, unembed=unembed)[0]
-            return StepGraph(self.graphs, fn, {"tokens": ((1, chunk_len), torch.int32)})
+            def fn(tokens, enc_out=None):
+                return T.prefill_chunk(cfg, params, tokens, caches, pos0, unembed=unembed,
+                                       enc_out=enc_out)[0]
+            return StepGraph(self.graphs, fn, inputs)
         return lru_get(self._chunk_jit, (chunk_len, first, pos0), make,
                        cap=self._chunk_jit_cap)
 
@@ -245,8 +268,18 @@ class ServingEngine:
         return lru_get(self._chunk_jit, ("fused", chunk_len, pos0), make,
                        cap=self._chunk_jit_cap)
 
-    def iter_prefill_chunks(self, tokens, *, caches=None, pos0: int = 0
-                            ) -> Iterator[tuple[torch.Tensor, dict, int]]:
+    def _device_f32(self, x) -> torch.Tensor:
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
+        return x.to(device=self.device, dtype=torch.float32)
+
+    def encode(self, enc_inputs) -> torch.Tensor:
+        """Whisper's encoder over ``enc_inputs`` (B, encoder_seq, D), eager:
+        (B, encoder_seq, D) in ``compute_dtype`` on the engine's device."""
+        with torch.inference_mode():
+            return T.encode(self.cfg, self.params, self._device_f32(enc_inputs))
+
+    def iter_prefill_chunks(self, tokens, *, caches=None, pos0: int = 0, enc_inputs=None,
+                            prefix_embeds=None) -> Iterator[tuple[torch.Tensor, dict, int]]:
         """Yield (logits-so-far (1, 1, V), caches, position after the chunk)
         per prompt chunk.  ``caches`` None: an eager prefill of ``tokens``
         (B, S) over a fresh cache (``generate``).  Else ``caches`` is
@@ -255,43 +288,68 @@ class ServingEngine:
         (1, S) runs its graph; its logits are good until the engine's next
         replay.  The chunk grid is anchored at position 0 (the chunk size is
         picked from the *full* length ``pos0 + s``), so a continued prefill
-        dispatches the chunks a full prefill would."""
+        dispatches the chunks a full prefill would.
+
+        A whisper prompt needs ``enc_inputs`` (B, encoder_seq, D): they are
+        encoded first and the first chunk stores their cross K/V.  A
+        paligemma prompt needs ``prefix_embeds`` (B, prefix_len, D), eager
+        only: they ride the first chunk, before its tokens, which then
+        advances the position by ``prefix_len`` more (as the reference)."""
         cfg, params, unembed = self.cfg, self.params, self.unembed
         b, s = tokens.shape
+        if cfg.is_encoder_decoder and enc_inputs is None and pos0 == 0:
+            raise ValueError(f"{cfg.name}: the prefill needs enc_inputs (B, encoder_seq, D)")
+        if (prefix_embeds is None) != (cfg.prefix_len == 0):
+            raise ValueError(f"{cfg.name}: prefix_embeds (B, prefix_len={cfg.prefix_len}, D) "
+                             "go with a prefix-LM config, and only with one")
+        enc_out = self.encode(enc_inputs) if enc_inputs is not None else None
+        prefix = None
         graphed = caches is not None
         if graphed:
             assert caches is self.request_cache(), "chunk graphs run over the request cache"
+            assert prefix_embeds is None, "the image prefix is served by generate only"
             tokens = tokens.cpu().numpy() if isinstance(tokens, torch.Tensor) else tokens
         else:
             assert pos0 == 0, "a continued prefill needs its context cache"
             caches = T.init_cache(cfg, b, self.scfg.max_seq, ring=False,
                                   device=self.device)
+            if prefix_embeds is not None:
+                prefix = self._device_f32(prefix_embeds)
+                if tuple(prefix.shape) != (b, cfg.prefix_len, cfg.d_model):
+                    raise ValueError(f"prefix_embeds {tuple(prefix.shape)} != "
+                                     f"{(b, cfg.prefix_len, cfg.d_model)}")
         chunk = min(self.scfg.prefill_chunk, pos0 + s)
         pos = pos0
         for lo in range(0, s, chunk):
             piece = tokens[:, lo: lo + chunk]
             n = piece.shape[1]
+            first = lo == 0 and pos0 == 0
             if graphed:
-                logits = self._prefill_chunk_fn(n, pos == 0, pos)(tokens=piece)
+                extra = {"enc_out": enc_out} if first and enc_out is not None else {}
+                logits = self._prefill_chunk_fn(n, first, pos)(tokens=piece, **extra)
             else:
                 with torch.inference_mode():
-                    logits, caches = T.prefill_chunk(cfg, params, piece, caches, pos,
-                                                     unembed=unembed)
-            pos += n
+                    logits, caches = T.prefill_chunk(
+                        cfg, params, piece, caches, pos, unembed=unembed,
+                        enc_out=enc_out if first else None, prefix=prefix if first else None)
+            pos += n + (cfg.prefix_len if first and prefix is not None else 0)
             yield logits, caches, pos
 
-    def generate(self, tokens) -> torch.Tensor:
+    def generate(self, tokens, *, enc_inputs=None, prefix_embeds=None) -> torch.Tensor:
         """Decode ``max_new_tokens`` after a streamed prefill of ``tokens``
         (B, S) (reference ``ServingEngine.generate``): every row at one
         position, one decode step a token over the contiguous cache, the
-        pick on the device.  At temperature row b draws its token i from
-        stream (uid b, step i) of ``runtime.sampling``, where the reference
-        splits one key for the whole batch per token.  Returns (B,
-        max_new_tokens) int32 on the engine's device."""
+        pick on the device.  ``enc_inputs`` (whisper) and ``prefix_embeds``
+        (paligemma) as in :meth:`iter_prefill_chunks`.  At temperature row b
+        draws its token i from stream (uid b, step i) of
+        ``runtime.sampling``, where the reference splits one key for the
+        whole batch per token.  Returns (B, max_new_tokens) int32 on the
+        engine's device."""
         tokens = torch.as_tensor(np.asarray(tokens, np.int32)).to(self.device)
         logits = caches = None
         pos = 0
-        for logits, caches, pos in self.iter_prefill_chunks(tokens):
+        for logits, caches, pos in self.iter_prefill_chunks(
+                tokens, enc_inputs=enc_inputs, prefix_embeds=prefix_embeds):
             pass
         b = tokens.shape[0]
         rows = torch.arange(b, dtype=torch.int32, device=self.device)
@@ -316,6 +374,9 @@ class Request:
     uid: int
     tokens: np.ndarray  # (prompt_len,) int32
     max_new_tokens: int
+    # whisper: this request's frames (1, encoder_seq, d_model) f32, encoded
+    # at admission (its cross K/V then travel with the slot's state)
+    enc_inputs: np.ndarray | None = None
 
 
 @dataclasses.dataclass
@@ -344,7 +405,9 @@ class _Slot:
 @dataclasses.dataclass
 class EvictedRequest:
     """A request pulled out of its slot: its cache rows and positions,
-    ready to readmit into any free slot.  (The reference also carries the
+    ready to readmit into any free slot.  ``caches`` carries the slot's
+    per-slot state whole (mamba's SSM state and conv tail, whisper's
+    cross-attention K/V), so a readmission needs no encode.  (The reference also carries the
     latency fields ``ttft_s``, ``t_last`` and ``itl_max``; they come with
     the observability wiring, ROADMAP A8.)"""
 
@@ -454,11 +517,14 @@ class StreamedBatchEngine:
 
     # -- queue -------------------------------------------------------------------
 
-    def submit(self, tokens, max_new_tokens: int | None = None) -> int:
-        """Queue one prompt; returns its uid."""
+    def submit(self, tokens, max_new_tokens: int | None = None, *, enc_inputs=None) -> int:
+        """Queue one prompt; returns its uid.  ``enc_inputs`` (encoder_seq,
+        d_model) is the request's encoder input, required for whisper and
+        rejected for every other arch (the servable validates it)."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if tokens.size == 0:
             raise ValueError("prompt must contain at least one token")
+        enc_inputs = self.servable.validate_request(tokens, enc_inputs)
         max_new = self.scfg.max_new_tokens if max_new_tokens is None else max_new_tokens
         if max_new < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
@@ -476,7 +542,7 @@ class StreamedBatchEngine:
                     f"{self.kv.allocator.capacity}; grow num_blocks or shrink it")
         uid = self._next_uid
         self._next_uid += 1
-        self.queue.append(Request(uid, tokens, max_new))
+        self.queue.append(Request(uid, tokens, max_new, enc_inputs))
         return uid
 
     @property
@@ -639,7 +705,7 @@ class StreamedBatchEngine:
                 self.snapshot_tokens_reused += shared_len
         logits, pos = None, shared_len
         for logits, caches, pos in self.servable.iter_prefill_chunks(
-                req.tokens[None, shared_len:], caches=caches, pos0=shared_len):
+                req, req.tokens[None, shared_len:], caches=caches, pos0=shared_len):
             self.servable.maybe_snapshot(req.tokens, caches, pos)
             if pos == len(req.tokens):
                 logits = logits.clone()  # kept past the ticks' replays

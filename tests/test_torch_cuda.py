@@ -3,8 +3,11 @@ the engine (paged, contiguous, scatter-after-prefill, under page pressure,
 sharing a prefix, at temperature) on the card against the engine on the
 CPU, with the copy-on-write fork and the sampler's hash on the card; the
 paged and prefill kernels at the zoo's grouped-query ratios (g = 2, 3, 6)
-with gemma2's query scale and softcap; graphed steps (qwen3, mamba2 and a
-MoE config) against their eager runs.  Every test carries
+with gemma2's query scale and softcap; the prefill kernel with
+paligemma's bidirectional prefix (``prefix_len``) and whisper's non-causal
+attention over 1500 frames, the paged kernel at whisper's hd 64 / g 1 and
+the SSD scan at jamba's H 128, P 128; graphed steps (qwen3, mamba2, a MoE
+config, whisper and jamba) against their eager runs.  Every test carries
 the ``cuda`` marker and skips without a card.  The file imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -184,6 +187,74 @@ def test_flash_tc_kernel_matches_its_emulation(cuda, case):
         key_splits=plan.key_splits, **kw).float()
     ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
     assert (got - want).abs().max().item() <= 2 * ulp
+
+
+# paligemma (hd 256, g 8, one kv head): its first chunk (256 image rows +
+# 64 tokens), a later chunk, a ragged prefix, a prefix past a later chunk's
+# causal limit, and a small head_dim (the SIMT body in bf16 too).
+PREFIX_CASES = [dict(sq=320, sk=320, q_offset=0, prefix_len=256),
+                dict(sq=64, sk=384, q_offset=320, prefix_len=256),
+                dict(sq=90, sk=90, q_offset=0, prefix_len=70),
+                dict(sq=48, sk=300, q_offset=200, prefix_len=280),
+                dict(sq=20, sk=20, q_offset=0, prefix_len=8, hd=24, g=4)]
+# whisper (hd 64, g 1, 16 heads): the encoder (1500 x 1500), a chunk's
+# cross-attention (64 and 37 rows over 1500 frames), and GQA over a short
+# context.
+NONCAUSAL_CASES = [dict(sq=1500, sk=1500), dict(sq=64, sk=1500), dict(sq=37, sk=1500),
+                   dict(sq=64, sk=100, hd=128, g=4, hkv=8)]
+
+
+def _attn_inputs(cuda, dtype, case, *, hd, g, hkv):
+    gen = torch.Generator().manual_seed(5)
+    hd, g, hkv = case.get("hd", hd), case.get("g", g), case.get("hkv", hkv)
+    q = torch.randn((1, case["sq"], hkv * g, hd), generator=gen).to(cuda, dtype)
+    k = torch.randn((1, case["sk"], hkv, hd), generator=gen).to(cuda, dtype)
+    v = torch.randn((1, case["sk"], hkv, hd), generator=gen).to(cuda, dtype)
+    return q, k, v
+
+
+def _held_flash(q, k, v, dtype, **kw):
+    """The kernel (one launch) against the plain version; bf16 tensor-core
+    calls also against the body's emulation (2 bf16 ulps, as
+    ``test_flash_tc_kernel_matches_its_emulation``)."""
+    hd = q.shape[-1]
+    n0 = FA.KERNEL.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, scale=1 / math.sqrt(hd), **kw)
+    torch.cuda.synchronize()
+    assert FA.KERNEL.launches == n0 + 1
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+    plan = FA.plan_flash(q.shape[0], q.shape[1], q.shape[2], k.shape[2], hd, dtype)
+    if plan.body == "tc":
+        emul = ref.flash_attention_tc_plain(q.cpu(), k.cpu(), v.cpu(), key_tile=plan.key_tile,
+                                            key_splits=plan.key_splits, **kw).float()
+        ulp = 2.0 ** (math.floor(math.log2(emul.abs().max().item())) - 7)
+        assert (got.float().cpu() - emul).abs().max().item() <= 2 * ulp
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", PREFIX_CASES, ids=str)
+def test_flash_kernel_with_prefix_matches_plain(cuda, dtype, case):
+    q, k, v = _attn_inputs(cuda, dtype, case, hd=256, g=8, hkv=1)
+    _held_flash(q, k, v, dtype, q_offset=case["q_offset"], prefix_len=case["prefix_len"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", NONCAUSAL_CASES, ids=str)
+def test_flash_kernel_non_causal_matches_plain(cuda, dtype, case):
+    q, k, v = _attn_inputs(cuda, dtype, case, hd=64, g=1, hkv=16)
+    _held_flash(q, k, v, dtype, causal=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_paged_kernel_at_whisper_widths_matches_plain(cuda, dtype):
+    q, kp, vp, pt, cl = (t.to(cuda) for t in _paged(dtype, [143, 100, 15, 0], trash_row=3,
+                                                      hkv=16, g=1, hd=64))
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    got = ops.paged_attention(q, kp, vp, pt, cl)
+    want = PA.paged_attention_plain(q, kp, vp, pt, cl, scale=1 / 8)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
 def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
@@ -619,6 +690,26 @@ SSD_TC_CASES = [dict(b=1, s=64, chunk=256, init=True), dict(b=1, s=36, chunk=256
 SSD_TC_ULPS = 4  # y: bf16 ulps of the emulation's largest magnitude
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", [dict(b=1, s=64, chunk=256, init=True),
+                                  dict(b=2, s=300, chunk=256),
+                                  dict(b=1, s=512, chunk=256, init=True)], ids=str)
+def test_ssd_kernel_at_jamba_widths_matches_plain(cuda, dtype, case):
+    """jamba's mamba layers: H 128, P 128 (two 64-column blocks a head on
+    the tensor-core body), N 128, chunk 256."""
+    case = dict(case, h=128, p=128, n=128)
+    x, dt, a, bm, cm, st = _ssd_inputs(dtype, case, cuda, seed=4)
+    n0 = SSD.KERNEL.launches
+    y, f = SSD.ssd_chunked(x, dt, a, bm, cm, chunk=case["chunk"], init_state=st)
+    y_p, f_p = SSD.ssd_chunked_plain(x, dt, a, bm, cm, chunk=case["chunk"], init_state=st)
+    torch.cuda.synchronize()
+    assert SSD.KERNEL.launches == n0 + 1
+    ymax = max(1.0, y_p.float().abs().max().item())
+    fmax = max(1.0, f_p.abs().max().item())
+    assert (y.float() - y_p.float()).abs().max().item() <= SSD_RTOL[dtype] * ymax
+    assert (f - f_p).abs().max().item() <= SSD_RTOL[torch.float32] * fmax
+
+
 @pytest.mark.parametrize("case", SSD_TC_CASES, ids=str)
 def test_ssd_bf16_kernel_matches_tc_emulation(cuda, case):
     """The tensor-core body against its arithmetic on the CPU
@@ -1034,7 +1125,10 @@ def _warm_engine(cfg, cuda, n_steps, **kw):
     eng = serving.StreamedBatchEngine(cfg, params, scfg, device=cuda)
     rng = np.random.default_rng(11)
     for n in (40, 33, 64, 20):
-        eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32))
+        enc = None
+        if cfg.is_encoder_decoder:  # whisper: each request's encoder frames
+            enc = (0.1 * rng.standard_normal((cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+        eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32), enc_inputs=enc)
     for _ in range(n_steps):
         eng.step()
     assert len(eng.active_slots) == 4
@@ -1105,7 +1199,7 @@ def test_graphed_qwen_steps_equal_eager_steps(cuda, kv_dtype):
     for name, make, vals in (
             ("scatter", kv._make_scatter(2), dict(pages=own[:2], rows=np.arange(16, 48),
                                                    slot=slot)),
-            ("gather", kv._make_gather(3), dict(pages=own[:3], slot=slot)),
+            ("gather", kv._make_gather(3), dict(pages=own[:3])),
             ("load", kv._make_load(2), dict(pages=own[1:3]))):
         assert isinstance(make, StepGraph)
         runs = _graph_vs_eager(make, vals, state)
@@ -1119,7 +1213,9 @@ def test_graphed_mamba_steps_equal_eager_steps(cuda, paged):
     """2-layer full-width mamba2-2.7b, f32: the mamba step (state written in
     place) and a b=1 streamed chunk over the request cache, captured and
     replayed, equal their eager first run; the chunk's replays launch the
-    SSD kernel once a layer, the step none."""
+    SSD kernel once a layer, the step none.  Paged: the scatter graph; a
+    pure mamba pool has no paged leaf, so its gather has no graph and
+    copies the slot's state rows."""
     cfg = _full_width("mamba2-2.7b")
     eng = _warm_engine(cfg, cuda, 3, paged=paged)
     state = _state(eng)
@@ -1138,13 +1234,13 @@ def test_graphed_mamba_steps_equal_eager_steps(cuda, paged):
     assert _counted(step, vals) == {SSD.KERNEL: 3 * cfg.n_layers}
     if paged:
         slot = eng.active_slots[0].index
-        for name, make, vals in (
-                ("scatter", eng.kv._make_scatter(1), dict(pages=eng.kv.slot_pages(slot)[:1],
-                                                          rows=np.arange(16), slot=slot)),
-                ("gather", eng.kv._make_gather(1), dict(pages=eng.kv.slot_pages(slot)[:1],
-                                                        slot=slot))):
-            runs = _graph_vs_eager(make, vals, state)
-            bits[name] = _same(runs[0], runs[1])
+        runs = _graph_vs_eager(eng.kv._make_scatter(1), dict(
+            pages=eng.kv.slot_pages(slot)[:1], rows=np.arange(16), slot=slot), state)
+        bits["scatter"] = _same(runs[0], runs[1])
+        assert eng.kv._make_gather(1) is None
+        got = eng.kv.gather(slot, 16)["blocks"]["layer0"]
+        for key, leaf in eng.kv.pools["blocks"]["layer0"].items():
+            assert torch.equal(got[key], leaf[:, slot: slot + 1])
     print(f"graph replay bit-equal to the eager step (mamba, paged={paged}): {bits}")
 
 
@@ -1178,6 +1274,66 @@ def test_graphed_moe_steps_equal_eager_steps(cuda):
     bits["fused chunk"] = _same(runs[0], runs[1])
     assert _counted(step, vals) == {FA.KERNEL: 3 * cfg.n_layers}
     print(f"graph replay bit-equal to the eager step (qwen2-moe): {bits}")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_graphed_whisper_steps_equal_eager_steps(cuda, paged):
+    """whisper-medium at published widths, 2 decoder and 2 encoder layers,
+    1500 frames, f32: the decode tick (cross-attention over the slots'
+    stored K/V, torch ops) and a first chunk (its encoder output a static
+    input, the cross K/V stored into the request cache), captured and
+    replayed, equal their eager first run; the tick launches the paged
+    kernel once a layer (none contiguous), the chunk the prefill kernel
+    twice a layer (self- and cross-attention)."""
+    cfg = dataclasses.replace(_full_width("whisper-medium"), n_encoder_layers=2)
+    eng = _warm_engine(cfg, cuda, 3, paged=paged)
+    state = _state(eng)
+    bits = {}
+    step = eng._tick_graph(eng.servable.decode_fn(paged=paged), t=1)
+    vals = _tick_vals(eng, 1)
+    runs = _graph_vs_eager(step, vals, state)
+    bits["tick"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == ({PA.KERNEL: 3 * cfg.n_layers} if paged else {})
+    single = eng.servable.single
+    single._chunk_jit.clear()
+    step = single._prefill_chunk_fn(32, True, 0)
+    enc = single.encode(torch.randn((1, cfg.encoder_seq, cfg.d_model)) * 0.1)
+    vals = dict(tokens=np.arange(32, dtype=np.int32)[None] * 5, enc_out=enc)
+    runs = _graph_vs_eager(step, vals, state)
+    bits["first chunk"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == {FA.KERNEL: 3 * 2 * cfg.n_layers}
+    cross = single.request_cache()["blocks"]["layer0"]["cross_k"]
+    assert cross.abs().sum().item() > 0
+    print(f"graph replay bit-equal to the eager step (whisper, paged={paged}): {bits}")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_graphed_jamba_steps_equal_eager_steps(cuda, paged):
+    """jamba-1.5-large at published widths, unit positions 0 and 3 (mamba +
+    dense FFN, attention + MoE), 4 experts, f32: the decode tick and a b=1
+    chunk, captured and replayed, equal their eager first run; the tick
+    launches the paged kernel once (none contiguous), the chunk the SSD
+    and the prefill kernels once each."""
+    full = configs.get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(full, layer_unit=(full.layer_unit[0], full.layer_unit[3]),
+                              n_layers=2, n_experts=4, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    eng = _warm_engine(cfg, cuda, 3, paged=paged)
+    state = _state(eng)
+    bits = {}
+    step = eng._tick_graph(eng.servable.decode_fn(paged=paged), t=1)
+    vals = _tick_vals(eng, 1)
+    runs = _graph_vs_eager(step, vals, state)
+    bits["tick"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == ({PA.KERNEL: 3} if paged else {})
+    single = eng.servable.single
+    single._chunk_jit.clear()
+    step = single._prefill_chunk_fn(32, False, 32)
+    vals = dict(tokens=np.arange(32, dtype=np.int32)[None] * 5)
+    runs = _graph_vs_eager(step, vals, state)
+    bits["chunk"] = _same(runs[0], runs[1])
+    assert _counted(step, vals) == {SSD.KERNEL: 3, FA.KERNEL: 3}
+    print(f"graph replay bit-equal to the eager step (jamba, paged={paged}): {bits}")
 
 
 def test_engine_graphs_free_with_the_engine(cuda):

@@ -340,22 +340,17 @@ def test_launcher_serves_the_dense_zoo_on_cpu(capsys, arch, flags):
 @pytest.mark.parametrize("arch", RC.list_archs())
 def test_check_supported_rejects_only_what_is_unported(arch):
     """Every reference config, built field by field into the port's
-    ModelConfig at smoke size: the decoder-only attention stacks and mamba2
-    are supported; jamba (a mamba + attention + MoE hybrid), whisper
-    (encoder-decoder, cross-attention) and paligemma (image prefix) raise,
-    naming their ROADMAP item."""
+    ModelConfig at smoke size, is supported (the decoder-only attention
+    stacks, mamba2, the jamba hybrid, whisper's encoder-decoder and
+    paligemma's image prefix): it is in the port's registry, and the
+    reference's parameters convert through the bridge with no leaf left
+    over, shaped as the port's own init."""
     rcfg = RC.get_smoke_config(arch)
     fields = {f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)
               if f.name not in ("param_dtype", "compute_dtype", "layer_unit")}
     pcfg = PC.ModelConfig(**fields, param_dtype=torch.float32, compute_dtype=torch.float32,
                           layer_unit=tuple(PC.LayerSpec(**dataclasses.asdict(s))
                                            for s in rcfg.layer_unit))
-    unported = {"jamba-1.5-large-398b": "jamba", "whisper-medium": "whisper",
-                "paligemma-3b": "paligemma"}
-    if arch in unported:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP A7 \\({unported[arch]}\\)"):
-            PT.check_supported(pcfg)
-        return
     assert arch in PC.list_archs()
     PT.check_supported(pcfg)
     tree = jax.tree.map(np.asarray, RT.init_params(rcfg, jax.random.PRNGKey(0)))

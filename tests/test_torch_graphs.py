@@ -359,3 +359,39 @@ def test_engine_under_capture_stand_in_counts_graphs(qwen):
     graphs = [s for s in (*steps, *eng.servable.single._chunk_jit.values(),
                           *eng.kv._scatter_jit.values())]
     assert all((s.graph is not None) == (s.uses > 1) for s in graphs)
+
+
+@pytest.fixture(scope="module")
+def whisper():
+    return _setup("whisper-medium")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_whisper_keys_match_reference(whisper, paged):
+    """whisper's b=1 chunks are keyed (chunk_len, first, pos0) as the
+    reference's: the encoder output is an input of each first chunk's
+    graph, not part of its key; with an evict / readmit, paged or not."""
+    rcfg = whisper[0]
+    kw = dict(max_seq=64, prefill_chunk=16, max_new_tokens=6, max_batch=2)
+    if paged:
+        kw.update(paged=True, block_size=16)
+    rng = np.random.default_rng(8)
+    prompts = _prompts(rcfg.vocab_size, (20, 33, 17), 8)
+    encs = [rng.standard_normal((rcfg.encoder_seq, rcfg.d_model)).astype(np.float32)
+            for _ in prompts]
+
+    def script(eng):
+        uids = [eng.submit(p, enc_inputs=e) for p, e in zip(prompts, encs)]
+        for _ in range(3):
+            eng.step()
+        eng.readmit(eng.evict(eng.active_slots[0].uid))
+        out = eng.run()
+        return {i: out[u] for i, u in enumerate(uids)}
+    eng, keys = _keys_on_both(whisper, kw, script)
+    firsts = [k for k in keys if k[1]]
+    assert firsts and all(k[2] == 0 for k in firsts)
+    graph = eng.servable.single._chunk_jit[firsts[0]]
+    assert set(graph.inputs) == {"tokens", "enc_out"}
+    assert tuple(graph.inputs["enc_out"].shape) == (1, rcfg.encoder_seq, rcfg.d_model)
+    assert all(set(eng.servable.single._chunk_jit[k].inputs) == {"tokens"}
+               for k in keys if not k[1])

@@ -38,7 +38,8 @@ def test_port_files_are_found():
             "ssd_chunk.py", "mamba2_2_7b.py", "streams.py", "wavefront.py", "rmetric.py",
             "streamed_matmul.py", "fwt.py", "nw_tile.py", "moe.py", "gemma2_27b.py",
             "internlm2_20b.py", "phi4_mini_3_8b.py", "qwen2_moe_a2_7b.py",
-            "mixtral_8x7b.py"} <= names
+            "mixtral_8x7b.py", "jamba_1_5_large_398b.py", "whisper_medium.py",
+            "paligemma_3b.py", "model_iface.py", "graphs.py", "layers.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

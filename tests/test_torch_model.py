@@ -64,8 +64,9 @@ def _j(tree):
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 def test_config_matches_reference_field_by_field(getter):
     assert PC.list_archs() == ["qwen3-4b", "mamba2-2.7b", "internlm2-20b", "phi4-mini-3.8b",
-                               "gemma2-27b", "qwen2-moe-a2.7b", "mixtral-8x7b"]
-    assert set(PC.list_archs()) <= set(RC.list_archs())
+                               "gemma2-27b", "qwen2-moe-a2.7b", "mixtral-8x7b",
+                               "jamba-1.5-large-398b", "whisper-medium", "paligemma-3b"]
+    assert set(PC.list_archs()) == set(RC.list_archs())
     for arch in PC.list_archs():
         ref = getattr(RC, getter)(arch)
         port = getattr(PC, getter)(arch)

@@ -156,8 +156,9 @@ def test_transformer_engine_still_rejects_the_contiguous_path():
 
 def test_arch_kinds_match_reference():
     """The port's taxonomy on every reference config (built field by field
-    into the port's ModelConfig), and clean rejections of the kinds not
-    ported."""
+    into the port's ModelConfig), and the reference's rejection of the
+    prefix-LM kind (paligemma) by the batched engine, before the params are
+    touched."""
     for arch in RC.list_archs():
         rcfg = RC.get_config(arch)
         fields = {f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)
@@ -166,8 +167,8 @@ def test_arch_kinds_match_reference():
             PC.LayerSpec(**dataclasses.asdict(s)) for s in rcfg.layer_unit))
         from repro.runtime import model_iface as RI
         assert PI.arch_kind_of(pcfg) == RI.arch_kind_of(rcfg), arch
-        if PI.arch_kind_of(pcfg) in ("whisper", "prefix_lm"):
-            with pytest.raises(NotImplementedError, match="not ported"):
+        if PI.arch_kind_of(pcfg) == "prefix_lm":
+            with pytest.raises(NotImplementedError, match="prefix-LM"):
                 PI.build_servable(pcfg, {}, PS.ServeConfig(), device="cpu")
 
 
@@ -181,3 +182,35 @@ def test_launcher_serves_mamba_on_cpu(capsys, flags):
     assert ("paged block=16" in out) == ("--paged" in flags)
     assert ("contiguous slot cache" in out) == ("--paged" not in flags)
     assert ("state snapshots:" in out) == ("--state-snapshots" in flags)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("arch", RC.list_archs())
+def test_zoo_streamed_smoke(arch):
+    """``tests/test_zoo.py::test_zoo_streamed_smoke`` (slow there too):
+    every config serves one streamed admission end to end on the port's
+    engine with the JAX engine's tokens (whisper with its encoder frames),
+    or, prefix-LM, is rejected with the reference's message before its
+    params are touched."""
+    rcfg, pcfg = RC.get_smoke_config(arch), PC.get_smoke_config(arch)
+    if PI.arch_kind_of(pcfg) == "prefix_lm":
+        with pytest.raises(NotImplementedError, match="prefix-LM"):
+            PS.StreamedBatchEngine(pcfg, {}, PS.ServeConfig(**KW), device="cpu")
+        return
+    tree = jax.tree.map(np.asarray, RT.init_params(rcfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    kw = {}
+    if rcfg.is_encoder_decoder:
+        kw["enc_inputs"] = rng.standard_normal((rcfg.encoder_seq, rcfg.d_model)).astype(
+            np.float32)
+    tokens = rng.integers(0, rcfg.vocab_size, 24).astype(np.int32)
+    ref = RS.StreamedBatchEngine(rcfg, jax.tree.map(jax.numpy.asarray, tree),
+                                 RS.ServeConfig(**KW))
+    r_uid = ref.submit(tokens, **kw)
+    want = ref.run()[r_uid]
+    eng = PS.StreamedBatchEngine(pcfg, bridge.params_from_numpy(tree, pcfg, device="cpu"),
+                                 PS.ServeConfig(**KW), device="cpu")
+    uid = eng.submit(tokens, **kw)
+    out = eng.run()
+    assert out[uid].shape == (KW["max_new_tokens"],)
+    np.testing.assert_array_equal(out[uid], want)
