@@ -183,6 +183,24 @@ Phases (any failed check raises, and the script exits non-zero):
      the tick beside its weight-read floor (block weights + the f32 table,
      + the slots' cross K/V for whisper), launches, peak GB and
      memory_reserved.
+  10. observability and the serving policy (after 5c, on its qwen3-4b):
+     traced serves with a metrics registry and an SLO (targets 25 and 3 x
+     phase 5's tick p50) on a fresh engine and on the same engine warm:
+     tokens bit-equal to phase 5's, no span dropped, no live STR002, the
+     launches of the serve; per request queue wait, TTFT, worst ITL; ITL
+     p50 / p99 / max, SLO attainment and goodput; the trace written to
+     build/obs_trace.json and read back; the doctor's findings.  Tracing's
+     cost (3 untraced and 3 traced fresh serves in turns).  The stage probe
+     with the slots active mid serve (the pool and page table unchanged,
+     phase 5's tokens): chunk and tick ms, R, the decision, the plan, the
+     trace's overlap against the R gate's prediction; autotune(128) on the
+     idle engine and a serve on it (tok/s, tick p50, agreement with the
+     untuned tokens, graphs captured; at a new page size the old pool's
+     graphs neither run again nor stay held).  A warm traced serve in 22
+     blocks: each request's TTFT and worst ITL beside its evictions and
+     stall, the evict / readmit spans.  2-layer f32 card vs CPU: the same
+     stage times make the same plan, then the same tokens and span
+     sequence.
 On the card every serve's ticks, chunks and page moves replay CUDA graphs
 (runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
 eager step functions and holds the graphed serve to it (tokens identical,
@@ -1018,8 +1036,14 @@ def check_engines_freed(cfg, params, reqs, label: str, n: int = 3) -> None:
           f"{n} serves whose engines were dropped")
 
 
+def evict_readmit_oldest(eng) -> None:
+    """Evict the oldest active request and readmit it at once."""
+    check(bool(eng.active_slots), "no active request to evict")
+    eng.readmit(eng.evict(eng.active_slots[0].uid))
+
+
 def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, encs=None,
-          evict_mid=False, **extra):
+          tracer=None, slo=None, prepare=None, mid=None, **extra):
     """Serve ``reqs`` on ``device`` over a paged pool (or, with
     ``paged=False``, the contiguous slot cache) with ServeConfig options
     ``extra``; returns (engine, tokens per request, admission logits per
@@ -1033,9 +1057,10 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, e
     yardstick the graphs are held to).  A full-width card serve prints its
     graphs captured, replays, capture ms and ``memory_reserved`` before and
     after it.  ``encs``: each request's encoder input (whisper), whose
-    encode the engine times (host clock around a synchronize);
-    ``evict_mid``: after 3 scheduling steps the oldest active request is
-    evicted and readmitted."""
+    encode the engine times (host clock around a synchronize); ``tracer``
+    and ``slo``: the engine's (``repro_torch.obs``); ``prepare(engine)``
+    runs before the requests are submitted, ``mid(engine)`` after 3
+    scheduling steps (``evict_readmit_oldest``, a stage probe)."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
 
     class Engine(StreamedBatchEngine):
@@ -1088,15 +1113,16 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, e
     max_seq = -(-(max(PROMPT_LENS) + NEW_TOKENS) // BLOCK) * BLOCK
     scfg = ServeConfig(max_seq=max_seq, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS,
                        max_batch=SLOTS, block_size=BLOCK, paged=paged, **extra)
-    eng = Engine(cfg, params, scfg, device=device, drafter=drafter)
+    eng = Engine(cfg, params, scfg, device=device, drafter=drafter, tracer=tracer, slo=slo)
+    if prepare is not None:
+        prepare(eng)
     t0 = time.perf_counter()
     uids = [eng.submit(p) if encs is None else eng.submit(p, enc_inputs=e)
             for p, e in zip(reqs, encs if encs is not None else [None] * len(reqs))]
-    if evict_mid:
+    if mid is not None:
         for _ in range(3):
             eng.step()
-        check(bool(eng.active_slots), "no active request to evict")
-        eng.readmit(eng.evict(eng.active_slots[0].uid))
+        mid(eng)
     out = eng.run()
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1300,22 +1326,17 @@ def fold_launches(res: dict, launches: dict) -> None:
             res[name]["launches"] += n
 
 
-def counted_serve(cfg, params, reqs, **kw):
-    """One serve on the card with every launch count set to 0 just before
-    it; returns serve()'s tuple and the counts read just after.  Checks
-    that each tick and chunk launched its kernel once per layer: the
-    single-token entry per plain tick, the draft-block entry per verify
-    tick (the fused-dequant pair over quantized pages; none over the
-    contiguous cache, whose decode is torch ops), the prefill kernel per
-    chunk, and nothing else; the SSD kernel once per mamba layer per prefill
-    chunk; a whisper chunk's cross-attention launches the prefill kernel
-    once more a layer, and its encode once per encoder layer an admission
+def expected_launches(cfg, eng) -> dict:
+    """The launches a serve on ``eng`` makes, from its counters: each tick
+    and chunk launches its kernel once per layer: the single-token entry
+    per plain tick, the draft-block entry per verify tick (the
+    fused-dequant pair over quantized pages; none over the contiguous
+    cache, whose decode is torch ops), the prefill kernel per chunk, and
+    nothing else; the SSD kernel once per mamba layer per prefill chunk; a
+    whisper chunk's cross-attention launches the prefill kernel once more a
+    layer, and its encode once per encoder layer an admission
     (cross-attention decode is torch ops)."""
-    counters = zero_counters()
-    out = serve(cfg, params, "cuda", reqs, **kw)
-    launches = {name: c.launches for name, c in counters.items()}
-    eng = out[0]
-    want = {name: 0 for name in counters}
+    want = {name: 0 for name in KERNELS}
     r = cfg.n_repeats
     n_attn = r * sum(s.mixer in ("attn", "attn_local") for s in cfg.layer_unit)
     n_cross = r * sum(s.cross_attn for s in cfg.layer_unit)
@@ -1326,14 +1347,46 @@ def counted_serve(cfg, params, reqs, **kw):
         want[f"paged_attention_multi{q}"] = n_attn * eng.spec_ticks
     want["flash_attention"] = ((n_attn + n_cross) * eng.prefill_chunks
                                + cfg.n_encoder_layers * eng.admissions)
-    opts = {k: v for k, v in kw.items() if k != "encs"}
-    check(launches == want, f"{opts}: launches {launches} != {want} ({cfg.n_layers} layers "
-          f"x {eng.decode_steps} ticks ({eng.spec_ticks} verify), {eng.prefill_chunks} chunks)")
-    # The counts above include the graphs' replays (runtime/graphs.py adds a
-    # graph's captured launches at each replay): every tick after a key's
-    # first replays a graph.
+    return want
+
+
+def count_launches(label: str, run, want):
+    """``run()`` with every launch count set to 0 just before it; checks the
+    counts read just after against ``want(result)``.  Returns (result,
+    counts)."""
+    counters = zero_counters()
+    out = run()
+    launches = {name: c.launches for name, c in counters.items()}
+    expect = want(out)
+    check(launches == expect, f"{label}: launches {launches} != {expect}")
+    return out, launches
+
+
+def counted_run(res: dict, label: str, run, want):
+    """``count_launches`` with the peak memory reset just before the run;
+    the counts join the kernels line.  Returns (result, counts, peak GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = count_launches(label, run, want)
+    fold_launches(res, launches)
+    return out, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_graphed(eng, label: str) -> None:
+    """The serve's launch counts include the graphs' replays
+    (runtime/graphs.py adds a graph's captured launches at each replay):
+    every tick after a key's first replays a graph."""
     check(eng.graphs.replays > 0 and eng.graphs.captured > 0,
-          f"{opts}: {eng.graphs.captured} graphs captured, {eng.graphs.replays} replays")
+          f"{label}: {eng.graphs.captured} graphs captured, {eng.graphs.replays} replays")
+
+
+def counted_serve(cfg, params, reqs, **kw):
+    """One serve on the card with every launch count set to 0 just before
+    it; returns serve()'s tuple and the counts read just after, which must
+    be ``expected_launches``."""
+    label = json.dumps({k: v for k, v in kw.items() if k != "encs"}, default=str)
+    out, launches = count_launches(label, lambda: serve(cfg, params, "cuda", reqs, **kw),
+                                   lambda out: expected_launches(cfg, out[0]))
+    check_graphed(out[0], label)
     return out, launches
 
 
@@ -1847,6 +1900,335 @@ def phase_sharing_sampling(res: dict, main: tuple) -> dict:
     return out
 
 
+# -- phase 10: observability and the serving policy --------------------------------
+
+# The SLO of phase 10's serves, in multiples of phase 5's untraced tick p50:
+# a request's TTFT (queue wait included) within SLO_TTFT_TICKS ticks, its
+# worst inter-token gap within SLO_ITL_TICKS.
+SLO_TTFT_TICKS, SLO_ITL_TICKS = 25, 3
+OBS_TRACE = ROOT / "build" / "obs_trace.json"  # phase 10a's Chrome trace (git-ignored)
+
+
+def span_seq(spans) -> list:
+    """(track, name, arguments but the queue wait's seconds) of each span."""
+    return [(s.track, s.name, {k: v for k, v in s.args.items() if k != "queue_wait_s"})
+            for s in spans]
+
+
+def live_state(eng) -> list:
+    """Every leaf of the engine's pool or contiguous slot cache."""
+    tree = eng.kv.pools if eng.paged else eng.caches
+    return [leaf for c in tree["blocks"].values() for leaf in c.values()]
+
+
+def pool_graphs(eng) -> list:
+    """The step graphs that hold the engine's pool: the ticks, the fused
+    chunks and the pool's page moves."""
+    out = [eng._decode] + ([eng._verify] if eng._verify is not None else [])
+    out += [g for k, g in eng.servable.single._chunk_jit.items() if k[0] == "fused"]
+    for cache in (eng.kv._scatter_jit, eng.kv._gather_jit, eng.kv._load_jit):
+        out += [g for g in cache.values() if g is not None]
+    return out
+
+
+def observe_anew(eng, *, tracer=None, slo=None) -> None:
+    """A fresh registry (the counters restart at 0), tracer and SLO policy
+    for ``eng``'s next serve."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+
+    eng.obs = tracer if tracer is not None else Tracer(enabled=False)
+    eng.metrics, eng.slo, eng.prefill_chunks = MetricsRegistry(), slo, 0
+
+
+def serve_again(res: dict, label: str, cfg, eng, reqs):
+    """``reqs`` once more on ``eng`` (a ``serve`` engine), its launch counts
+    at 0 just before and held to ``expected_launches`` after (they join the
+    kernels line); returns (tokens per request, wall s, counts).  Its tick
+    times go to ``eng.ticks``, cleared first."""
+    def run():
+        eng.ticks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        uids = [eng.submit(p) for p in reqs]
+        out = eng.run()
+        torch.cuda.synchronize()
+        return [out[u] for u in uids], time.perf_counter() - t0
+    (toks, wall), launches = count_launches(label, run, lambda _: expected_launches(cfg, eng))
+    fold_launches(res, launches)
+    return toks, wall, launches
+
+
+def latency_lines(tag: str, tls) -> list[dict]:
+    """Print one line a request of its reconstructed timeline: queue wait,
+    TTFT, worst and mean ITL, evictions and stall (ms)."""
+    rows = [{"uid": t.uid, "queue_wait_ms": t.queue_wait_s * 1e3, "ttft_ms": t.ttft_s * 1e3,
+             "itl_max_ms": t.itl_max_s * 1e3, "itl_mean_ms": t.itl_mean_s * 1e3,
+             "evictions": t.evictions, "stall_ms": t.stall_s * 1e3, "tokens": t.tokens}
+            for t in tls]
+    for r in rows:
+        print(f"[obs] {tag} uid {r['uid']}: queue wait {r['queue_wait_ms']:.2f} ms, TTFT "
+              f"{r['ttft_ms']:.2f} ms, ITL max {r['itl_max_ms']:.2f} ms (mean "
+              f"{r['itl_mean_ms']:.2f}), {r['evictions']} evictions, stall "
+              f"{r['stall_ms']:.2f} ms, {r['tokens']} tokens")
+    return rows
+
+
+def phase_obs_policy(res: dict, main: tuple) -> dict:
+    """Phase 10: observability and the serving policy on the full 36-layer
+    bf16 qwen3-4b of phase 5 (``main``), its 6 requests, 4 slots, chunk 64,
+    pages of 16.  (a) A traced serve with a metrics registry and an
+    ``SLOPolicy`` (targets SLO_TTFT_TICKS and SLO_ITL_TICKS x phase 5's
+    tick p50) on a fresh engine, then on the same engine warm (one untraced
+    serve between): tokens bit-equal to phase 5's untraced serve, no span
+    dropped, every span closed after it opened, no live STR002, the launch
+    counts of the serve; per request the queue wait, TTFT and worst ITL;
+    ITL p50 / p99 / max, SLO attainment and goodput; the warm trace written
+    to OBS_TRACE and read back through ``timelines_from_trace``; the
+    doctor's findings.  (b) Tracing's cost: tok/s and tick p50 of fresh
+    serves untraced and traced, in turns, three each.  (c) The policy:
+    ``measure_stage_times(128)`` with the slots active mid serve (every
+    pool leaf and the page table unchanged, the serve's tokens phase 5's),
+    R, the decision and the plan, the warm trace's overlap against the
+    prediction from those stage times; then ``autotune(128)`` on the idle
+    engine and a serve on it (tok/s, tick p50, agreement with phase 5's
+    tokens, graphs captured before and after; at a new page size no graph
+    over the old pool runs again or stays held).  (d) A traced serve in
+    phase 5b's pool of PRESSURE_BLOCKS blocks, on a warm engine (one
+    untraced serve before it): each request's TTFT and
+    worst ITL beside its evictions and stall, the evict / readmit span
+    times (the serve's evict and readmit synchronize around them), phase
+    5's tokens.  (e) 2-layer full-width f32, card against CPU: the same
+    stage times (c's) given to both engines' ``autotune`` make the same
+    plan, the traced serves then give the same tokens and the same span
+    sequence."""
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.core import rmetric
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import (SLOPolicy, Tracer, overlap_report, reconstruct_timelines,
+                                 stage_times_from_trace, timelines_from_trace)
+    from repro_torch.obs.doctor import diagnose, render
+    from repro_torch.runtime.serving import plan_decode_policy
+
+    out: dict = {}
+    e2e, paged_toks, params = main
+    cfg = qwen3_4b.CONFIG
+    reqs = prompts(cfg.vocab_size)
+    n_tok = len(reqs) * NEW_TOKENS
+    p50 = e2e["decode_tick_ms_p50"] / 1e3
+    slo = SLOPolicy(ttft_s=SLO_TTFT_TICKS * p50, itl_s=SLO_ITL_TICKS * p50)
+    print(f"[obs] SLO: TTFT <= {SLO_TTFT_TICKS} x {p50 * 1e3:.2f} ms = {slo.ttft_s * 1e3:.2f} "
+          f"ms, ITL <= {SLO_ITL_TICKS} x = {slo.itl_s * 1e3:.2f} ms (phase 5's tick p50)")
+
+    def same_tokens(label, toks, want=paged_toks):
+        for i, (a, b) in enumerate(zip(toks, want)):
+            check(np.array_equal(a, b), f"{label} request {i}: {a} != phase 5's {b}")
+
+    def checked_trace(label, tracer, snap):
+        spans = tracer.spans()
+        check(spans and tracer.dropped == 0, f"{label}: {len(spans)} spans, "
+              f"{tracer.dropped} dropped")
+        check(all(s.t1_ns >= s.t0_ns for s in spans), f"{label}: a span ends before it starts")
+        live = snap["counters"].get("analysis.str002_live", 0)
+        check(live == 0, f"{label}: analysis.str002_live {live}")
+        tls = reconstruct_timelines(spans)
+        check(len(tls) == len(reqs) and all(t.finished and not t.partial
+                                            and t.tokens == NEW_TOKENS for t in tls),
+              f"{label}: timelines {[(t.uid, t.tokens, t.finished, t.partial) for t in tls]}")
+        return spans, tls
+
+    def summary(label, snap, tls, wall, ticks):
+        itl = snap["histograms"]["latency.itl_s"]
+        s = snap["derived"].get("slo", {})
+        row = {"tokens_per_s": n_tok / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
+               "itl_ms": {k: itl[k] * 1e3 for k in ("p50", "p99", "max")},
+               "ttft_ms_p50": float(np.median([t.ttft_s for t in tls]) * 1e3),
+               "slo_attainment": s.get("attainment"),
+               "goodput_tokens_per_s": s.get("goodput_tokens_per_s"),
+               "slo_violations": [s.get("ttft_violations"), s.get("itl_violations")],
+               "requests": latency_lines(label, tls)}
+        print(f"[obs] {label}: {row['tokens_per_s']:.1f} tok/s, tick p50 "
+              f"{row['decode_tick_ms_p50']:.2f} ms; ITL p50 / p99 / max "
+              f"{row['itl_ms']['p50']:.2f} / {row['itl_ms']['p99']:.2f} / "
+              f"{row['itl_ms']['max']:.2f} ms; TTFT p50 {row['ttft_ms_p50']:.2f} ms"
+              + (f"; SLO attainment {s['attainment']:.3f} ({s['met']}/{s['requests']}), goodput "
+                 f"{s['goodput_tokens_per_s']:.1f} tok/s, violations TTFT "
+                 f"{s['ttft_violations']} ITL {s['itl_violations']}" if s else ""))
+        return row
+
+    # (a) traced serves: a fresh engine, then the same engine warm.
+    fresh_tr = Tracer()
+    (eng, toks, _, ticks, wall), launches = counted_serve(cfg, params, reqs, tracer=fresh_tr,
+                                                          slo=slo)
+    fold_launches(res, launches)
+    same_tokens("traced serve (fresh engine)", toks)
+    snap = eng.metrics_snapshot()
+    _, tls = checked_trace("fresh engine", fresh_tr, snap)
+    out["fresh engine"] = summary("fresh engine", snap, tls, wall, ticks)
+    observe_anew(eng)
+    serve_again(res, "warm-up serve", cfg, eng, reqs)
+    tracer = Tracer()
+    observe_anew(eng, tracer=tracer, slo=slo)
+    toks, wall, launches = serve_again(res, "traced serve (warm engine)", cfg, eng, reqs)
+    same_tokens("traced serve (warm engine)", toks)
+    snap = eng.metrics_snapshot()
+    spans, tls = checked_trace("warm engine", tracer, snap)
+    out["warm engine"] = summary("warm engine", snap, tls, wall, eng.ticks)
+    out["warm engine"]["launches"] = launches
+    OBS_TRACE.parent.mkdir(exist_ok=True)
+    tracer.to_chrome(str(OBS_TRACE))
+    back = timelines_from_trace(str(OBS_TRACE))
+    check([(t.uid, t.tokens, t.finished) for t in back]
+          == [(t.uid, t.tokens, t.finished) for t in tls]
+          and all(abs(a.ttft_s - b.ttft_s) < 1e-5 for a, b in zip(back, tls)),
+          "the trace file's timelines differ from the trace's")
+    findings = diagnose(spans, snapshot=snap)
+    check(not any(f.rule == "DOC005" for f in findings), "the doctor found a live STR002")
+    print(render(findings, spans=len(spans), requests=len(tls), dropped=tracer.dropped))
+    out["doctor"] = [(f.rule, f.severity, f.evidence) for f in findings]
+    print(f"[obs] warm trace: {len(spans)} spans, {tracer.dropped} dropped, "
+          f"{sum(s.name == 'decode_tick' for s in spans)} decode_tick spans; written to "
+          f"{OBS_TRACE.relative_to(ROOT)} and read back ({len(back)} timelines); launches "
+          f"{launches}")
+    del eng
+
+    # (b) tracing's cost, fresh engines in turns.
+    cost = {False: [], True: []}
+    for _ in range(3):
+        for traced in (False, True):
+            _, _, _, tk, w = serve(cfg, params, "cuda", reqs,
+                                   tracer=Tracer() if traced else None)
+            cost[traced].append((n_tok / w, float(np.median(tk) * 1e3)))
+    med = {k: (float(np.median([x[0] for x in v])), float(np.median([x[1] for x in v])))
+           for k, v in cost.items()}
+    out["tracing cost"] = {"untraced": cost[False], "traced": cost[True],
+                           "tok_s_ratio": med[True][0] / med[False][0],
+                           "tick_p50_ratio": med[True][1] / med[False][1]}
+    print(f"[obs] tracing cost (fresh engines, 3 each in turns): tok/s untraced "
+          f"{[round(x[0], 1) for x in cost[False]]}, traced {[round(x[0], 1) for x in cost[True]]}"
+          f" (median ratio {out['tracing cost']['tok_s_ratio']:.3f}); tick p50 ms untraced "
+          f"{[round(x[1], 2) for x in cost[False]]}, traced {[round(x[1], 2) for x in cost[True]]}"
+          f" (ratio {out['tracing cost']['tick_p50_ratio']:.3f})")
+
+    # (c) the policy: a probe with the slots active, then autotune.
+    probe = {}
+
+    def probe_live(eng):
+        before = [t.clone() for t in live_state(eng)]
+        table = eng.kv.page_table.copy()
+        probe["active"] = len(eng.active_slots)
+        probe["st"] = eng.measure_stage_times(128)
+        torch.cuda.synchronize()
+        check(probe["active"] > 0, "the probe found no active slot")
+        check(all(torch.equal(a, b) for a, b in zip(before, live_state(eng)))
+              and np.array_equal(table, eng.kv.page_table),
+              "measure_stage_times changed the live pool")
+    eng, toks, _, _, _ = serve(cfg, params, "cuda", reqs, mid=probe_live)
+    same_tokens("probed serve", toks)
+    st = probe["st"]
+    decision = rmetric.streaming_decision(st).value
+    plan = plan_decode_policy(st, prompt_len=128, max_seq=eng.scfg.max_seq)
+    rep = overlap_report(spans, st)
+    traced_st = stage_times_from_trace(spans)
+    out["policy"] = {"chunk_ms": st.h2d * 1e3, "decode_ms": st.kex * 1e3,
+                     "r": st.transfer_ratio(), "decision": decision,
+                     "plan": [plan.prefill_chunk, plan.decode_interleave, plan.block_size],
+                     "active_slots_at_probe": probe["active"], "overlap": rep,
+                     "trace_stage_ms": None if traced_st is None else
+                     [traced_st.h2d * 1e3, traced_st.kex * 1e3]}
+    m, pr = rep["measured"], rep["predicted"]
+    print(f"[obs] stage probe with {probe['active']} slots active: chunk ({min(CHUNK, 128)} "
+          f"tokens at 0) "
+          f"{st.h2d * 1e3:.3f} ms, decode tick {st.kex * 1e3:.3f} ms, R {st.transfer_ratio():.3f}"
+          f", {decision}; plan chunk {plan.prefill_chunk}, interleave {plan.decode_interleave}"
+          f", block {plan.block_size}; pool and page table unchanged; the warm trace's overlap "
+          f"{m['efficiency']:.3f} measured ({m['hidden_s'] * 1e3:.2f} of "
+          f"{m['total_s'] * 1e3:.2f} ms hidden) against {pr['efficiency']:.3f} predicted "
+          f"({pr['decision']}, {pr['n_streams']} streams); the trace's own stage estimate "
+          + ("none" if traced_st is None else
+             f"chunk {traced_st.h2d * 1e3:.3f} ms, tick {traced_st.kex * 1e3:.3f} ms"))
+    block0, captured0 = eng.kv.block_size, eng.graphs.captured
+    old = pool_graphs(eng)
+    tuned = eng.autotune(128)  # its probe runs the old decode graph, then it rebuilds
+    old = [(g, g.uses) for g in old]
+    captured1 = eng.graphs.captured
+    observe_anew(eng)
+    toks_t, wall_t, launches_t = serve_again(res, "autotuned serve", cfg, eng, reqs)
+    rebuilt = tuned.block_size != block0
+    if rebuilt:
+        check(eng.kv.block_size == tuned.block_size, "autotune did not rebuild the pool")
+        check(all(g.uses == u for g, u in old), "a graph over the old pool ran again")
+        held = pool_graphs(eng)
+        check(not any(g is h for g, _ in old for h in held), "a graph over the old pool is held")
+    check(all(len(t) == NEW_TOKENS for t in toks_t), "autotuned serve: short output")
+    out["autotuned"] = {
+        "plan": [tuned.decision, tuned.prefill_chunk, tuned.decode_interleave,
+                 tuned.block_size],
+        "stage_ms": [tuned.stage_times.h2d * 1e3, tuned.stage_times.kex * 1e3],
+        "tokens_per_s": n_tok / wall_t, "decode_tick_ms_p50": float(np.median(eng.ticks) * 1e3),
+        "prefill_chunks": eng.prefill_chunks, "agreement_with_untuned": agreement(toks_t, paged_toks),
+        "graphs_captured": [captured0, captured1, eng.graphs.captured], "launches": launches_t}
+    a = out["autotuned"]
+    print(f"[obs] autotune(128) on the idle engine: {tuned.decision}, chunk "
+          f"{tuned.prefill_chunk}, interleave {tuned.decode_interleave}, block "
+          f"{tuned.block_size} (was {block0}; stage times {a['stage_ms'][0]:.3f} / "
+          f"{a['stage_ms'][1]:.3f} ms); serve: {a['tokens_per_s']:.1f} tok/s, tick p50 "
+          f"{a['decode_tick_ms_p50']:.2f} ms, {eng.prefill_chunks} chunks, agreement with the "
+          f"untuned tokens {a['agreement_with_untuned']:.3f}; graphs captured "
+          f"{captured0} before, {captured1} after autotune, {eng.graphs.captured} after the "
+          f"serve" + ("; the old pool's graphs never ran again and none is held"
+                      if rebuilt else "; the page size did not change"))
+    del eng, old
+
+    # (d) preemption latency in a pool of PRESSURE_BLOCKS blocks, warm.
+    eng = serve(cfg, params, "cuda", reqs, num_blocks=PRESSURE_BLOCKS)[0]
+    tr = Tracer()
+    observe_anew(eng, tracer=tr, slo=slo)
+    toks, wall, launches = serve_again(res, f"traced serve in {PRESSURE_BLOCKS} blocks", cfg,
+                                       eng, reqs)
+    same_tokens(f"traced serve in {PRESSURE_BLOCKS} blocks", toks)
+    check(eng.preemptions >= 2, f"{eng.preemptions} preemptions in {PRESSURE_BLOCKS} blocks")
+    snap = eng.metrics_snapshot()
+    spans_d, tls = checked_trace("pressured", tr, snap)
+    check(any(t.evictions for t in tls), "no timeline shows an eviction")
+    out["pressured"] = summary(f"{PRESSURE_BLOCKS} blocks", snap, tls, wall, eng.ticks)
+    out["pressured"]["evict_ms"] = [s.dur_s * 1e3 for s in spans_d if s.name == "evict"]
+    out["pressured"]["readmit_ms"] = [s.dur_s * 1e3 for s in spans_d if s.name == "readmit"]
+    print(f"[obs] {PRESSURE_BLOCKS} blocks: {eng.preemptions} preemptions; evict spans (ms) "
+          f"{[round(x, 3) for x in out['pressured']['evict_ms']]}, readmit spans (ms) "
+          f"{[round(x, 3) for x in out['pressured']['readmit_ms']]}; tokens equal phase 5's")
+    del eng
+
+    # (e) card against CPU at f32: the same plan from the same stage times.
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+    cpu_params = T.init_params(cfg2, 0, device="cpu")
+    gpu_params = to_device(cpu_params, "cuda")
+    reqs2 = prompts(cfg2.vocab_size)
+    runs = {}
+
+    def tune(eng):
+        eng.measure_stage_times = lambda n: st
+        eng.autotune(128)
+    for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+        tr = Tracer()
+        eng, toks, _, _, _ = serve(cfg2, p, dev, reqs2, tracer=tr, prepare=tune)
+        lp = eng.last_plan
+        runs[dev] = ((lp.decision, lp.prefill_chunk, lp.decode_interleave, lp.block_size),
+                     toks, span_seq(tr.spans()))
+    plans = {dev: r[0] for dev, r in runs.items()}
+    check(plans["cuda"] == plans["cpu"], f"plans card {plans['cuda']} != CPU {plans['cpu']}")
+    for i, (a, b) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])):
+        check(np.array_equal(a, b), f"autotuned 2-layer f32 request {i}: card {a} != CPU {b}")
+    check(runs["cuda"][2] == runs["cpu"][2], "autotuned 2-layer f32: the span sequences differ")
+    out["card vs cpu"] = {"plan": plans["cuda"], "spans": len(runs["cuda"][2])}
+    print(f"[obs] 2-layer full-width f32, autotuned from the probe's stage times: plan "
+          f"{plans['cuda']} on both devices; greedy tokens identical card vs CPU; span "
+          f"sequences identical ({len(runs['cuda'][2])} spans)")
+    del gpu_params, cpu_params, eng
+    print("[obs] summary " + json.dumps(out, default=str))
+    return out
+
+
 def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
     """The full 64-layer bf16 mamba2-2.7b: the 6 requests over a contiguous
     slot cache and beside a paged pool, then head-sharing prompts without
@@ -2015,69 +2397,76 @@ def phase_zoo_card_vs_cpu() -> None:
 def phase_zoo_full(res: dict, arch: str, cfg, runs, *, note: str = "",
                    profile: bool = False, floor_bytes=None, encs=None) -> dict:
     """Phase 8b-d: ``cfg`` (published widths, bf16, random weights from
-    seed 0) serves each of ``runs`` ((label, prompts, ServeConfig options),
-    the first the plain fused paged serve) once to warm it and once with
-    the launch counts at 0 (each tick of its kind and each chunk launches
-    its kernel once a layer; the launches join the kernels line); tokens/s,
-    tick p50, the graphed chunk, acceptance, page bytes, the weight-read
-    floor of a tick, agreement with the plain serve (int8 pages: >= the
-    reference's floor).  Checks first that no earlier model is resident
-    (under 2 GiB allocated), and drops the model and its engines after.
-    ``profile`` adds a torch.profiler serve of the first run's options.
-    ``floor_bytes(params)``: the bytes a tick reads, when not every weight
-    and the f32 table; ``encs``: the requests' encoder inputs (whisper),
+    seed 0; ``full_model``) serves each of ``runs`` ((label, prompts,
+    ServeConfig options), the first the plain fused paged serve) once to
+    warm it and once counted (``counted_run``: each tick of its kind and
+    each chunk launches its kernel once a layer); tokens/s, tick p50, the
+    graphed chunk, acceptance, page bytes, agreement with the plain serve
+    (int8 pages: >= the reference's floor).  ``profile`` adds a
+    torch.profiler serve of the first run's options.  ``floor_bytes`` as
+    ``load_full``'s; ``encs``: the requests' encoder inputs (whisper),
     whose encode times are printed."""
+    def measure(params, out):
+        plain = None
+        for label, rq, kw in runs:
+            t1 = time.perf_counter()
+            serve(cfg, params, "cuda", rq, encs=encs, **kw)  # warm-up
+            reserved0 = reserved_gib()
+            (eng, toks, logits, ticks, wall), launches, peak = counted_run(
+                res, f"{arch} {label}", lambda: serve(cfg, params, "cuda", rq, encs=encs, **kw),
+                lambda o: expected_launches(cfg, o[0]))
+            check_graphed(eng, f"{arch} {label}")
+            for i, (t, lg) in enumerate(zip(toks, logits)):
+                check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
+                      f"{arch} {label} request {i}: {t}")
+                check(bool(torch.isfinite(lg).all()), f"{arch} {label} request {i}: non-finite")
+            n = sum(len(t) for t in toks)
+            rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else None
+            row = {"tokens_per_s": n / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
+                   "decode_ticks": eng.decode_steps, "verify_ticks": eng.spec_ticks,
+                   "prefill_chunks": eng.prefill_chunks, "acceptance": rate,
+                   "page_bytes": eng.kv.page_bytes if eng.paged else None,
+                   "launches": launches, "peak_mem_gb": peak,
+                   "memory_reserved_gib": [reserved0, reserved_gib()]}
+            if eng.encode_s:
+                row["encode_ms"] = [x * 1e3 for x in eng.encode_s]
+            if plain is None:
+                plain = toks
+                row["prefill_chunk_ms"], row["prefill_chunk_eager_ms"] = time_chunk(eng, rq)
+            elif rq is runs[0][1]:
+                row["agreement_with_plain"] = agreement(toks, plain)
+                if kw.get("kv_dtype") in ("int8", "fp8"):
+                    check(row["agreement_with_plain"] >= QUANT_FLOOR,
+                          f"{arch} {label}: agreement with the plain serve "
+                          f"{row['agreement_with_plain']:.3f} < {QUANT_FLOOR}")
+            del eng
+            out[label] = row
+            if profile and plain is toks:
+                phase_profile(cfg, params, rq, f"{arch} {label}", **kw)
+            print(f"[zoo] {arch} {label}: {n} tokens in {wall:.3f}s = {n / wall:.1f} tok/s; "
+                  f"tick p50 {row['decode_tick_ms_p50']:.2f} ms over {row['decode_ticks']} "
+                  f"ticks ({row['verify_ticks']} verify, acceptance "
+                  f"{'-' if rate is None else f'{rate:.3f}'}); {row['prefill_chunks']} chunks"
+                  + (f", a graphed 64-token chunk {row['prefill_chunk_ms']:.2f} ms (eager "
+                     f"{row['prefill_chunk_eager_ms']:.2f} ms)" if "prefill_chunk_ms" in row
+                     else "")
+                  + f"; page_bytes {row['page_bytes']}"
+                  + (f"; agreement with the plain serve {row['agreement_with_plain']:.3f}"
+                     if "agreement_with_plain" in row else "")
+                  + (f"; encode per admission (ms) {[round(x, 2) for x in row['encode_ms']]}"
+                     if "encode_ms" in row else "")
+                  + f"; launches {launches}; peak {row['peak_mem_gb']:.2f} GB; memory_reserved "
+                  f"{row['memory_reserved_gib'][0]:.3f} -> {row['memory_reserved_gib'][1]:.3f} "
+                  f"GiB; {time.perf_counter() - t1:.1f}s")
+    return full_model(arch, cfg, measure, note=note, floor_bytes=floor_bytes)
+
+
+def full_model(arch: str, cfg, measure, *, note: str = "", floor_bytes=None) -> dict:
+    """``cfg``'s weights loaded (``load_full``), ``measure(params, out)`` run
+    to fill the model's result dict, then the model dropped with every
+    engine ``measure`` made, and memory_reserved read after (``dropped``)."""
     params, out = load_full(arch, cfg, note=note, floor_bytes=floor_bytes)
-    plain = None
-    for label, rq, kw in runs:
-        t1 = time.perf_counter()
-        serve(cfg, params, "cuda", rq, encs=encs, **kw)  # warm-up
-        torch.cuda.reset_peak_memory_stats()
-        reserved0 = reserved_gib()
-        (eng, toks, logits, ticks, wall), launches = counted_serve(cfg, params, rq, encs=encs,
-                                                                   **kw)
-        for i, (t, lg) in enumerate(zip(toks, logits)):
-            check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
-                  f"{arch} {label} request {i}: {t}")
-            check(bool(torch.isfinite(lg).all()), f"{arch} {label} request {i}: non-finite")
-        fold_launches(res, launches)
-        n = sum(len(t) for t in toks)
-        rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else None
-        row = {"tokens_per_s": n / wall, "decode_tick_ms_p50": float(np.median(ticks) * 1e3),
-               "decode_ticks": eng.decode_steps, "verify_ticks": eng.spec_ticks,
-               "prefill_chunks": eng.prefill_chunks, "acceptance": rate,
-               "page_bytes": eng.kv.page_bytes if eng.paged else None,
-               "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "memory_reserved_gib": [reserved0, reserved_gib()]}
-        if eng.encode_s:
-            row["encode_ms"] = [x * 1e3 for x in eng.encode_s]
-        if plain is None:
-            plain = toks
-            row["prefill_chunk_ms"], row["prefill_chunk_eager_ms"] = time_chunk(eng, rq)
-        elif rq is runs[0][1]:
-            row["agreement_with_plain"] = agreement(toks, plain)
-            if kw.get("kv_dtype") in ("int8", "fp8"):
-                check(row["agreement_with_plain"] >= QUANT_FLOOR,
-                      f"{arch} {label}: agreement with the plain serve "
-                      f"{row['agreement_with_plain']:.3f} < {QUANT_FLOOR}")
-        del eng
-        out[label] = row
-        if profile and plain is toks:
-            phase_profile(cfg, params, rq, f"{arch} {label}", **kw)
-        print(f"[zoo] {arch} {label}: {n} tokens in {wall:.3f}s = {n / wall:.1f} tok/s; tick "
-              f"p50 {row['decode_tick_ms_p50']:.2f} ms over {row['decode_ticks']} ticks "
-              f"({row['verify_ticks']} verify, acceptance "
-              f"{'-' if rate is None else f'{rate:.3f}'}); {row['prefill_chunks']} chunks"
-              + (f", a graphed 64-token chunk {row['prefill_chunk_ms']:.2f} ms (eager "
-                 f"{row['prefill_chunk_eager_ms']:.2f} ms)" if "prefill_chunk_ms" in row else "")
-              + f"; page_bytes {row['page_bytes']}"
-              + (f"; agreement with the plain serve {row['agreement_with_plain']:.3f}"
-                 if "agreement_with_plain" in row else "")
-              + (f"; encode per admission (ms) {[round(x, 2) for x in row['encode_ms']]}"
-                 if "encode_ms" in row else "")
-              + f"; launches {launches}; peak {row['peak_mem_gb']:.2f} GB; memory_reserved "
-              f"{row['memory_reserved_gib'][0]:.3f} -> {row['memory_reserved_gib'][1]:.3f} GiB; "
-              f"{time.perf_counter() - t1:.1f}s")
+    measure(params, out)
     del params
     return dropped(arch, out)
 
@@ -2239,7 +2628,7 @@ def phase_rest_card_vs_cpu() -> None:
                                                  **f32), {}),
              ("whisper-medium 2+2-layer f32",
               zoo_config("whisper-medium", n_layers=2, n_encoder_layers=2, **f32),
-              dict(evict_mid=True))]
+              dict(mid=evict_readmit_oldest))]
     for base, cfg, extra in cases:
         t0 = time.perf_counter()
         gpu_params = T.init_params(cfg, 0, device="cuda")
@@ -2284,52 +2673,50 @@ def block_bytes(params) -> int:
 
 def phase_pali_full(res: dict) -> dict:
     """Phase 9b, paligemma-3b at full width and depth (18 layers, bf16,
-    random weights from seed 0): ``generate`` over 4 rows of 256 image rows
-    + 64 tokens, warm, then with the launch counts at 0 (the prefill kernel
-    once a layer a chunk, nothing else: decode is torch ops over the
-    contiguous cache); tokens/s, the first chunk (320 rows) timed alone, the
-    decode step (mean over the wall after the first chunk), a tick's
-    weight-read floor (blocks + the f32 table)."""
+    random weights from seed 0; ``full_model``): ``generate`` over 4 rows of
+    256 image rows + 64 tokens, warm, then counted (``counted_run``: the
+    prefill kernel once a layer a chunk, nothing else: decode is torch ops
+    over the contiguous cache); tokens/s, the first chunk (320 rows) timed
+    alone, the decode step (mean over the wall after the first chunk), a
+    tick's weight-read floor (blocks + the f32 table)."""
     cfg = zoo_config("paligemma-3b")
-    params, row = load_full("paligemma-3b", cfg, floor_bytes=lambda p: (
+
+    def measure(params, row):
+        single = pali_engine(cfg, params, "cuda")
+        toks, pre = pali_inputs(cfg)
+        t = torch.from_numpy(toks).to("cuda")
+        pre_d = torch.from_numpy(pre).to("cuda")
+        single.generate(toks, prefix_embeds=pre_d)  # warm-up
+        first = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            next(single.iter_prefill_chunks(t, prefix_embeds=pre_d))
+            torch.cuda.synchronize()
+            first.append(time.perf_counter() - t0)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = single.generate(toks, prefix_embeds=pre_d).cpu().numpy()
+            return out, time.perf_counter() - t0
+        # one chunk (64 tokens) a layer
+        want = dict({name: 0 for name in KERNELS}, flash_attention=cfg.n_layers)
+        (out, wall), launches, peak = counted_run(res, "paligemma generate", run,
+                                                  lambda _: want)
+        check(out.shape == (PALI_ROWS, NEW_TOKENS)
+              and bool(((out >= 0) & (out < cfg.padded_vocab)).all()), f"paligemma: {out}")
+        chunk_ms = float(np.median(first[1:]) * 1e3)
+        step_ms = (wall * 1e3 - chunk_ms) / (NEW_TOKENS - 1)
+        row.update({"tokens_per_s": out.size / wall, "first_chunk_ms": chunk_ms,
+                    "decode_step_ms_mean": step_ms, "launches": launches, "peak_mem_gb": peak})
+        print(f"[rest] paligemma-3b generate {PALI_ROWS} rows x ({cfg.prefix_len} image rows "
+              f"+ {PALI_TOKENS} tokens) -> {NEW_TOKENS}: {out.size} tokens in {wall:.3f}s = "
+              f"{row['tokens_per_s']:.1f} tok/s; first chunk (320 rows) {chunk_ms:.2f} ms; "
+              f"decode step {step_ms:.2f} ms (mean, eager); launches {launches}; peak "
+              f"{row['peak_mem_gb']:.2f} GB")
+    return full_model("paligemma-3b", cfg, measure, floor_bytes=lambda p: (
         block_bytes(p) + cfg.padded_vocab * cfg.d_model * 4))
-    single = pali_engine(cfg, params, "cuda")
-    toks, pre = pali_inputs(cfg)
-    t = torch.from_numpy(toks).to("cuda")
-    pre_d = torch.from_numpy(pre).to("cuda")
-    single.generate(toks, prefix_embeds=pre_d)  # warm-up
-    first = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        next(single.iter_prefill_chunks(t, prefix_embeds=pre_d))
-        torch.cuda.synchronize()
-        first.append(time.perf_counter() - t0)
-    counters = zero_counters()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = single.generate(toks, prefix_embeds=pre_d).cpu().numpy()
-    wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
-    want = {name: 0 for name in counters}
-    want["flash_attention"] = cfg.n_layers  # one chunk: 64 tokens
-    check(launches == want, f"paligemma generate: launches {launches} != {want}")
-    check(out.shape == (PALI_ROWS, NEW_TOKENS)
-          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()), f"paligemma: {out}")
-    fold_launches(res, launches)
-    chunk_ms = float(np.median(first[1:]) * 1e3)
-    step_ms = (wall * 1e3 - chunk_ms) / (NEW_TOKENS - 1)
-    row.update({"tokens_per_s": out.size / wall, "first_chunk_ms": chunk_ms,
-                "decode_step_ms_mean": step_ms, "launches": launches,
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    print(f"[rest] paligemma-3b generate {PALI_ROWS} rows x ({cfg.prefix_len} image rows + "
-          f"{PALI_TOKENS} tokens) -> {NEW_TOKENS}: {out.size} tokens in {wall:.3f}s = "
-          f"{row['tokens_per_s']:.1f} tok/s; first chunk (320 rows) {chunk_ms:.2f} ms; decode "
-          f"step {step_ms:.2f} ms (mean, eager); launches {launches}; peak "
-          f"{row['peak_mem_gb']:.2f} GB")
-    del params, single, t, pre_d
-    return dropped("paligemma-3b", row)
 
 
 def phase_rest(res: dict, *, profile: bool = False) -> dict:
@@ -2704,8 +3091,11 @@ def main() -> int:
     print(f"[cache] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_sharing_sampling(res, main_path)
-    del main_path  # the full model's weights
     print(f"[share] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_obs_policy(res, main_path)
+    del main_path  # the full model's weights
+    print(f"[obs] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_main_mamba(res, profile=args.profile)
     print(f"[mamba] {time.perf_counter() - t0:.1f}s")

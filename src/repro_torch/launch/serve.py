@@ -5,7 +5,8 @@ engine, or one batch at a time through ``ServingEngine.generate``.
         --requests 4 --prompt-len 128 --new-tokens 16 [--device cpu] \
         [--temperature 0.8] [--paged [--num-blocks N] [--kv-dtype int8|fp8] \
         [--prefix-sharing [--prefix-min-pages 1] [--prefix-store PATH]]] \
-        [--spec-decode --spec-k 4 --spec-ngram 3] [--sequential]
+        [--spec-decode --spec-k 4 --spec-ngram 3] [--sequential] \
+        [--trace PATH] [--metrics] [--metrics-out PATH] [--slo-ttft-ms MS] [--slo-itl-ms MS]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         [--paged] [--state-snapshots] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium [--paged]
@@ -30,6 +31,15 @@ prefix hits, the pages mapped and the COW forks; ``--prefix-store`` restores
 the registry from PATH at start and saves it at the end (run twice to see
 ``N restored``).
 
+``--trace PATH`` records the engine's spans and writes a Chrome trace
+(open it at ui.perfetto.dev; ``python -m repro_torch.obs.doctor PATH
+[--metrics SNAP]`` diagnoses it) and prints the measured overlap and the
+per-request latencies; ``--metrics`` prints ``metrics_snapshot()`` and
+``--metrics-out PATH`` writes it; ``--slo-ttft-ms`` / ``--slo-itl-ms`` score
+every request against those targets (the snapshot's ``derived.slo``).  They
+instrument the batched engine, so they reject ``--sequential`` and
+paligemma-3b, as the reference launcher does.
+
 Like the reference launcher it serves the arch's smoke-size config with
 random weights from a fixed seed.  It runs on CUDA unless ``--device cpu``.
 """
@@ -37,6 +47,7 @@ random weights from a fixed seed.  It runs on CUDA unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -44,6 +55,8 @@ import numpy as np
 import repro_torch.configs as configs
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.obs import (SLOPolicy, Tracer, overlap_report, reconstruct_timelines,
+                             timeline_aggregates)
 from repro_torch.runtime.serving import ServeConfig, ServingEngine, StreamedBatchEngine
 
 
@@ -88,11 +101,30 @@ def main(argv: list[str] | None = None) -> None:
                     help="longest n-gram the prompt-lookup drafter matches")
     ap.add_argument("--state-snapshots", action="store_true",
                     help="mamba: reuse chunk-aligned SSM-state snapshots across requests")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record per-tick spans and write a Chrome/Perfetto trace.json here "
+                         "after the run; also prints the measured overlap and the "
+                         "per-request latencies")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print engine.metrics_snapshot() as JSON after the run")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write engine.metrics_snapshot() as JSON to this file (the "
+                         "snapshot obs.doctor reads beside --trace)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="SLO target: submit -> first token, milliseconds (queue wait "
+                         "included)")
+    ap.add_argument("--slo-itl-ms", type=float, default=None,
+                    help="SLO target: worst per-token inter-token latency, milliseconds")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     if args.prefix_sharing and not args.paged:
         ap.error("--prefix-sharing requires --paged")
     cfg = configs.get_smoke_config(args.arch)
+    slo_flags = args.slo_ttft_ms is not None or args.slo_itl_ms is not None
+    if (args.trace or args.metrics or args.metrics_out or slo_flags) and (
+            args.sequential or cfg.prefix_len):
+        ap.error("--trace/--metrics/--metrics-out/--slo-* instrument StreamedBatchEngine; "
+                 "this arch/flag combination falls back to the sequential engine")
     device = resolve_device(args.device)
 
     params = T.init_params(cfg, 0, device=device)
@@ -139,7 +171,10 @@ def main(argv: list[str] | None = None) -> None:
         for i, row in enumerate(rows[:3]):
             print(f"[serve] req{i}: {row[:12]}{'...' if len(row) > 12 else ''}")
         return
-    eng = StreamedBatchEngine(cfg, params, scfg, device=device)
+    slo = (SLOPolicy.from_ms(ttft_ms=args.slo_ttft_ms, itl_ms=args.slo_itl_ms)
+           if slo_flags else None)
+    eng = StreamedBatchEngine(cfg, params, scfg, device=device,
+                              tracer=Tracer() if args.trace else None, slo=slo)
     t0 = time.perf_counter()
     uids = [eng.submit(t, enc_inputs=None if enc_inputs is None else enc_inputs[i])
             for i, t in enumerate(tokens)]
@@ -177,6 +212,31 @@ def main(argv: list[str] | None = None) -> None:
           f"({total_new / dt:.1f} tok/s incl. prefill)")
     for i, row in enumerate(rows[:3]):
         print(f"[serve] req{i}: {row[:12]}{'...' if len(row) > 12 else ''}")
+    if args.trace:
+        eng.obs.to_chrome(args.trace)
+        spans = eng.obs.spans()
+        rep = overlap_report(spans, dropped=eng.obs.dropped)
+        m = rep["measured"]
+        line = (f"[serve] trace: {args.trace} ({len(spans)} spans, {eng.obs.dropped} "
+                f"dropped) — overlap {m['efficiency']:.0%} ({m['hidden_s'] * 1e3:.1f}ms of "
+                f"{m['total_s'] * 1e3:.1f}ms transfer hidden)")
+        if m["partial"]:
+            line += " [PARTIAL: ring wrapped, efficiency is truncated]"
+        print(line)
+        agg = timeline_aggregates(reconstruct_timelines(spans, dropped=eng.obs.dropped,
+                                                        warn=False))
+        print(f"[serve] requests: {agg['requests']} timelines ({agg['finished']} finished, "
+              f"{agg['partial']} partial) — ttft p50 {agg['ttft_p50_s'] * 1e3:.1f}ms, queue "
+              f"wait p50 {agg['queue_wait_p50_s'] * 1e3:.1f}ms, itl p50 "
+              f"{agg['itl_p50_s'] * 1e3:.2f}ms, {agg['evictions']} evictions")
+    if args.metrics or args.metrics_out:
+        snap = eng.metrics_snapshot()
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                json.dump(snap, f, indent=2, sort_keys=True)
+            print(f"[serve] metrics: {args.metrics_out}")
+        if args.metrics:
+            print(json.dumps(snap, indent=2, sort_keys=True))
 
 
 if __name__ == "__main__":

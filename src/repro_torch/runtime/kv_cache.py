@@ -39,6 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.analysis.budget import tick_path, transfer_budget
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import quant
@@ -389,6 +390,14 @@ class PoolStats:
     registry_pages: int = 0  # pages the prefix registry retains
 
     @property
+    def utilization(self) -> float:
+        return self.in_use / self.capacity if self.capacity else 0.0
+
+    @property
+    def bytes_in_use(self) -> int:
+        return self.in_use * self.page_bytes
+
+    @property
     def bytes_saved(self) -> int:
         """Device bytes that slot mappings beyond the first copy would have
         duplicated without sharing; the registry's own retention reference
@@ -538,6 +547,7 @@ class PagedKVCache:
         self.page_table[slot, :] = TRASH_PAGE
         self.page_table[slot, : len(pages)] = pages
 
+    @tick_path(allowed_fetches=0)
     def ensure_write(self, slot: int, pos: int) -> bool:
         """Make position ``pos`` writable for ``slot`` (the lazy page fault
         as decode advances).  A shared target page is forked first
@@ -569,6 +579,7 @@ class PagedKVCache:
                 if key in PAGED_LEAVES:
                     leaf[:, dst].copy_(leaf[:, src])
 
+    @tick_path(allowed_fetches=0)
     def truncate(self, slot: int, length: int) -> None:
         """Shrink ``slot``'s pages to cover exactly ``length`` rows: the
         speculative-decode rollback, which returns the pages faulted for
@@ -616,6 +627,7 @@ class PagedKVCache:
         step = lru_get(self._scatter_jit, n, lambda: self._make_scatter(n), cap=self._jit_cap)
         step(pages=target, rows=np.arange(row0, row0 + n * self.block_size), slot=slot)
 
+    @transfer_budget(d2h_arrays=0, d2h_outputs=())
     def _make_scatter(self, n: int) -> StepGraph:
         """Static inputs ``pages`` (n,), ``rows`` (n * block_size,) of the
         staging cache, ``slot`` (1,)."""
@@ -665,6 +677,7 @@ class PagedKVCache:
             blocks[name] = oc
         return {"blocks": blocks}
 
+    @transfer_budget(d2h_arrays=0, d2h_outputs=())
     def _make_gather(self, n: int) -> StepGraph | None:
         """Static input ``pages`` (n,); the graph gathers the paged leaves
         only (None when there are none: a pure mamba pool)."""
@@ -707,6 +720,7 @@ class PagedKVCache:
                         dst[key][:, 0, :rows] = staged["blocks"][name][key][:, 0, :rows]
         return caches
 
+    @transfer_budget(d2h_arrays=0, d2h_outputs=())
     def _make_load(self, n: int) -> StepGraph:
         """Static input ``pages`` (n,); writes the staging cache's first
         ``n * block_size`` K/V rows."""
@@ -727,6 +741,7 @@ class PagedKVCache:
                     dst[key][:, 0, : n * bs] = rows.to(dst[key].dtype)
         return StepGraph(self.graphs, fn, {"pages": ((n,), torch.long)})
 
+    @tick_path(allowed_fetches=0)
     def device_page_table(self) -> torch.Tensor:
         """The host table as an int32 tensor on the pools' device."""
         return torch.from_numpy(self.page_table.copy()).to(self.device)
@@ -994,3 +1009,6 @@ class StateStore:
                 return entry[1], entry[2]
         self.misses += 1
         return 0, None
+
+    def clear(self) -> None:
+        self._entries.clear()

@@ -34,6 +34,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis.budget import transfer_budget
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.runtime import serving, spec
@@ -120,10 +121,12 @@ class ServableModel:
         return self.single.iter_prefill_chunks(tokens, caches=caches, pos0=pos0)
 
     def probe_enc_out(self) -> torch.Tensor | None:
-        """An encoder output stand-in for synthetic stage probes; None for
-        decoder-only archs."""
+        """An encoder output stand-in for the synthetic stage probe
+        (``StreamedBatchEngine.measure_stage_times``); None for decoder-only
+        archs."""
         return None
 
+    @transfer_budget(d2h_arrays=1, d2h_outputs=(0,), d2h_bytes_per_slot=4)
     def decode_fn(self, *, paged: bool) -> Callable:
         """The batched decode step with its pick on the device (greedy, or
         at ``scfg.temperature`` each row from its request's stream); the
@@ -166,6 +169,10 @@ class TransformerServable(ServableModel):
     cache, with speculative verify (KV writes roll back, so
     verify-and-truncate is safe)."""
 
+    # A verify tick fetches (emit, n_accept): (B, k+1) + (B,) int32, 4 *
+    # (spec_k + 2) bytes a slot.
+    @transfer_budget(d2h_arrays=2, d2h_outputs=(0, 1),
+                     d2h_bytes_per_slot=lambda scfg: 4 * (scfg.spec_k + 2))
     def verify_fn(self, *, paged: bool) -> Callable:
         """The speculative verify step on the device, greedy or rejection
         sampling at ``scfg.temperature`` (see ``spec.make_verifier`` for

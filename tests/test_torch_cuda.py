@@ -7,7 +7,10 @@ with gemma2's query scale and softcap; the prefill kernel with
 paligemma's bidirectional prefix (``prefix_len``) and whisper's non-causal
 attention over 1500 frames, the paged kernel at whisper's hd 64 / g 1 and
 the SSD scan at jamba's H 128, P 128; graphed steps (qwen3, mamba2, a MoE
-config, whisper and jamba) against their eager runs.  Every test carries
+config, whisper and jamba) against their eager runs; the engine's stage
+probe leaving a live pool or slot cache as it was with slots active, and
+``autotune``'s pool rebuild dropping every graph over the old pool.  Every
+test carries
 the ``cuda`` marker and skips without a card.  The file imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -1351,3 +1354,69 @@ def test_engine_graphs_free_with_the_engine(cuda):
         torch.cuda.empty_cache()
         reserved.append(torch.cuda.memory_reserved())
     assert reserved[2] <= reserved[1], reserved
+
+
+@pytest.mark.parametrize("arch,paged", [("qwen3-4b", True), ("qwen3-4b", False),
+                                        ("mamba2-2.7b", True)],
+                         ids=["qwen paged", "qwen contiguous", "mamba paged"])
+def test_stage_probe_leaves_live_state_alone_on_card(cuda, arch, paged):
+    """``measure_stage_times`` with 4 slots active mid decode (2-layer
+    full-width f32, graphed): every pool or slot-cache leaf and the page
+    table as they were, and the serve's tokens those of a serve never
+    probed."""
+    cfg = _full_width(arch)
+    want = _warm_engine(cfg, cuda, 3, paged=paged).run()
+    eng = _warm_engine(cfg, cuda, 3, paged=paged)
+    before = [t.clone() for t in _leaves(eng.kv.pools if paged else eng.caches)]
+    table = eng.kv.page_table.copy() if paged else None
+    st = eng.measure_stage_times(64)
+    torch.cuda.synchronize()
+    assert st.h2d > 0 and st.kex > 0
+    after = _leaves(eng.kv.pools if paged else eng.caches)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    if paged:
+        np.testing.assert_array_equal(eng.kv.page_table, table)
+    got = eng.run()
+    assert got.keys() == want.keys()
+    for u in want:
+        np.testing.assert_array_equal(got[u], want[u])
+    print(f"stage probe ({arch}, paged={paged}): chunk {st.h2d * 1e3:.3f} ms, "
+          f"tick {st.kex * 1e3:.3f} ms, live state unchanged")
+
+
+def test_autotune_rebuild_on_card(cuda):
+    """A page-size change on the idle pool (2-layer full-width f32 qwen3,
+    graphed): the graphs captured over the old pool never replay again nor
+    stay held, new ones are captured over the new pool, and the tokens
+    equal a fresh engine's at the planned page size."""
+    from repro_torch.core import rmetric
+    cfg = _full_width("qwen3-4b")
+    eng = _warm_engine(cfg, cuda, 3, paged=True)
+    first = eng.run()
+    old = [eng._decode] + [g for k, g in eng.servable.single._chunk_jit.items()
+                           if k[0] == "fused"]
+    old += [g for c in (eng.kv._scatter_jit, eng.kv._gather_jit, eng.kv._load_jit)
+            for g in c.values() if g is not None]
+    uses = [g.uses for g in old]
+    captured = eng.graphs.captured
+    eng.measure_stage_times = lambda n: rmetric.StageTimes(h2d=0.004, kex=0.002)
+    plan = eng.autotune(64)
+    assert plan.block_size == eng.kv.block_size == 8
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (40, 33, 64, 20)]
+    uids = [eng.submit(p) for p in prompts]
+    second = eng.run()
+    assert [g.uses for g in old] == uses
+    held = [eng._decode] + list(eng.servable.single._chunk_jit.values())
+    assert not any(g is h for g in old for h in held)
+    assert eng.graphs.captured > captured and eng._decode.graph is not None
+    fresh = serving.StreamedBatchEngine(cfg, eng.params, dataclasses.replace(
+        eng.scfg, arch_kind=None), device=cuda)
+    for p in prompts:
+        fresh.submit(p)
+    want = fresh.run()
+    for u, w in zip(uids, sorted(want)):
+        np.testing.assert_array_equal(second[u], want[w])
+    assert sorted(first) == list(range(4))
+    print(f"autotune rebuild: block 16 -> 8, graphs captured {captured} -> "
+          f"{eng.graphs.captured}; tokens equal to a fresh engine at block 8")

@@ -39,7 +39,9 @@ def test_port_files_are_found():
             "streamed_matmul.py", "fwt.py", "nw_tile.py", "moe.py", "gemma2_27b.py",
             "internlm2_20b.py", "phi4_mini_3_8b.py", "qwen2_moe_a2_7b.py",
             "mixtral_8x7b.py", "jamba_1_5_large_398b.py", "whisper_medium.py",
-            "paligemma_3b.py", "model_iface.py", "graphs.py", "layers.py"} <= names
+            "paligemma_3b.py", "model_iface.py", "graphs.py", "layers.py", "trace.py",
+            "metrics.py", "slo.py", "requests.py", "overlap.py", "doctor.py",
+            "budget.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
