@@ -201,6 +201,16 @@ Phases (any failed check raises, and the script exits non-zero):
      stall, the evict / readmit spans.  2-layer f32 card vs CPU: the same
      stage times make the same plan, then the same tokens and span
      sequence.
+  11. the measured tuner (after 10, on phase 5's qwen3-4b and requests):
+     profile_engine on an idle warm engine, untraced (the synchronized
+     probe) and traced after a served workload (the trace's estimate), each
+     reading's plan; search_tuned_plan (4 trials, 1 sweep, 2 timed runs)
+     with its log, trials, wall and memory_allocated before and after (back
+     at its level); the tuned plan's tok/s against its analytic baseline; a
+     warm serve with the plan (launches counted; tokens bit-equal to phase
+     5's, or agreement >= 0.5 for a quantized plan) beside a warm untuned
+     serve; a TuningDB round trip keyed by the card's name; the launcher's
+     --autotune twice (searched, then cached).
 On the card every serve's ticks, chunks and page moves replay CUDA graphs
 (runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
 eager step functions and holds the graphed serve to it (tokens identical,
@@ -221,9 +231,11 @@ result JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import itertools
 import json
 import math
@@ -1043,7 +1055,7 @@ def evict_readmit_oldest(eng) -> None:
 
 
 def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, encs=None,
-          tracer=None, slo=None, prepare=None, mid=None, **extra):
+          tracer=None, slo=None, prepare=None, mid=None, plan=None, **extra):
     """Serve ``reqs`` on ``device`` over a paged pool (or, with
     ``paged=False``, the contiguous slot cache) with ServeConfig options
     ``extra``; returns (engine, tokens per request, admission logits per
@@ -1058,7 +1070,9 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, e
     graphs captured, replays, capture ms and ``memory_reserved`` before and
     after it.  ``encs``: each request's encoder input (whisper), whose
     encode the engine times (host clock around a synchronize); ``tracer``
-    and ``slo``: the engine's (``repro_torch.obs``); ``prepare(engine)``
+    and ``slo``: the engine's (``repro_torch.obs``); ``plan``: a tuned plan
+    the engine applies to the ServeConfig (``repro_torch.tuning``);
+    ``prepare(engine)``
     runs before the requests are submitted, ``mid(engine)`` after 3
     scheduling steps (``evict_readmit_oldest``, a stage probe)."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
@@ -1113,7 +1127,8 @@ def serve(cfg, params, device, reqs, *, drafter=None, paged=True, eager=False, e
     max_seq = -(-(max(PROMPT_LENS) + NEW_TOKENS) // BLOCK) * BLOCK
     scfg = ServeConfig(max_seq=max_seq, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS,
                        max_batch=SLOTS, block_size=BLOCK, paged=paged, **extra)
-    eng = Engine(cfg, params, scfg, device=device, drafter=drafter, tracer=tracer, slo=slo)
+    eng = Engine(cfg, params, scfg, device=device, drafter=drafter, tracer=tracer, slo=slo,
+                 plan=plan)
     if prepare is not None:
         prepare(eng)
     t0 = time.perf_counter()
@@ -2229,6 +2244,185 @@ def phase_obs_policy(res: dict, main: tuple) -> dict:
     return out
 
 
+TUNE_DB = ROOT / "build" / "tuning_smoke.json"  # phase 11's tuning dbs (git-ignored)
+TUNE_BUDGET = dict(max_trials=4, sweeps=1, timed_runs=2)
+LAUNCHER_TUNE_BUDGET = 3
+
+
+def calibration(label: str, prof, prompt_len: int, max_seq: int) -> dict:
+    """Print one stage profile and the plan ``plan_decode_policy`` makes
+    from it; returns both as a row."""
+    from repro_torch.runtime.serving import plan_decode_policy
+
+    st = prof.stage_times()
+    plan = plan_decode_policy(st, prompt_len=prompt_len, max_seq=max_seq)
+    row = {"chunk_ms": prof.chunk_s * 1e3, "decode_ms": prof.decode_s * 1e3,
+           "h2d_ms": prof.h2d_s * 1e3, "d2h_ms": prof.d2h_s * 1e3,
+           "scatter_ms": prof.scatter_s * 1e3, "gather_ms": prof.gather_s * 1e3,
+           "r": st.transfer_ratio(),
+           "plan": [plan.decision, plan.prefill_chunk, plan.decode_interleave,
+                    plan.block_size]}
+    print(f"[tune] {label}: chunk {row['chunk_ms']:.3f} ms, decode tick "
+          f"{row['decode_ms']:.3f} ms, H2D {row['h2d_ms']:.4f} ms, D2H "
+          f"{row['d2h_ms']:.4f} ms, scatter {row['scatter_ms']:.4f} ms, gather "
+          f"{row['gather_ms']:.4f} ms; R {row['r']:.3f} -> {plan.decision}, plan chunk "
+          f"{plan.prefill_chunk}, interleave {plan.decode_interleave}, block "
+          f"{plan.block_size}")
+    return row
+
+
+def phase_tune(res: dict, main: tuple) -> dict:
+    """Phase 11: the measured tuner (``repro_torch.tuning``) on the full
+    36-layer bf16 qwen3-4b of phase 5 (``main``), its 6 requests, 4 slots,
+    chunk 64, pages of 16.  (a) The calibrations of ``profile_engine`` on an
+    idle warm engine: untraced (the synchronized probe) after one serve,
+    then traced after its second and after its third serve (the trace's
+    stage estimate; the second serve still captures graphs), each with the
+    plan ``plan_decode_policy`` makes from it.  (b) ``search_tuned_plan`` with
+    TUNE_BUDGET over the prompts' workload descriptor: its log, trials and
+    wall, ``memory_allocated`` before and after it (back at its level: every
+    trial's engine is dropped), the plan and its tok/s against the analytic
+    baseline's.  (c) A serve on ``StreamedBatchEngine(..., plan=plan)``,
+    warm, its launches counted: tokens bit-equal to phase 5's (agreement >=
+    QUANT_FLOOR for a quantized plan), beside a warm untuned serve (each
+    engine's third serve).  (d) A
+    ``TuningDB`` put / get whose fingerprint carries the card's name.  (e)
+    The launcher with ``--autotune`` twice: searched, then cached."""
+    from repro_torch import tuning
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs import Tracer, stage_times_from_trace
+    from repro_torch.runtime.serving import ServeConfig
+
+    out: dict = {}
+    _, paged_toks, params = main
+    cfg = qwen3_4b.CONFIG
+    reqs = prompts(cfg.vocab_size)
+    desc = tuning.WorkloadDescriptor.from_prompts(reqs, max_new_tokens=NEW_TOKENS)
+    max_seq = -(-(max(PROMPT_LENS) + NEW_TOKENS) // BLOCK) * BLOCK
+    scfg = ServeConfig(max_seq=max_seq, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS,
+                       max_batch=SLOTS, block_size=BLOCK, paged=True)
+    print(f"[tune] workload: {desc}, bucket {desc.bucket()}")
+
+    # (a) the calibrations on one idle warm engine.
+    eng = serve(cfg, params, "cuda", reqs)[0]
+    probe = tuning.profile_engine(eng, desc.prompt_len_mean)
+    check(eng.kv.pages_in_use == 0, "the profile left pages in use")
+    out["probe"] = calibration("probe calibration (untraced, synchronized)", probe,
+                               desc.prompt_len_mean, max_seq)
+    # The trace of the engine's second serve, then of its third: the second
+    # still captures the chunk keys the first ran once, inside admissions.
+    for nth in ("second", "third"):
+        tracer = Tracer()
+        observe_anew(eng, tracer=tracer)
+        toks, _, _ = serve_again(res, f"traced {nth} serve", cfg, eng, reqs)
+        check(all(np.array_equal(a, b) for a, b in zip(toks, paged_toks)),
+              f"traced {nth} serve: tokens differ from phase 5's")
+        traced = tuning.profile_engine(eng, desc.prompt_len_mean)
+        from_trace = stage_times_from_trace(tracer.spans())
+        check(from_trace is not None and (traced.chunk_s, traced.decode_s)
+              == (from_trace.h2d, from_trace.kex),
+              "the traced calibration did not read the trace's stage times")
+        check(eng.kv.pages_in_use == 0, "the profile left pages in use")
+        out[f"trace, {nth} serve"] = calibration(
+            f"trace calibration (the trace of the engine's {nth} serve)", traced,
+            desc.prompt_len_mean, max_seq)
+    del eng
+
+    # (b) the search, every trial's engine dropped before the next.
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    plan = tuning.search_tuned_plan(cfg, params, scfg, desc, device="cuda",
+                                    budget=tuning.SearchBudget(**TUNE_BUDGET), log=print)
+    wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    print(f"[tune] search ({TUNE_BUDGET}): {plan.trials} trials in {wall:.1f} s; "
+          f"memory_allocated {mem0} B before, {mem1} B after ({(mem1 - mem0) / 2**20:+.3f} MiB)")
+    check(1 <= plan.trials <= TUNE_BUDGET["max_trials"], f"{plan.trials} trials")
+    check(mem1 <= mem0 + RESERVED_SLACK_GIB * 2**30,
+          f"memory_allocated grew from {mem0} to {mem1} B over the search")
+    check(plan.tokens_per_s >= plan.baseline_tokens_per_s,
+          f"tuned {plan.tokens_per_s} tok/s < baseline {plan.baseline_tokens_per_s}")
+    st = plan.measured_stage_times
+    out["search"] = {"trials": plan.trials, "wall_s": wall, "memory_allocated": [mem0, mem1],
+                     "plan": {k: v for k, v in plan.to_json().items()
+                              if k not in ("fingerprint", "schema")}}
+    print(f"[tune] plan ({plan.decision}/{plan.category}): chunk {plan.prefill_chunk}, "
+          f"interleave {plan.decode_interleave}, block {plan.block_size}, num_blocks "
+          f"{plan.num_blocks}, slots {plan.max_batch}, kv_dtype {plan.kv_dtype}; calibrated "
+          f"chunk {st.h2d * 1e3:.3f} ms, tick {st.kex * 1e3:.3f} ms; {plan.tokens_per_s:.1f} "
+          f"tok/s measured against {plan.baseline_tokens_per_s:.1f} for the analytic "
+          f"baseline (admission {plan.admit_ms:.2f} / {plan.baseline_admit_ms:.2f} ms)")
+
+    # (c) the tuned serve, warm, beside a warm untuned one.
+    n_tok = len(reqs) * NEW_TOKENS
+    served = {}
+    for label, kw in (("untuned", {}), ("tuned", dict(plan=plan))):
+        eng = serve(cfg, params, "cuda", reqs, **kw)[0]
+        observe_anew(eng)
+        serve_again(res, f"{label} warm-up serve", cfg, eng, reqs)
+        observe_anew(eng)
+        toks, w, launches = serve_again(res, f"{label} serve (warm)", cfg, eng, reqs)
+        served[label] = {"tokens_per_s": n_tok / w, "decode_tick_ms_p50":
+                         float(np.median(eng.ticks) * 1e3), "prefill_chunks":
+                         eng.prefill_chunks, "launches": launches,
+                         "agreement_with_phase5": agreement(toks, paged_toks)}
+        del eng
+    for name in ("paged_attention", "flash_attention"):
+        key = f"{name}_quant" if name == "paged_attention" and plan.kv_dtype != "fp32" else name
+        check(served["tuned"]["launches"][key] > 0, f"tuned serve: no {key} launch")
+    a = served["tuned"]["agreement_with_phase5"]
+    if plan.kv_dtype == scfg.kv_dtype:
+        check(a == 1.0, f"tuned serve: agreement {a} with phase 5's tokens (bit-equal wanted)")
+    else:
+        check(a >= QUANT_FLOOR, f"tuned {plan.kv_dtype} serve: agreement {a} < {QUANT_FLOOR}")
+    out["serves"] = served
+    print("[tune] warm serves of phase 5's requests: " + "; ".join(
+        f"{k} {v['tokens_per_s']:.1f} tok/s, tick p50 {v['decode_tick_ms_p50']:.2f} ms, "
+        f"{v['prefill_chunks']} chunks, agreement with phase 5 "
+        f"{v['agreement_with_phase5']:.3f}" for k, v in served.items()))
+
+    # (d) the db round trip, keyed by the card.
+    kind = torch.cuda.get_device_name(0)
+    fp = tuning.fingerprint(cfg, desc, scfg, backend="cuda", device_kind=kind)
+    check(plan.fingerprint == fp, "the plan's fingerprint is not the card's")
+    TUNE_DB.parent.mkdir(exist_ok=True)
+    TUNE_DB.unlink(missing_ok=True)
+    tuning.TuningDB(TUNE_DB).put(plan)
+    check(tuning.TuningDB(TUNE_DB).get(fp) == plan, "the tuning db did not round-trip")
+    print(f"[tune] db {TUNE_DB.relative_to(ROOT)}: fingerprint {fp} (cuda, {kind}) "
+          "round-trips")
+
+    # (e) the launcher, twice.
+    path = TUNE_DB.with_name("tuning_launcher.json")
+    path.unlink(missing_ok=True)
+    runs = []
+    for _ in range(2):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            launcher.main(["--arch", "qwen3-4b", "--paged", "--autotune", "--tune-budget",
+                           str(LAUNCHER_TUNE_BUDGET), "--tuning-db", str(path)])
+        lines = [ln for ln in buf.getvalue().splitlines() if "autotune (" in ln]
+        runs.append((lines, time.perf_counter() - t0))
+        print("\n".join(ln for ln in buf.getvalue().splitlines()
+                        if ln.startswith("[serve] autotune") or ln.startswith("[serve] qwen")))
+    check(len(runs[0][0]) == 1 and "autotune (searched" in runs[0][0][0],
+          f"first launcher run: {runs[0][0]}")
+    check(len(runs[1][0]) == 1 and "autotune (cached" in runs[1][0][0],
+          f"second launcher run: {runs[1][0]}")
+    check(len(tuning.TuningDB(path)) == 1, "the launcher's db holds more than one plan")
+    out["launcher_s"] = [r[1] for r in runs]
+    print(f"[tune] launcher --autotune (smoke qwen3-4b): searched in {runs[0][1]:.1f} s, "
+          f"then cached in {runs[1][1]:.1f} s")
+    print("[tune] summary " + json.dumps(out, default=str))
+    return out
+
+
 def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
     """The full 64-layer bf16 mamba2-2.7b: the 6 requests over a contiguous
     slot cache and beside a paged pool, then head-sharing prompts without
@@ -3094,8 +3288,11 @@ def main() -> int:
     print(f"[share] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_obs_policy(res, main_path)
-    del main_path  # the full model's weights
     print(f"[obs] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_tune(res, main_path)
+    del main_path  # the full model's weights
+    print(f"[tune] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_main_mamba(res, profile=args.profile)
     print(f"[mamba] {time.perf_counter() - t0:.1f}s")

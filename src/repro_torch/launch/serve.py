@@ -6,7 +6,8 @@ engine, or one batch at a time through ``ServingEngine.generate``.
         [--temperature 0.8] [--paged [--num-blocks N] [--kv-dtype int8|fp8] \
         [--prefix-sharing [--prefix-min-pages 1] [--prefix-store PATH]]] \
         [--spec-decode --spec-k 4 --spec-ngram 3] [--sequential] \
-        [--trace PATH] [--metrics] [--metrics-out PATH] [--slo-ttft-ms MS] [--slo-itl-ms MS]
+        [--trace PATH] [--metrics] [--metrics-out PATH] [--slo-ttft-ms MS] [--slo-itl-ms MS] \
+        [--autotune [--tuning-db PATH] [--tune-budget N] [--retune]]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         [--paged] [--state-snapshots] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium [--paged]
@@ -39,6 +40,15 @@ per-request latencies; ``--metrics`` prints ``metrics_snapshot()`` and
 every request against those targets (the snapshot's ``derived.slo``).  They
 instrument the batched engine, so they reject ``--sequential`` and
 paligemma-3b, as the reference launcher does.
+
+``--autotune`` tunes the batched engine's knobs by measurement
+(``repro_torch.tuning``: profile the device, warm-start from the paper's
+generic flow, coordinate-descend on measured tokens/s), keeps the plan in
+the tuning db under a fingerprint of (device, model, serving mode,
+workload bucket) and serves with it; a second run with the same flags
+finds the plan there ("cached") unless ``--retune``.  Like the tuning
+flags of the reference launcher, it acts on the batched engine only (not
+``--sequential``, not paligemma-3b).
 
 Like the reference launcher it serves the arch's smoke-size config with
 random weights from a fixed seed.  It runs on CUDA unless ``--device cpu``.
@@ -73,6 +83,18 @@ def main(argv: list[str] | None = None) -> None:
                     help="decode slots for continuous batching")
     ap.add_argument("--interleave", type=int, default=1,
                     help="decode steps per in-flight prefill chunk")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measurement-driven tuning (repro_torch.tuning): profile the "
+                         "device, warm-start from the paper's generic flow, "
+                         "coordinate-descend on measured tokens/s, persist the plan to "
+                         "the tuning db")
+    ap.add_argument("--tuning-db", default=None,
+                    help="tuning-db JSON path (default $REPRO_TUNING_DB or "
+                         "~/.cache/repro_torch/tuning.json)")
+    ap.add_argument("--tune-budget", type=int, default=12,
+                    help="max measured candidate runs the tuner may spend")
+    ap.add_argument("--retune", action="store_true",
+                    help="ignore a cached TunedPlan and search afresh")
     ap.add_argument("--sequential", action="store_true",
                     help="force the one-request-at-a-time baseline (ServingEngine.generate)")
     ap.add_argument("--paged", action="store_true",
@@ -173,7 +195,8 @@ def main(argv: list[str] | None = None) -> None:
         return
     slo = (SLOPolicy.from_ms(ttft_ms=args.slo_ttft_ms, itl_ms=args.slo_itl_ms)
            if slo_flags else None)
-    eng = StreamedBatchEngine(cfg, params, scfg, device=device,
+    plan = autotune(args, cfg, params, scfg, tokens, device) if args.autotune else None
+    eng = StreamedBatchEngine(cfg, params, scfg, device=device, plan=plan,
                               tracer=Tracer() if args.trace else None, slo=slo)
     t0 = time.perf_counter()
     uids = [eng.submit(t, enc_inputs=None if enc_inputs is None else enc_inputs[i])
@@ -186,14 +209,14 @@ def main(argv: list[str] | None = None) -> None:
     spec = ""
     if args.spec_decode:
         rate = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else 0.0
-        spec = (f", spec k={args.spec_k}: {eng.spec_ticks} verify ticks, acceptance "
+        spec = (f", spec k={eng.scfg.spec_k}: {eng.spec_ticks} verify ticks, acceptance "
                 f"{rate:.2f} ({eng.spec_accepted}/{eng.spec_proposed})")
     if args.state_snapshots:
         spec += (f", state snapshots: {eng.snapshot_hits} hits, "
                  f"{eng.snapshot_tokens_reused} tokens reused")
     if args.paged:
         st = eng.kv.stats(active_slots=eng.peak_active)
-        cache = (f"paged block={eng.kv.block_size} kv_dtype={args.kv_dtype} (peak "
+        cache = (f"paged block={eng.kv.block_size} kv_dtype={eng.kv.kv_dtype} (peak "
                  f"{st.peak_in_use}/{st.capacity} pages, page_bytes={st.page_bytes}, "
                  f"preemptions={eng.preemptions})")
         if args.prefix_sharing:
@@ -205,7 +228,7 @@ def main(argv: list[str] | None = None) -> None:
     else:
         cache = "contiguous slot cache"
     temp = f"temperature {args.temperature}" if args.temperature > 0 else "greedy"
-    print(f"[serve] {args.arch} on {device} (continuous-batching x{args.max_batch} "
+    print(f"[serve] {args.arch} on {device} (continuous-batching x{eng.scfg.max_batch} "
           f"slots, {temp}, {eng.decode_steps} batched decode steps{spec}, {cache}): "
           f"{args.requests} requests x {args.prompt_len} prompt -> "
           f"{total_new // args.requests} new tokens each in {dt:.2f}s "
@@ -237,6 +260,32 @@ def main(argv: list[str] | None = None) -> None:
             print(f"[serve] metrics: {args.metrics_out}")
         if args.metrics:
             print(json.dumps(snap, indent=2, sort_keys=True))
+
+
+def autotune(args, cfg, params, scfg, tokens, device):
+    """The ``TunedPlan`` for this workload: the db's, or (none there, or
+    ``--retune``) a fresh search, stored in the db."""
+    from repro_torch import tuning
+    desc = tuning.WorkloadDescriptor.from_prompts(list(tokens),
+                                                  max_new_tokens=args.new_tokens)
+    db = tuning.TuningDB(args.tuning_db)
+    fp = tuning.fingerprint(cfg, desc, scfg, device=device)
+    plan = None if args.retune else db.get(fp)
+    cached = plan is not None
+    if plan is None:
+        plan = tuning.search_tuned_plan(
+            cfg, params, scfg, desc, device=device,
+            budget=tuning.SearchBudget(max_trials=args.tune_budget), log=print)
+        db.put(plan)
+    st = plan.measured_stage_times
+    print(f"[serve] autotune ({'cached' if cached else 'searched'}, "
+          f"{plan.decision}/{plan.category}): chunk={plan.prefill_chunk} "
+          f"interleave={plan.decode_interleave} block={plan.block_size} "
+          f"slots={plan.max_batch} kernel={plan.paged_kernel} "
+          f"(chunk {st.h2d * 1e3:.2f}ms, decode {st.kex * 1e3:.2f}ms; "
+          f"{plan.tokens_per_s:.1f} tok/s measured vs "
+          f"{plan.baseline_tokens_per_s:.1f} analytic; db {db.path})")
+    return plan
 
 
 if __name__ == "__main__":

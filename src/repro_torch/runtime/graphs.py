@@ -82,13 +82,15 @@ class CudaCapture:
 class Graphs:
     """An engine's graph state: its capture backend (a :class:`CudaCapture`
     on a card, none on the CPU, or a stand-in a test injects) and the counts
-    of graphs captured, replays and seconds spent capturing."""
+    of first runs (a step's eager first use), graphs captured, replays and
+    seconds spent capturing."""
 
     def __init__(self, device: torch.device, capture: Callable | None = None):
         self.device = torch.device(device)
         if capture is None and self.device.type == "cuda":
             capture = CudaCapture(self.device)
         self.capture = capture
+        self.first_runs = 0
         self.captured = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -135,6 +137,8 @@ class StepGraph:
     def __call__(self, **values: Any) -> Any:
         self._fill(values)
         self.uses += 1
+        if self.uses == 1:
+            self.graphs.first_runs += 1
         if self.graphs.capture is None or self.uses == 1:
             return self.fn(**self.inputs)
         if self.graph is None:
