@@ -15,6 +15,10 @@ test-slow:  ## heavy end-to-end paths + the sharing bench smoke
 lint-streams:  ## stream-safety analyzer: sync audit, kernel lint, pool audit
 	PYTHONPATH=$(PYTHONPATH) JAX_PLATFORMS=cpu python -m repro.analysis
 
+.PHONY: lint-streams-torch
+lint-streams-torch:  ## the port's analyzer, static passes on the CPU (on a card: drop --device cpu for the live sync audit)
+	PYTHONPATH=$(PYTHONPATH) python -m repro_torch.analysis --device cpu
+
 bench:  ## paper-figure benchmarks (CSV to stdout; refreshes BENCH_serving.json)
 	PYTHONPATH=$(PYTHONPATH) python -m benchmarks.run
 

@@ -211,6 +211,16 @@ Phases (any failed check raises, and the script exits non-zero):
      5's, or agreement >= 0.5 for a quantized plan) beside a warm untuned
      serve; a TuningDB round trip keyed by the card's name; the launcher's
      --autotune twice (searched, then cached).
+  12. the stream-safety analyzer (after 11, on phase 5's qwen3-4b): (a)
+     ``repro_torch.analysis`` on the card: the static passes on the CPU (31
+     paths, the kernel lint, the pool audit), the quant contract through
+     the quantized kernels and the live sync audit (every ``@tick_path``
+     method under ``torch.cuda.set_sync_debug_mode("error")``) of 9 (arch,
+     mode) smoke engines; clean, with no waiver.  (b) phase 5's requests in
+     phase 5b's 22-block pool, which preempts, with REPRO_SANITIZE=1 and
+     the live audit: tokens bit-equal to phase 5b's, every call within its
+     allowed_fetches, sanitize_checks, tok/s beside phase 5b's; (a)'s and
+     (b)'s launches join the kernels line.
 On the card every serve's ticks, chunks and page moves replay CUDA graphs
 (runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
 eager step functions and holds the graphed serve to it (tokens identical,
@@ -1335,10 +1345,10 @@ def zero_counters() -> dict:
 
 def fold_launches(res: dict, launches: dict) -> None:
     """A measured run's launches join the earlier phases' in the kernels line
-    (a kernel that no phase has launched yet has no count to add to)."""
+    (a kernel that no phase has launched yet starts from 0)."""
     for name, n in launches.items():
         if n:
-            res[name]["launches"] += n
+            res[name]["launches"] = res[name].get("launches", 0) + n
 
 
 def expected_launches(cfg, eng) -> dict:
@@ -1649,6 +1659,7 @@ def phase_cache_paths(res: dict, main: tuple, *, profile: bool = False) -> dict:
                        evict_ms=[x * 1e3 for x in eng.evict_s],
                        readmit_ms=[x * 1e3 for x in eng.readmit_s],
                        peak_pages=eng.kv.peak_pages_in_use)
+            pressured = (toks, row["tokens_per_s"])
         out[label] = row
         print(f"[cache] {label}: {n} tokens in {wall:.3f}s = {n / wall:.1f} tok/s (fused paged, "
               f"phase 5: {e2e['tokens_per_s']:.1f}); tick p50 {row['decode_tick_ms_p50']:.2f} "
@@ -1672,6 +1683,8 @@ def phase_cache_paths(res: dict, main: tuple, *, profile: bool = False) -> dict:
             if profile:
                 phase_profile(cfg, params, reqs, "contiguous", **kw)
     print("[cache] serves " + json.dumps(out))
+    # Phase 12 serves the same requests in the same pool, sanitized.
+    out["pressured_tokens"], out["pressured_tokens_per_s"] = pressured
     return out
 
 
@@ -2423,6 +2436,154 @@ def phase_tune(res: dict, main: tuple) -> dict:
     return out
 
 
+def phase_analysis(res: dict, main: tuple, cache: dict) -> dict:
+    """Phase 12: the stream-safety analyzer (``repro_torch.analysis``) on
+    the card.  (a) The CLI's whole run (``python -m repro_torch.analysis``
+    on the card, in process): the static passes on the CPU (31 paths, the
+    kernel lint, the pool audit), KRN003 through the quantized kernels, and
+    the live sync audit of the 9 (arch, mode) smoke engines, each serving 3
+    requests under ``set_sync_debug_mode("error")`` (a paged one in
+    ``synccheck.LIVE_BLOCKS`` blocks, which preempts); paths audited,
+    findings by rule, wall; it must be clean (the port's waiver file holds
+    no waiver).  (b) Phase 5's six requests on the full 36-layer bf16
+    qwen3-4b of phase 5 (``main``) in phase 5b's PRESSURE_BLOCKS-block
+    pool, which preempts, with ``REPRO_SANITIZE=1`` (the invariant suite
+    after every pool mutation) and the live audit on every ``@tick_path``
+    method of the engine and its pool: ``sanitize_checks``, each marked
+    method's calls and most fetches in a call against its
+    ``allowed_fetches``, the captures it sanctioned, tok/s beside phase
+    5b's serve in the same pool (``cache``), and the tokens, which must be
+    bit-equal to phase 5b's; then what each instrument costs: fresh
+    engines in turns, twice over, plain, sanitizer only, live audit only
+    and both (tok/s; tokens bit-equal every time).  (c) The launches of
+    (a) and (b)'s first serve, each counted
+    from 0 just before it, join the kernels line; (b)'s must be
+    ``expected_launches``."""
+    import os
+
+    from repro_torch.analysis import RULES, WAIVERS, apply_waivers, load_waivers, synccheck
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
+
+    out = {}
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    report = cli.run(device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    unwaived, waived = apply_waivers(report["findings"], load_waivers(WAIVERS))
+    check(not unwaived and not waived,
+          "analysis: findings " + "; ".join(str(f) for f in unwaived + waived))
+    check(report["paths_audited"] == 31 and len(report["live"]) == 9,
+          f"analysis: {report['paths_audited']} paths, {len(report['live'])} live engines")
+    for name in ("paged_attention", "paged_attention_multi", "paged_attention_quant",
+                 "paged_attention_multi_quant", "flash_attention", "ssd"):
+        check(launches[name] > 0, f"analysis (a): no {name} launch")
+    fold_launches(res, launches)
+    live = {r["path"]: r for r in report["live"]}
+    out["cli"] = {"wall_s": wall, "static_s": report["static_s"],
+                  "paths_audited": report["paths_audited"], "rules": report["rules"],
+                  "live_engines": len(report["live"]), "launches": launches}
+    print(f"[analysis] (a) repro_torch.analysis on the card: {report['paths_audited']} paths "
+          f"audited, {len(report['live'])} engines under the live audit, findings by rule "
+          f"{json.dumps(report['rules'])} ({len(RULES)} rules; no waiver); wall {wall:.2f}s "
+          f"(static passes on the CPU {report['static_s']:.2f}s); launches "
+          f"{json.dumps(launches)}")
+    for path, r in live.items():
+        print(f"[analysis]   {path}: {r['tokens']} tokens in {r['seconds']:.3f}s, "
+              f"{r['preemptions']} preemptions, sanctioned {json.dumps(r['sanctioned'])}, "
+              f"{len(r['calls'])} marked methods driven, fetches (most in one call, "
+              f"allowed) " + json.dumps({k.split(".")[-1]: [n, r["allowed_fetches"][k]]
+                                         for k, n in r["max_fetches"].items() if n}))
+
+    # (b) the full model, sanitized and audited, in the pool that preempts.
+    _, _, params = main
+    cfg = qwen3_4b.CONFIG
+    reqs = prompts(cfg.vocab_size)
+    max_seq = -(-(max(PROMPT_LENS) + NEW_TOKENS) // BLOCK) * BLOCK
+    scfg = ServeConfig(max_seq=max_seq, prefill_chunk=CHUNK, max_new_tokens=NEW_TOKENS,
+                       max_batch=SLOTS, block_size=BLOCK, paged=True,
+                       num_blocks=PRESSURE_BLOCKS)
+
+    def fresh(sanitize: bool, audited: bool):
+        """A fresh engine's serve of ``reqs`` (as phase 5b's), with the
+        sanitizer and / or the live audit; returns (engine, audit or None,
+        tokens, seconds of ``run``)."""
+        if sanitize:
+            os.environ["REPRO_SANITIZE"] = "1"
+        try:
+            eng = StreamedBatchEngine(cfg, params, dataclasses.replace(scfg), device="cuda")
+        finally:
+            os.environ.pop("REPRO_SANITIZE", None)
+        check(getattr(eng.kv, "sanitized", False) == sanitize, "REPRO_SANITIZE=1 not honoured")
+        audit = None
+        if audited:
+            audit = synccheck.LiveAudit("cuda", path="live:qwen3-4b/paged-22").watch(eng)
+            audit.watch(eng.kv)
+        with audit if audited else contextlib.nullcontext():
+            uids = [eng.submit(p) for p in reqs]
+            t1 = time.perf_counter()
+            got = eng.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+        return eng, audit, [got[u] for u in uids], secs
+
+    box = {}
+
+    def run():
+        box["eng"], box["audit"], toks, secs = fresh(True, True)
+        return toks, secs
+
+    (toks, secs), launches = count_launches("analysis (b)", run,
+                                            lambda _: expected_launches(cfg, box["eng"]))
+    eng, audit = box.pop("eng"), box.pop("audit")
+    fold_launches(res, launches)
+    check(audit.findings == [], "live audit: " + "; ".join(map(str, audit.findings)))
+    pressured = cache["pressured_tokens"]
+    for i, (a, b) in enumerate(zip(toks, pressured)):
+        check(np.array_equal(a, b), f"sanitized request {i}: {a} != phase 5b's {b}")
+    check(eng.preemptions >= 2, f"sanitized serve: {eng.preemptions} preemptions")
+    check(eng.kv.pages_in_use == 0, "sanitized serve: pages left in use")
+    rep = audit.report()
+    for name, n in rep["max_fetches"].items():
+        check(n <= rep["allowed_fetches"][name], f"{name}: {n} fetches in one call")
+    n = sum(len(t) for t in toks)
+    row = {"tokens_per_s": n / secs, "phase_5b_tokens_per_s": cache["pressured_tokens_per_s"],
+           "sanitize_checks": eng.kv.sanitize_checks, "preemptions": eng.preemptions,
+           "decode_ticks": eng.decode_steps, "fetches": rep["fetches"],
+           "calls": rep["calls"], "max_fetches": rep["max_fetches"],
+           "allowed_fetches": rep["allowed_fetches"], "sanctioned": rep["sanctioned"],
+           "launches": launches}
+    out["sanitized_serve"] = row
+    print(f"[analysis] (b) qwen3-4b 36 layers bf16, {PRESSURE_BLOCKS}-block pool, "
+          f"REPRO_SANITIZE=1 + live audit: {n} tokens in {secs:.3f}s = {n / secs:.1f} tok/s "
+          f"(phase 5b in the same pool, unsanitized: "
+          f"{cache['pressured_tokens_per_s']:.1f}); tokens bit-equal to phase 5b's for "
+          f"{len(toks)} requests; {eng.preemptions} preemptions; sanitize_checks "
+          f"{eng.kv.sanitize_checks}; {rep['fetches']} fetches over {eng.decode_steps} ticks "
+          f"and {eng.admissions} admissions; calls {json.dumps(rep['calls'])}; most fetches "
+          f"in one call {json.dumps(rep['max_fetches'])} against allowed "
+          f"{json.dumps(rep['allowed_fetches'])}; sanctioned {json.dumps(rep['sanctioned'])}; "
+          f"launches {json.dumps(launches)}")
+    # What each instrument costs: fresh engines in turns, twice over (the
+    # serves are host-bound and move between runs).
+    walls: dict = {"plain": [], "sanitizer": [], "live audit": [], "both": []}
+    for _ in range(2):
+        for label, kw in (("plain", (False, False)), ("sanitizer", (True, False)),
+                          ("live audit", (False, True)), ("both", (True, True))):
+            _, _, t, secs = fresh(*kw)
+            check(all(np.array_equal(a, b) for a, b in zip(t, pressured)),
+                  f"{label} serve: tokens differ from phase 5b's")
+            walls[label].append(n / secs)
+    out["instrument_tokens_per_s"] = walls
+    print("[analysis] the instruments' cost, fresh engines in turns, tok/s "
+          + json.dumps({k: [round(x, 1) for x in v] for k, v in walls.items()})
+          + "; tokens bit-equal to phase 5b's in every serve")
+    del eng
+    return out
+
+
 def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
     """The full 64-layer bf16 mamba2-2.7b: the 6 requests over a contiguous
     slot cache and beside a paged pool, then head-sharing prompts without
@@ -2473,8 +2634,8 @@ def phase_main_mamba(res: dict, *, profile: bool = False) -> dict:
               f"({eng.snapshot_tokens_reused} tokens reused), snapshot copies (ms) "
               f"{[round(x, 2) for x in out[label]['snapshot_copy_ms']]}; launches {launches}; "
               f"peak {out[label]['peak_mem_gb']:.2f} GB")
-        if label == "contiguous":
-            res["ssd"]["launches"] = launches["ssd"]
+        if label == "contiguous":  # after phase 12's smoke mamba engines
+            res["ssd"]["launches"] = res["ssd"].get("launches", 0) + launches["ssd"]
             if profile:
                 phase_profile(cfg, params, rq, "mamba contiguous", **kw)
     check(all(np.array_equal(a, b) for a, b in zip(out["contiguous"]["toks"],
@@ -3281,7 +3442,7 @@ def main() -> int:
     main_path = phase_main_path(res, profile=args.profile)
     print(f"[main] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase_cache_paths(res, main_path, profile=args.profile)
+    cache = phase_cache_paths(res, main_path, profile=args.profile)
     print(f"[cache] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_sharing_sampling(res, main_path)
@@ -3291,8 +3452,11 @@ def main() -> int:
     print(f"[obs] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_tune(res, main_path)
-    del main_path  # the full model's weights
     print(f"[tune] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_analysis(res, main_path, cache)
+    del main_path  # the full model's weights
+    print(f"[analysis] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_main_mamba(res, profile=args.profile)
     print(f"[mamba] {time.perf_counter() - t0:.1f}s")

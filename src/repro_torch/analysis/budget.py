@@ -8,26 +8,34 @@ port's copy of the reference ``analysis/budget.py``).
   the reference's analyzer also audits it statically.
 * :func:`tick_path` decorates a **Python-level method** on the tick path
   (e.g. ``StreamedBatchEngine._plain_tick``) with how many sanctioned
-  fetches it may perform.  The reference's AST lint counts
+  fetches it may perform.  The AST lint (``analysis.astlint``) counts
   :func:`host_fetch` calls against it and flags any implicit sync as
-  STR001; the port's twin of that lint is not written yet, and the
-  markers are placed for it.
+  STR001; on a card the live audit (``analysis.synccheck.LiveAudit``) runs
+  each marked method under ``torch.cuda.set_sync_debug_mode("error")`` and
+  counts the fetches each call makes.
 * :func:`host_fetch` is the one sanctioned way to move a device tensor to
-  the host on a tick path: one ``.cpu()`` that returns numpy.
+  the host on a tick path: one ``.cpu()`` that returns numpy.  Under a live
+  audit it lowers the sync mode around that copy and counts it.
+* :func:`sanctioned_sync` marks a deliberate synchronization that is not a
+  fetch (a CUDA graph capture); a live audit lets it through and counts it.
 
 numpy and torch only; nothing of the analyzer is imported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Iterator, Tuple
 
 import numpy as np
 import torch
 
 BUDGET_ATTR = "__transfer_budget__"
 TICK_ATTR = "__tick_path__"
+
+#: The live audit in progress (``analysis.synccheck.LiveAudit``), or None.
+_live: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,4 +95,18 @@ def budget_of(fn) -> TransferBudget | None:
 def host_fetch(x: torch.Tensor) -> np.ndarray:
     """The sanctioned D2H transfer on a tick path: one ``.cpu()`` of the
     device tensor ``x`` (it waits for the work that produces ``x``)."""
+    if _live is not None:
+        return _live.fetch(x)
     return x.cpu().numpy()
+
+
+@contextlib.contextmanager
+def sanctioned_sync(what: str) -> Iterator[None]:
+    """A deliberate synchronization on a tick path (``what``: e.g.
+    "capture"): a no-op unless a live audit runs, which lets it through and
+    counts it under ``what``."""
+    if _live is None:
+        yield
+        return
+    with _live.sanction(what):
+        yield

@@ -23,8 +23,10 @@ and the classifier reproduces the paper's analysis.  The port's copy of the
 reference ``core/dependency.py`` (it imports nothing of it): the stream
 engine (``repro_torch.core.streams``) uses it to pick a streaming strategy,
 and ``classify_paper_suite`` re-derives the paper's categorization from
-task graphs modeled on the benchmarks' access patterns.  The reference's
-``step_footprint`` reads a jaxpr and is not copied.
+task graphs modeled on the benchmarks' access patterns.
+:func:`step_footprint` is the analyzer's bridge into this vocabulary: the
+reference's reads a jaxpr, the port's runs the eager step once and follows
+its data by storage.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 from collections import defaultdict
-from typing import Iterable, Sequence
+from typing import Any, Callable, Iterable, Sequence
 
 
 class Category(enum.Enum):
@@ -137,6 +139,96 @@ def classify(workload: Workload) -> Category:
         return Category.FALSE_DEPENDENT
 
     return Category.INDEPENDENT
+
+
+# ----------------------------------------------------------------------------
+# Step footprints (the stream-safety analyzer's bridge into this vocabulary).
+# ----------------------------------------------------------------------------
+
+
+def step_footprint(
+    fn: Callable[..., Any], labels: Sequence[tuple[str, Any]],
+    out_regions: Sequence[str], kwargs: dict[str, Any] | None = None,
+) -> tuple[frozenset[str], frozenset[str]]:
+    """Region read/write sets of one engine step, from one run of it.
+
+    The port's steps are eager functions that update engine-owned state in
+    place (the page pools, the slot cache), so the footprint follows data,
+    not a graph: ``fn(**kwargs)`` runs once under a dispatch mode that
+    taints tensors by region.  ``labels`` pairs a region (``"params"``,
+    ``"kv"``, ``"prompt"``, ...) with a tensor or a nested dict / sequence
+    of them: the step's inputs and the engine state it closes over.  Taint
+    lives on each tensor's untyped storage, so a write through a view
+    (``leaf[:, pages] = ...``, ``index_copy_``) lands on its base.  Every
+    op taints its outputs with the union of its inputs' taints; an op that
+    mutates an argument (the aten schema's write alias) taints that
+    argument's storage the same way.
+
+    * **reads**: the regions whose taint reaches a returned tensor or an
+      in-place write (the written tensor counts: a partial write keeps the
+      rest of it).  A labelled input no output depends on drops out, as
+      the reference's dead-code elimination drops an unused jaxpr input.
+    * **writes**: ``out_regions`` (one region per returned value; the
+      reference's outputs) plus every labelled region an op mutated.
+
+    Returns ``(reads, writes)``, the vocabulary :class:`Task` uses.  Run it
+    on throwaway state: the step's writes really happen.
+    """
+    import torch  # lazy: the stream engine imports this module
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    taint: dict[int, tuple[Any, set[str]]] = {}  # storage -> (kept alive, regions)
+    owner: dict[int, set[str]] = {}  # labelled storage -> its regions
+    reads: set[str] = set()
+    writes: set[str] = set(out_regions)
+
+    def tensors(tree) -> list:
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    def key(t) -> int:
+        return t.untyped_storage()._cdata
+
+    def regions(t) -> set[str]:
+        hit = taint.get(key(t))
+        return hit[1] if hit is not None else set()
+
+    def add(t, src: set[str]) -> None:
+        k = key(t)
+        if k not in taint:
+            taint[k] = (t.untyped_storage(), set())
+        taint[k][1].update(src)
+
+    for region, tree in labels:
+        for t in tensors(tree):
+            add(t, {region})
+            owner.setdefault(key(t), set()).add(region)
+
+    class _Taint(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            ins = tensors((args, kwargs))
+            src = set().union(*(regions(t) for t in ins)) if ins else set()
+            for i, arg in enumerate(func._schema.arguments):
+                if arg.alias_info is None or not arg.alias_info.is_write:
+                    continue
+                value = args[i] if i < len(args) else kwargs.get(arg.name)
+                for t in tensors([value]):
+                    reads.update(src)
+                    writes.update(owner.get(key(t), ()))
+                    add(t, src)
+            for t in tensors([out]):
+                add(t, src)
+            return out
+
+    with _Taint():
+        out = fn(**(kwargs or {}))
+    for t in tensors([out]):
+        reads.update(regions(t))
+    return frozenset(reads), frozenset(writes)
 
 
 def unroll_stream(

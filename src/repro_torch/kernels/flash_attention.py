@@ -71,6 +71,20 @@ def plan_flash(batch: int, sq: int, n_heads: int, n_kv: int, head_dim: int,
     return FlashPlan("tc", (m_tiles, n_kv, batch), TC_WARPS, TC_WARPS, KEY_TILE)
 
 
+#: The analyzer's view of this module (``analysis.kernelcheck``): the plan
+#: the launch uses and shapes of several m-tiles and both bodies (KRN001).
+KERNEL_META = {
+    "flash_attention": dict(
+        cover="flash", plan=plan_flash, kernels=(KERNEL,),
+        lint_shapes=(
+            dict(batch=1, sq=64, n_heads=32, n_kv=8, head_dim=128, dtype=torch.bfloat16),
+            dict(batch=2, sq=37, n_heads=16, n_kv=16, head_dim=64, dtype=torch.bfloat16),
+            dict(batch=1, sq=1500, n_heads=16, n_kv=16, head_dim=64, dtype=torch.float32),
+            dict(batch=3, sq=20, n_heads=6, n_kv=2, head_dim=24, dtype=torch.bfloat16),
+        )),
+}
+
+
 def _check_inputs(q, k, v) -> None:
     """Raise ``ValueError`` unless q (B, Sq, H, hd) and k/v (B, Sk, Hkv, hd)
     share one cpu or cuda device and one f32/bf16 type, fit together, and

@@ -66,6 +66,19 @@ def plan_strips(rows: int, cols: int, d0: int, d1: int, i0: int = 0,
     return StripPlan(j_lo, j_hi - j_lo + 1)
 
 
+#: The analyzer's view of this module (``analysis.kernelcheck``): the plan
+#: the launch uses and runs of one and of many diagonals (KRN001).
+KERNEL_META = {
+    "nw_tile": dict(
+        cover="strips", plan=plan_strips, kernels=(KERNEL,),
+        lint_shapes=(
+            dict(rows=16, cols=16, d0=0, d1=31),  # a whole 2048 grid of 128-tiles
+            dict(rows=5, cols=9, d0=3, d1=11),
+            dict(rows=8, cols=8, d0=7, d1=8, i0=2, i1=5),  # one diagonal, a row range
+        )),
+}
+
+
 def _grid(state: wavefront.WavefrontState, scores: torch.Tensor) -> tuple[int, int, int]:
     """(rows, cols, B) of the tile grid; raise ``ValueError`` unless the
     state, the (n, m) scores and ``state.tiles`` (a (rows, cols, B, B) view

@@ -131,11 +131,13 @@ def ssd(
     c_: torch.Tensor,  # (B, S, N)
     *,
     chunk: int = 64,
+    init_state: torch.Tensor | None = None,  # (B, H, P, N) f32
 ) -> torch.Tensor:
-    """Mamba2 SSD scan from a zero state -> y (B, S, H, P) in x's type (the
-    reference's ``ops.ssd``; any S, where the TPU kernel needs S % chunk ==
-    0)."""
-    return _ssd.ssd_chunked(x, dt, a, b_, c_, chunk=chunk)[0]
+    """Mamba2 SSD scan -> y (B, S, H, P) in x's type (the reference's
+    ``ops.ssd``; any S, where the TPU kernel needs S % chunk == 0), from a
+    zero state or ``init_state`` (the parameter of its oracle,
+    ``ref.ssd_ref``)."""
+    return _ssd.ssd_chunked(x, dt, a, b_, c_, chunk=chunk, init_state=init_state)[0]
 
 
 def fwt(x: torch.Tensor, *, block: int | None = None) -> torch.Tensor:

@@ -107,6 +107,23 @@ def plan_split(batch: int, n_kv: int, q_len: int, group: int, n_pages: int,
     return SplitPlan(tiles, tile_rows, pps, n_splits, (batch, n_kv, tiles * n_splits), ws)
 
 
+#: The analyzer's view of this module (``analysis.kernelcheck``): the plan
+#: every entry's launch uses, its entries, and shapes whose plans have
+#: several row tiles and several page splits (KRN001), at which the launch
+#: arguments are also built (KRN001 arity, KRN002).
+KERNEL_META = {
+    "paged_attention": dict(
+        cover="split", plan=plan_split,
+        kernels=(KERNEL, MULTI_KERNEL, QUANT_KERNEL, MULTI_QUANT_KERNEL),
+        lint_shapes=(
+            dict(batch=4, n_kv=8, q_len=1, group=4, n_pages=9, head_dim=128),  # decode tick
+            dict(batch=4, n_kv=8, q_len=5, group=4, n_pages=9, head_dim=128),  # verify block
+            dict(batch=1, n_kv=2, q_len=40, group=4, n_pages=37, head_dim=64),  # 3 row tiles
+            dict(batch=64, n_kv=8, q_len=1, group=8, n_pages=128, head_dim=128),
+        )),
+}
+
+
 def _check_inputs(q, k_pool, v_pool, page_table, cur_len, *, q_dims: int,
                   k_scale=None, v_scale=None) -> None:
     """Raise ``ValueError`` unless the inputs are what the kernel takes:
@@ -191,10 +208,33 @@ def _split_args(q, k_pool, page_table) -> tuple[torch.Tensor | None, list]:
                 plan.pages_per_split]
 
 
-def _geometry(q, k_pool, page_table, window, softcap, scale) -> list:
+def launch_args(q, k_pool, v_pool, page_table, cur_len, out, *, k_scale=None, v_scale=None,
+                window: int, softcap: float, scale: float, stream: int | None
+                ) -> tuple[CudaKernel, torch.Tensor | None, list]:
+    """The entry a call launches, its workspace (kept alive by the caller
+    across the launch) and its whole argument list, from the tensors
+    alone: the wrappers launch exactly this, and the analyzer
+    (``analysis.kernelcheck``) builds it on CPU tensors, without a launch,
+    to see that the page table and lengths reach the kernel."""
+    quant = k_scale is not None
+    kernel = {(3, False): KERNEL, (4, False): MULTI_KERNEL, (3, True): QUANT_KERNEL,
+              (4, True): MULTI_QUANT_KERNEL}[(q.dim(), quant)]
+    ws, split = _split_args(q, k_pool, page_table)
+    head = [_DTYPES[q.dtype]] + ([_CODES[k_pool.dtype]] if quant else [])
+    tensors = [q, k_pool, v_pool, *((k_scale, v_scale) if quant else ()), page_table,
+               cur_len, out]
     _, bs, hkv, hd = k_pool.shape
-    return [q.shape[-2], hkv, hd, bs, page_table.shape[1], int(window), float(softcap),
-            float(scale), ctypes.c_void_p(stream_of(q))]
+    geometry = [q.shape[-2], hkv, hd, bs, page_table.shape[1], int(window), float(softcap),
+                float(scale), ctypes.c_void_p(stream)]
+    return kernel, ws, [*head, *map(ptr, tensors), *split, *geometry]
+
+
+def _launch(q, k_pool, v_pool, page_table, cur_len, **kw) -> torch.Tensor:
+    out = torch.empty_like(q)
+    kernel, ws, args = launch_args(q, k_pool, v_pool, page_table, cur_len, out,
+                                   stream=stream_of(q), **kw)
+    kernel.launch(*args)
+    return out
 
 
 def paged_attention(
@@ -212,12 +252,8 @@ def paged_attention(
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, page_table, cur_len,
                                      window=window, softcap=softcap, scale=scale)
-    out = torch.empty_like(q)
-    ws, split = _split_args(q, k_pool, page_table)
-    KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k_pool), ptr(v_pool), ptr(page_table),
-                  ptr(cur_len), ptr(out), *split,
-                  *_geometry(q, k_pool, page_table, window, softcap, scale))
-    return out
+    return _launch(q, k_pool, v_pool, page_table, cur_len, window=window, softcap=softcap,
+                   scale=scale)
 
 
 def paged_attention_multi(
@@ -235,12 +271,8 @@ def paged_attention_multi(
     if q.device.type == "cpu":
         return paged_attention_multi_plain(q, k_pool, v_pool, page_table, cur_len,
                                            window=window, softcap=softcap, scale=scale)
-    out = torch.empty_like(q)
-    ws, split = _split_args(q, k_pool, page_table)
-    MULTI_KERNEL.launch(_DTYPES[q.dtype], ptr(q), ptr(k_pool), ptr(v_pool),
-                        ptr(page_table), ptr(cur_len), ptr(out), *split,
-                        *_geometry(q, k_pool, page_table, window, softcap, scale))
-    return out
+    return _launch(q, k_pool, v_pool, page_table, cur_len, window=window, softcap=softcap,
+                   scale=scale)
 
 
 def paged_attention_quant(
@@ -262,13 +294,8 @@ def paged_attention_quant(
         return paged_attention_quant_plain(q, k_pool, v_pool, k_scale, v_scale, page_table,
                                            cur_len, window=window, softcap=softcap,
                                            scale=scale)
-    out = torch.empty_like(q)
-    ws, split = _split_args(q, k_pool, page_table)
-    QUANT_KERNEL.launch(_DTYPES[q.dtype], _CODES[k_pool.dtype], ptr(q), ptr(k_pool),
-                        ptr(v_pool), ptr(k_scale), ptr(v_scale), ptr(page_table),
-                        ptr(cur_len), ptr(out), *split,
-                        *_geometry(q, k_pool, page_table, window, softcap, scale))
-    return out
+    return _launch(q, k_pool, v_pool, page_table, cur_len, k_scale=k_scale, v_scale=v_scale,
+                   window=window, softcap=softcap, scale=scale)
 
 
 def paged_attention_multi_quant(
@@ -290,10 +317,5 @@ def paged_attention_multi_quant(
         return paged_attention_multi_quant_plain(
             q, k_pool, v_pool, k_scale, v_scale, page_table, cur_len, window=window,
             softcap=softcap, scale=scale)
-    out = torch.empty_like(q)
-    ws, split = _split_args(q, k_pool, page_table)
-    MULTI_QUANT_KERNEL.launch(_DTYPES[q.dtype], _CODES[k_pool.dtype], ptr(q), ptr(k_pool),
-                              ptr(v_pool), ptr(k_scale), ptr(v_scale), ptr(page_table),
-                              ptr(cur_len), ptr(out), *split,
-                              *_geometry(q, k_pool, page_table, window, softcap, scale))
-    return out
+    return _launch(q, k_pool, v_pool, page_table, cur_len, k_scale=k_scale, v_scale=v_scale,
+                   window=window, softcap=softcap, scale=scale)

@@ -58,6 +58,19 @@ def plan_matmul(m: int, n: int, k: int, x_dtype: torch.dtype,
     return MatmulPlan("bf16" if both else "tf32", products, grid)
 
 
+#: The analyzer's view of this module (``analysis.kernelcheck``): the plan
+#: the launch uses and shapes with ragged edge tiles (KRN001).
+KERNEL_META = {
+    "streamed_matmul": dict(
+        cover="matmul", plan=plan_matmul, kernels=(KERNEL,),
+        lint_shapes=(
+            dict(m=2048, n=2048, k=2048, x_dtype=torch.float32, y_dtype=torch.float32),
+            dict(m=300, n=130, k=64, x_dtype=torch.bfloat16, y_dtype=torch.float32),
+            dict(m=1, n=257, k=33, x_dtype=torch.bfloat16, y_dtype=torch.bfloat16),
+        )),
+}
+
+
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x (m, k) @ y (k, n)`` -> (m, n) in ``result_type(x, y)``; f32 or
     bf16 inputs on one cpu or cuda device."""

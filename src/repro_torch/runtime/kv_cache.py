@@ -92,9 +92,10 @@ def gather_slot_state(src: dict, slot: int) -> dict:
 
 
 class PoolInvariantError(AssertionError):
-    """A pool invariant does not hold; ``rule`` names it as the reference's
-    analyzer does (POOL001 refcounts, POOL002 table ownership, POOL003 free
-    list)."""
+    """A pool invariant does not hold; ``rule`` names it as the analyzer
+    does (POOL001 refcounts, POOL002 table ownership, POOL003 free list,
+    POOL005 quant scale layout).  Raised by ``check_invariants`` and by the
+    ``REPRO_SANITIZE=1`` runtime sanitizer (``analysis.poolcheck``)."""
 
     def __init__(self, rule: str, msg: str):
         super().__init__(f"{rule}: {msg}")
@@ -452,6 +453,13 @@ class PagedKVCache:
         self._load_jit: collections.OrderedDict = collections.OrderedDict()
         self._staging_fn = staging
         self._staging: dict | None = None
+        # Opt-in runtime sanitizer: re-check the full invariant set after
+        # every mutating method (analysis.poolcheck shares the predicates
+        # with the static audit).  Counted so callers can see it ran.
+        self.sanitize_checks = 0
+        if os.environ.get("REPRO_SANITIZE"):
+            from repro_torch.analysis.poolcheck import attach_sanitizer
+            attach_sanitizer(self)
 
     def staging(self) -> dict:
         """The b=1 full-length cache the page moves read and write."""
@@ -743,15 +751,21 @@ class PagedKVCache:
 
     @tick_path(allowed_fetches=0)
     def device_page_table(self) -> torch.Tensor:
-        """The host table as an int32 tensor on the pools' device."""
-        return torch.from_numpy(self.page_table.copy()).to(self.device)
+        """The host table as an int32 tensor on the pools' device; on a card
+        through pinned memory, with no host wait."""
+        table = torch.from_numpy(self.page_table.copy())
+        if self.device.type == "cuda":
+            table = table.pin_memory()
+        return table.to(self.device, non_blocking=True)
 
     def check_invariants(self) -> None:
         """Raise :class:`PoolInvariantError` unless allocator refcounts
-        match the slots' owned pages plus the registry's retentions, every
-        table row maps exactly its slot's pages (or trash while shielded),
-        never another slot's, and the registry retains only allocated
-        pages, never trash."""
+        match the slots' owned pages plus the registry's retentions
+        (POOL001 / POOL003), every table row maps exactly its slot's pages
+        (or trash while shielded), never another slot's, and the registry
+        retains only allocated pages, never trash (POOL002), and a
+        quantized pool's scale leaves travel with their pages (POOL005).
+        Host-side metadata only: nothing waits on the device."""
         use = self.registry._block_use
         self.allocator.check_invariants(self._owned, use)
         for slot, owned in enumerate(self._owned):
@@ -773,6 +787,28 @@ class PagedKVCache:
                 raise PoolInvariantError("POOL002", "the prefix registry retains the trash page")
             if self.allocator.refcount(b) < 1:
                 raise PoolInvariantError("POOL001", f"registry retains unallocated page {b}")
+        if quant.is_quantized(self.kv_dtype):
+            st = quant.storage_dtype(self.kv_dtype)
+            for name, c in self.pools["blocks"].items():
+                for key in ("k", "v"):
+                    leaf = c.get(key)
+                    if leaf is None or leaf.dim() < 2 or leaf.shape[1] != self.num_blocks:
+                        continue  # per-slot state, not a page pool
+                    if leaf.dtype != st:
+                        raise PoolInvariantError(
+                            "POOL005", f"{name}.{key}: pool dtype {leaf.dtype} != declared "
+                            f"storage {st}")
+                    sc = c.get(f"{key}_scale")
+                    if sc is None:
+                        raise PoolInvariantError(
+                            "POOL005", f"{name}.{key}: quantized pool leaf has no scale "
+                            "leaf (scales must travel with their page)")
+                    if sc.dtype != torch.float32 or sc.shape[:2] != leaf.shape[:2]:
+                        raise PoolInvariantError(
+                            "POOL005", f"{name}.{key}_scale: scale layout "
+                            f"{tuple(sc.shape)}/{sc.dtype} does not ride the page axis of "
+                            f"{tuple(leaf.shape)} as f32")
+        self.sanitize_checks += 1
 
     # -- prefix registry (the SYNC transfer, staged once) ------------------------
 

@@ -295,7 +295,12 @@ class ServingEngine:
                        cap=self._chunk_jit_cap)
 
     def _device_f32(self, x) -> torch.Tensor:
+        """``x`` as f32 on the engine's device.  Host data goes to a card
+        through pinned memory without a host wait (an admission's encoder
+        input is staged once, on the stream, not by a blocking copy)."""
         x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
+        if x.device.type == "cpu" and torch.device(self.device).type == "cuda":
+            x = x.pin_memory().to(self.device, non_blocking=True)
         return x.to(device=self.device, dtype=torch.float32)
 
     def encode(self, enc_inputs) -> torch.Tensor:
@@ -663,14 +668,17 @@ class StreamedBatchEngine:
             self._verify = self._tick_graph(self.servable.verify_fn(paged=self.paged),
                                             t=self.scfg.spec_k + 1, verify=True)
 
-    def _tick_graph(self, step, *, t: int, verify: bool = False) -> StepGraph:
+    def _tick_graph(self, step, *, t: int, verify: bool = False,
+                    split: bool = False) -> StepGraph:
         """The graph of a batched tick: ``step`` is the servable's decode or
         verify function over the engine's pools or slot cache.  Static
         inputs (B = max_batch): ``toks`` (B, t), the full-width
         ``page_table`` (paged), ``cur`` (B,), ``d_len`` (B,) (verify) and,
         at temperature, ``uids`` and ``steps`` (B,).  Output: the (B,)
         picks, or (B, t + 1) ``emit`` beside ``n_accept`` (verify), for the
-        tick's one device-to-host copy."""
+        tick's one device-to-host copy.  ``split`` keeps a verify step's
+        ``(emit, n_accept)`` apart, as its declared budget counts them (the
+        analyzer's view; the tick fetches the two as one array)."""
         b, i32 = self.scfg.max_batch, torch.int32
         paged = self.paged
         state = self.kv.pools if paged else self.caches
@@ -688,7 +696,7 @@ class StreamedBatchEngine:
                     *((d_len,) if verify else ()), uids, steps)
             out = step(*args)
             if verify:
-                return torch.cat([out[0], out[1][:, None]], dim=1)
+                return out[:2] if split else torch.cat([out[0], out[1][:, None]], dim=1)
             return out[0]
         return StepGraph(self.graphs, fn, inputs)
 
@@ -771,10 +779,12 @@ class StreamedBatchEngine:
         """The admission's pick of token ``step`` of request ``uid``
         (greedy, or from its stream), reduced on the device and fetched
         with one ``host_fetch`` of its int32."""
+        # The row's uid and step are filled on the device: a tensor built from
+        # a Python list would be a blocking pageable copy on the tick path.
         dev = logits_row.device
         pick = T.sample_tokens(logits_row[None], temperature=self.scfg.temperature,
-                               uids=torch.tensor([uid], device=dev),
-                               steps=torch.tensor([step], device=dev))
+                               uids=torch.full((1,), uid, dtype=torch.int64, device=dev),
+                               steps=torch.full((1,), step, dtype=torch.int64, device=dev))
         val = host_fetch(pick)
         self.metrics.inc("transfer.d2h_bytes", int(val.nbytes))
         return int(val[0])

@@ -9,7 +9,9 @@ attention over 1500 frames, the paged kernel at whisper's hd 64 / g 1 and
 the SSD scan at jamba's H 128, P 128; graphed steps (qwen3, mamba2, a MoE
 config, whisper and jamba) against their eager runs; the engine's stage
 probe leaving a live pool or slot cache as it was with slots active, and
-``autotune``'s pool rebuild dropping every graph over the old pool.  Every
+``autotune``'s pool rebuild dropping every graph over the old pool; the
+analyzer's quant contract through the quantized kernels and its live sync
+audit (a clean tick passes, a planted ``.item()`` raises).  Every
 test carries
 the ``cuda`` marker and skips without a card.  The file imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
@@ -1420,3 +1422,51 @@ def test_autotune_rebuild_on_card(cuda):
     assert sorted(first) == list(range(4))
     print(f"autotune rebuild: block 16 -> 8, graphs captured {captured} -> "
           f"{eng.graphs.captured}; tokens equal to a fresh engine at block 8")
+
+
+# -- the stream-safety analyzer on the card ---------------------------------------------
+
+
+def test_quant_contract_runs_through_the_quant_kernels(cuda):
+    """KRN003 on the card: each quantized entry launches its kernel (int8
+    and fp8) and the contract holds."""
+    from repro_torch.analysis import kernelcheck
+
+    before = (PA.QUANT_KERNEL.launches, PA.MULTI_QUANT_KERNEL.launches)
+    assert kernelcheck.check_quant_contract(cuda) == []
+    torch.cuda.synchronize()
+    assert PA.QUANT_KERNEL.launches == before[0] + 2
+    assert PA.MULTI_QUANT_KERNEL.launches == before[1] + 2
+
+
+def test_live_audit_passes_a_clean_tick_and_raises_on_a_planted_item(cuda):
+    """The live sync audit on a paged smoke engine: a clean serve (cold
+    ticks, captures, warm replays) has no finding and each tick fetches
+    once; an ``.item()`` planted in the tick raises under the audit and is
+    recorded as STR001 at the tick."""
+    from repro_torch.analysis import synccheck
+
+    findings, rep = synccheck.live_engine("transformer", "paged", device=cuda)
+    assert findings == [], findings
+    assert rep["max_fetches"]["StreamedBatchEngine._plain_tick"] == 1
+    assert rep["sanctioned"].get("capture", 0) > 0 and rep["preemptions"] >= 1
+
+    eng = synccheck.build_engine("transformer", "paged", device=cuda)
+    rng = np.random.default_rng(3)
+    for n in (30, 20):
+        eng.submit(rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32))
+    eng.run()  # warm: every step of the second serve replays
+    tick = eng._plain_tick
+
+    def planted():
+        eng.decode_steps += int(torch.ones(1, device=cuda).sum().item()) - 1
+        return tick()
+
+    eng._plain_tick = planted
+    eng.submit(rng.integers(0, eng.cfg.vocab_size, 30).astype(np.int32))
+    audit = synccheck.LiveAudit(cuda).watch(eng)
+    with audit, pytest.raises(RuntimeError, match="synchronizing CUDA operation"):
+        eng.run()
+    assert [(f.rule, f.target) for f in audit.findings] == [
+        ("STR001", "live:StreamedBatchEngine._plain_tick")]
+    assert torch.cuda.get_sync_debug_mode() == 0  # the audit leaves the mode off

@@ -41,7 +41,8 @@ def test_port_files_are_found():
             "mixtral_8x7b.py", "jamba_1_5_large_398b.py", "whisper_medium.py",
             "paligemma_3b.py", "model_iface.py", "graphs.py", "layers.py", "trace.py",
             "metrics.py", "slo.py", "requests.py", "overlap.py", "doctor.py",
-            "budget.py", "workload.py", "db.py", "profiler.py", "search.py"} <= names
+            "budget.py", "workload.py", "db.py", "profiler.py", "search.py", "astlint.py",
+            "synccheck.py", "kernelcheck.py", "poolcheck.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
