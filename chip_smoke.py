@@ -2453,10 +2453,7 @@ def phase_analysis(res: dict, main: tuple, cache: dict) -> dict:
     method's calls and most fetches in a call against its
     ``allowed_fetches``, the captures it sanctioned, tok/s beside phase
     5b's serve in the same pool (``cache``), and the tokens, which must be
-    bit-equal to phase 5b's; then what each instrument costs: fresh
-    engines in turns, twice over, plain, sanitizer only, live audit only
-    and both (tok/s; tokens bit-equal every time).  (c) The launches of
-    (a) and (b)'s first serve, each counted
+    bit-equal to phase 5b's.  (c) The launches of (a) and (b), each counted
     from 0 just before it, join the kernels line; (b)'s must be
     ``expected_launches``."""
     import os
@@ -2506,34 +2503,27 @@ def phase_analysis(res: dict, main: tuple, cache: dict) -> dict:
                        max_batch=SLOTS, block_size=BLOCK, paged=True,
                        num_blocks=PRESSURE_BLOCKS)
 
-    def fresh(sanitize: bool, audited: bool):
-        """A fresh engine's serve of ``reqs`` (as phase 5b's), with the
-        sanitizer and / or the live audit; returns (engine, audit or None,
-        tokens, seconds of ``run``)."""
-        if sanitize:
-            os.environ["REPRO_SANITIZE"] = "1"
+    box = {}
+
+    def run():
+        """A fresh engine's serve of ``reqs`` (as phase 5b's), sanitized
+        and under the live audit; returns (tokens, seconds of ``run``)."""
+        os.environ["REPRO_SANITIZE"] = "1"
         try:
-            eng = StreamedBatchEngine(cfg, params, dataclasses.replace(scfg), device="cuda")
+            eng = StreamedBatchEngine(cfg, params, scfg, device="cuda")
         finally:
             os.environ.pop("REPRO_SANITIZE", None)
-        check(getattr(eng.kv, "sanitized", False) == sanitize, "REPRO_SANITIZE=1 not honoured")
-        audit = None
-        if audited:
-            audit = synccheck.LiveAudit("cuda", path="live:qwen3-4b/paged-22").watch(eng)
-            audit.watch(eng.kv)
-        with audit if audited else contextlib.nullcontext():
+        check(getattr(eng.kv, "sanitized", False), "REPRO_SANITIZE=1 not honoured")
+        audit = synccheck.LiveAudit("cuda", path="live:qwen3-4b/paged-22").watch(eng)
+        audit.watch(eng.kv)
+        with audit:
             uids = [eng.submit(p) for p in reqs]
             t1 = time.perf_counter()
             got = eng.run()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t1
-        return eng, audit, [got[u] for u in uids], secs
-
-    box = {}
-
-    def run():
-        box["eng"], box["audit"], toks, secs = fresh(True, True)
-        return toks, secs
+        box["eng"], box["audit"] = eng, audit
+        return [got[u] for u in uids], secs
 
     (toks, secs), launches = count_launches("analysis (b)", run,
                                             lambda _: expected_launches(cfg, box["eng"]))
@@ -2566,20 +2556,6 @@ def phase_analysis(res: dict, main: tuple, cache: dict) -> dict:
           f"in one call {json.dumps(rep['max_fetches'])} against allowed "
           f"{json.dumps(rep['allowed_fetches'])}; sanctioned {json.dumps(rep['sanctioned'])}; "
           f"launches {json.dumps(launches)}")
-    # What each instrument costs: fresh engines in turns, twice over (the
-    # serves are host-bound and move between runs).
-    walls: dict = {"plain": [], "sanitizer": [], "live audit": [], "both": []}
-    for _ in range(2):
-        for label, kw in (("plain", (False, False)), ("sanitizer", (True, False)),
-                          ("live audit", (False, True)), ("both", (True, True))):
-            _, _, t, secs = fresh(*kw)
-            check(all(np.array_equal(a, b) for a, b in zip(t, pressured)),
-                  f"{label} serve: tokens differ from phase 5b's")
-            walls[label].append(n / secs)
-    out["instrument_tokens_per_s"] = walls
-    print("[analysis] the instruments' cost, fresh engines in turns, tok/s "
-          + json.dumps({k: [round(x, 1) for x in v] for k, v in walls.items()})
-          + "; tokens bit-equal to phase 5b's in every serve")
     del eng
     return out
 

@@ -22,9 +22,10 @@ from repro_torch.analysis import RULES, WAIVERS, apply_waivers, load_waivers
 from repro_torch.device import resolve_device
 
 
-def run(archs=None, modes=None, *, device="cpu") -> dict:
+def run(archs=None, modes=None, *, device=None) -> dict:
     """Run every pass; returns the raw report dict (``live`` is empty on
-    the CPU)."""
+    the CPU).  ``device`` is the card unless the caller asks for the CPU;
+    the static passes run on the CPU either way."""
     from repro_torch.analysis import kernelcheck, poolcheck, synccheck
 
     dev = resolve_device(device)

@@ -36,6 +36,7 @@ import re
 import torch
 
 from repro_torch.analysis import Finding
+from repro_torch.device import resolve_device
 
 #: ops.* wrapper -> ref.* oracle, for KRN004 signature parity (the
 #: reference's pairs, the port's oracle names, and the SSD scan).
@@ -220,17 +221,18 @@ def check_launch_args(name: str, i: int, s: dict, launch_args=None) -> list[Find
 # -- quant contract (KRN003) ---------------------------------------------------
 
 
-def check_quant_contract(device="cpu", ops=None) -> list[Finding]:
+def check_quant_contract(device=None, ops=None) -> list[Finding]:
     """KRN003: the quant entries of ``ops`` (the port's) accept pools in
     ``quant.storage_dtype`` with per-(page, kv-head) f32 scales and return
-    the query dtype, on ``device`` (the kernels on a card)."""
+    the query dtype, on ``device`` (the card, through the kernels, unless
+    the caller asks for the CPU and its plain versions)."""
     from repro_torch.kernels import quant
     if ops is None:
         from repro_torch.kernels import ops
 
     findings: list[Finding] = []
     b, h, hkv, hd, nb, bs, t = 2, 4, 2, 16, 9, 8, 3
-    dev = torch.device(device)
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(0)
     for kind in quant.KV_DTYPES:
         if not quant.is_quantized(kind):
@@ -306,10 +308,11 @@ def check_oracle_parity(ops=None, ref=None) -> list[Finding]:
     return findings
 
 
-def audit_kernels(device="cpu") -> list[Finding]:
+def audit_kernels(device=None) -> list[Finding]:
     """The full kernel lint: every KERNEL_META plan and launch, every
-    entry's arity, the quant dtype contract (through the kernels when
-    ``device`` is a card), and ops<->ref parity."""
+    entry's arity, the quant dtype contract on ``device`` (through the
+    kernels on the card, the default; the plain versions on the CPU), and
+    ops<->ref parity."""
     from repro_torch.kernels import (_build, flash_attention, fwt, nw_tile,  # noqa: F401
                                      paged_attention, ssd_chunk, streamed_matmul)
 

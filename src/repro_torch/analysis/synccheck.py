@@ -52,6 +52,7 @@ import repro_torch.configs as C
 from repro_torch.analysis import Finding, budget
 from repro_torch.analysis.budget import TICK_ATTR, TransferBudget, budget_of
 from repro_torch.core import dependency as dep
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.runtime.graphs import StepGraph
 from repro_torch.tuning import workload as W
@@ -127,6 +128,7 @@ def audit_step(
     reports: list[PathReport],
     state: Sequence[tuple[str, Any]] = (),
     args: dict[str, Any] | None = None,
+    unpack=None,
 ) -> tuple[frozenset[str], frozenset[str], Any]:
     """Audit one step; returns (reads, writes, outputs) — empty sets and
     None when it hit a host sync or there is no step.
@@ -136,7 +138,10 @@ def audit_step(
     reported with no arrays; or any other callable (STR003), called with
     ``args``.  ``inputs`` names each argument's region, ``state`` labels
     the engine state the step closes over (params, pools, caches), and
-    ``out_regions`` gives one region per returned value."""
+    ``out_regions`` names the regions the returned values hold.  ``unpack``
+    splits the step's output into the values its builder's budget
+    declares, where the step returns them as one array (the engine's
+    verify graph)."""
     budget_ = budget_of(builder) or TransferBudget()
     limit = budget_.bytes_limit(scfg)
     if fn is None:
@@ -159,7 +164,7 @@ def audit_step(
             "sync"))
         return frozenset(), frozenset(), None
 
-    outs = out if isinstance(out, tuple) else (out,)
+    outs = unpack(out) if unpack is not None else out if isinstance(out, tuple) else (out,)
     fetched = [leaf for i in budget_.d2h_outputs for leaf in tree_leaves(outs[i])
                if isinstance(leaf, torch.Tensor)]
     n_arrays = len(fetched)
@@ -181,18 +186,20 @@ def audit_step(
 
     labels = [(inputs[name], value) for name, value in kwargs.items()] + list(state)
     reads, writes = dep.step_footprint(call, labels, out_regions, kwargs)
-    return reads, writes, out
+    return reads, writes, outs
 
 
 # -- engine construction -----------------------------------------------------
 
 
-def build_engine(arch: str, mode: str, *, device="cpu", params: dict | None = None, **over):
+def build_engine(arch: str, mode: str, *, device=None, params: dict | None = None, **over):
     """A tiny real engine for (arch, mode) at the reference's audit
-    geometry, with seeded random weights (or ``params``); ``over`` adds
+    geometry, with seeded random weights (or ``params``), on ``device``
+    (the card unless the caller asks for the CPU); ``over`` adds
     ServeConfig fields."""
     from repro_torch.runtime.serving import ServeConfig, StreamedBatchEngine
 
+    device = resolve_device(device)
     cfg = C.get_smoke_config(ARCH_SMOKE[arch])
     if params is None:
         params = T.init_params(cfg, 0, device=device)
@@ -238,17 +245,16 @@ def audit_engine(eng, arch: str, mode: str) -> tuple[list[Finding], list[PathRep
     decode_carried = car in d_reads and car in d_writes
     decode_width = 1
 
-    # speculative verify: the servable's step with its declared outputs
-    # apart (the engine's graph fetches them as one array) -----------------
+    # speculative verify: the engine's graph fetches (B, t + 1) ``emit``
+    # and its ``n_accept`` column as one array; split back into the two
+    # outputs ``verify_fn``'s budget declares --------------------------------
     if scfg.spec_decode:
-        k = scfg.spec_k
-        verify = eng._tick_graph(servable.verify_fn(paged=eng.paged), t=k + 1,
-                                 verify=True, split=True)
         s_reads, s_writes, s_out = audit_step(
-            path=f"{tag}:spec_verify", fn=verify, builder=type(servable).verify_fn,
+            path=f"{tag}:spec_verify", fn=eng._verify, builder=type(servable).verify_fn,
             inputs={**_TICK_INPUTS, "toks": "draft", "d_len": "draft_len"},
             state=weights + [(car, slot_state)], out_regions=("emit", "n_accept"),
-            scfg=scfg, findings=findings, reports=reports)
+            scfg=scfg, findings=findings, reports=reports,
+            unpack=lambda out: (out[:, :-1], out[:, -1]))
         if s_out is not None:
             decode_width = int(s_out[0].shape[1])
             decode_carried = car in s_reads and car in s_writes
@@ -387,7 +393,7 @@ def audit_matrix(
     for mod in (serving, kv_cache, model_iface):
         findings.extend(astlint.lint_module(mod))
     for arch, mode in _pairs(archs, modes):
-        f, r = audit_engine(build_engine(arch, mode), arch, mode)
+        f, r = audit_engine(build_engine(arch, mode, device="cpu"), arch, mode)
         findings.extend(f)
         reports.extend(r)
     return findings, reports
@@ -553,11 +559,13 @@ def live_prompts(arch: str, mode: str, vocab: int, seed: int = 0) -> list[np.nda
     return [rng.integers(0, vocab, size=n, dtype=np.int32) for n in LIVE_PROMPTS]
 
 
-def live_engine(arch: str, mode: str, *, device) -> tuple[list[Finding], dict]:
+def live_engine(arch: str, mode: str, *, device=None) -> tuple[list[Finding], dict]:
     """Serve the live prompts on one (arch, mode) engine under the live
     audit (a paged engine in LIVE_BLOCKS blocks, which preempts), and
     drive the one marked method the serve does not reach
-    (``device_page_table``).  Returns (findings, report)."""
+    (``device_page_table``), on ``device`` (the card unless the caller
+    asks for the CPU).  Returns (findings, report)."""
+    device = resolve_device(device)
     over = {"num_blocks": LIVE_BLOCKS} if mode != "contiguous" else {}
     eng = build_engine(arch, mode, device=device, max_new_tokens=LIVE_NEW, **over)
     cfg = eng.cfg
@@ -587,8 +595,9 @@ def live_engine(arch: str, mode: str, *, device) -> tuple[list[Finding], dict]:
 
 
 def live_matrix(archs: Sequence[str] | None = None, modes: Sequence[str] | None = None,
-                *, device) -> tuple[list[Finding], list[dict]]:
-    """The live audit of every requested arch x mode on ``device``."""
+                *, device=None) -> tuple[list[Finding], list[dict]]:
+    """The live audit of every requested arch x mode on ``device`` (the
+    card unless the caller asks for the CPU)."""
     findings: list[Finding] = []
     reports: list[dict] = []
     for arch, mode in _pairs(archs, modes):

@@ -668,17 +668,14 @@ class StreamedBatchEngine:
             self._verify = self._tick_graph(self.servable.verify_fn(paged=self.paged),
                                             t=self.scfg.spec_k + 1, verify=True)
 
-    def _tick_graph(self, step, *, t: int, verify: bool = False,
-                    split: bool = False) -> StepGraph:
+    def _tick_graph(self, step, *, t: int, verify: bool = False) -> StepGraph:
         """The graph of a batched tick: ``step`` is the servable's decode or
         verify function over the engine's pools or slot cache.  Static
         inputs (B = max_batch): ``toks`` (B, t), the full-width
         ``page_table`` (paged), ``cur`` (B,), ``d_len`` (B,) (verify) and,
         at temperature, ``uids`` and ``steps`` (B,).  Output: the (B,)
         picks, or (B, t + 1) ``emit`` beside ``n_accept`` (verify), for the
-        tick's one device-to-host copy.  ``split`` keeps a verify step's
-        ``(emit, n_accept)`` apart, as its declared budget counts them (the
-        analyzer's view; the tick fetches the two as one array)."""
+        tick's one device-to-host copy."""
         b, i32 = self.scfg.max_batch, torch.int32
         paged = self.paged
         state = self.kv.pools if paged else self.caches
@@ -696,7 +693,7 @@ class StreamedBatchEngine:
                     *((d_len,) if verify else ()), uids, steps)
             out = step(*args)
             if verify:
-                return out[:2] if split else torch.cat([out[0], out[1][:, None]], dim=1)
+                return torch.cat([out[0], out[1][:, None]], dim=1)
             return out[0]
         return StepGraph(self.graphs, fn, inputs)
 

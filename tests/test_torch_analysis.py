@@ -420,7 +420,7 @@ def test_step_footprint_follows_storage_through_views():
 
 
 def test_kernel_lint_clean():
-    assert kernelcheck.audit_kernels() == []
+    assert kernelcheck.audit_kernels("cpu") == []
 
 
 def test_pool_audit_clean():
@@ -445,6 +445,23 @@ def test_cli_needs_a_card_unless_told_cpu():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main([])
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: cli.run(archs=["transformer"], modes=["paged"]),
+    lambda: kernelcheck.audit_kernels(),
+    lambda: kernelcheck.check_quant_contract(),
+    lambda: synccheck.build_engine("transformer", "paged"),
+    lambda: synccheck.live_engine("transformer", "paged"),
+], ids=["run", "audit_kernels", "check_quant_contract", "build_engine", "live_engine"])
+def test_entry_points_default_to_the_card(entry):
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: without one, the default raises rather than audit the plain
+    versions and report clean."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
 
 
 @pytest.mark.slow
@@ -511,7 +528,7 @@ def test_sanitized_engine_serves_the_same_tokens(monkeypatch):
     sanitizer: the same tokens; the sanitized one ran the suite after its
     pool mutations."""
     def serve():
-        eng = synccheck.build_engine("transformer", "paged", max_new_tokens=8,
+        eng = synccheck.build_engine("transformer", "paged", device="cpu", max_new_tokens=8,
                                      num_blocks=synccheck.LIVE_BLOCKS)
         for p in synccheck.live_prompts("transformer", "paged", eng.cfg.vocab_size):
             eng.submit(p)
@@ -565,8 +582,8 @@ def test_live_audit_counts_fetches_against_the_innermost_tick_path():
 def test_live_engine_drives_every_tick_path_method_on_cpu():
     findings, rep = synccheck.live_engine("transformer", "spec", device="cpu")
     assert findings == [] and rep["preemptions"] >= 1 and rep["spec_ticks"] >= 1
-    marked = {f"{type(o).__name__}.{n}" for o in (synccheck.build_engine("transformer",
-                                                                           "spec"),)
+    marked = {f"{type(o).__name__}.{n}" for o in (synccheck.build_engine(
+                  "transformer", "spec", device="cpu"),)
               for n in dir(type(o)) if hasattr(getattr(type(o), n, None), "__tick_path__")}
     assert marked <= set(rep["calls"])
     for name, n in rep["max_fetches"].items():
