@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: builds its CUDA kernels, holds each
-against its plain PyTorch version, holds the card against the CPU on
-2-layer full-width qwen3-4b and mamba2-2.7b and on the paper's streaming
+against its plain PyTorch version (and, for training, their autograd
+Functions against autograd through the plain versions), holds the card
+against the CPU on 2-layer full-width qwen3-4b and mamba2-2.7b and on the paper's streaming
 path at a small size, then serves requests through the full 36-layer bf16
 qwen3-4b on the card (plain, with speculative decode, over int8 and fp8 KV
 pages, over int8 pages with speculative decode, over the contiguous slot
@@ -15,7 +16,8 @@ width and depth, mixtral-8x7b at full width cut to 16 of its 32 layers,
 and the rest of the zoo: jamba-1.5-large (a mamba + attention + MoE
 hybrid) at full width cut to its unit's first 4 layers, whisper-medium (24
 + 24 layers, 1500 encoder frames a request) and paligemma-3b (18 layers, a
-256-row image prefix through ServingEngine.generate).
+256-row image prefix through ServingEngine.generate), and trains the full
+qwen3-4b and mamba2-2.7b for a few steps through the training launcher.
 
     python3 chip_smoke.py            # every phase, on one CUDA card
     python3 chip_smoke.py --profile  # the same, plus torch.profiler serves
@@ -221,6 +223,27 @@ Phases (any failed check raises, and the script exits non-zero):
      the live audit: tokens bit-equal to phase 5b's, every call within its
      allowed_fetches, sanitize_checks, tok/s beside phase 5b's; (a)'s and
      (b)'s launches join the kernels line.
+  13. training: (a) the prefill kernel's autograd.Function (the kernel's
+     out and lse, the torch-ops backward's dq, dk, dv) against autograd
+     through the plain version at qwen3-4b's B 4, S 512, H 32/8, hd 128,
+     gemma2's window (256, biting at 512) and softcap 50, whisper's
+     non-causal 1500-frame encoder and paligemma's 256-row prefix, and the
+     SSD Function (y, state, six grads) at mamba2's shapes, in f32 (1e-4)
+     and bf16 (2e-2) of the plain tensor's largest magnitude; the bf16
+     qwen3 forward with lse timed beside SDPA and its bound (PERF.md row
+     4d), the torch-ops backward beside SDPA's; (b) one make_train_step
+     step of 2-layer full-width qwen3-4b and mamba2-2.7b, f32, accum 1 and
+     2, card vs CPU: loss and grad norm (1e-4), every leaf's grad (1e-3 of
+     its largest magnitude), no card grad missing; (c) the launcher's
+     settings (4 x 512, accum 1, lr 1e-3, warmup 2) on the full 36-layer
+     bf16 qwen3-4b (6 steps, remat dots) and the full 64-layer mamba2-2.7b
+     (3 steps): finite, falling losses, step p50, tokens/s, 6 N tokens/s
+     as a share of 989 TFLOP/s, peak allocated; the launches join the
+     kernels line; (d) 2-layer full-width bf16 qwen3-4b: a checkpointed
+     run whose last checkpoint is removed resumes to the uninterrupted
+     run's losses bit for bit (deterministic kernels where torch has
+     them), and PrefetchIterator at depth 0 and 2 with host work of half a
+     step a batch gives equal losses, both walls printed.
 On the card every serve's ticks, chunks and page moves replay CUDA graphs
 (runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
 eager step functions and holds the graphed serve to it (tokens identical,
@@ -3375,6 +3398,374 @@ def phase_streams(res: dict) -> list[dict]:
     return summary
 
 
+# -- phase 13: training -------------------------------------------------------------
+
+#: The Functions on the card against autograd through their plain versions,
+#: relative to the plain tensor's largest magnitude.
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: Card vs CPU grads of one 2-layer f32 train step, relative to each leaf's
+#: largest CPU magnitude (f32 sums in another order through two layers, the
+#: 152k-row vocabulary product and the attention kernel's exp).
+STEP_TOL = 1e-3
+TRAIN_ATTN_CASES = [  # (label, shape and mask); attn_chunk 512 (paligemma 256)
+    ("qwen3-4b", dict(b=4, sq=512, h=32, hkv=8, hd=128, chunk=512)),
+    ("gemma2-27b local (window 256 bites at 512, softcap 50, scale 144^-0.5)",
+     dict(b=2, sq=512, h=32, hkv=16, hd=128, chunk=512, window=256, softcap=50.0,
+          scale=144 ** -0.5)),
+    ("whisper-medium encoder (non-causal 1500)",
+     dict(b=1, sq=1500, h=16, hkv=16, hd=64, chunk=512, causal=False)),
+    ("paligemma-3b prefix 256 + 64", dict(b=1, sq=320, h=8, hkv=1, hd=256, chunk=256,
+                                          prefix_len=256)),
+]
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 512  # phase 13c: the launcher's settings
+MAMBA_TRAIN_STEPS = 3
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def train_attn_case(label: str, dtype, c: dict, res13: dict) -> None:
+    """FlashAttention (kernel forward with lse, torch-ops backward) against
+    autograd through the plain version at one training shape: out, lse, dq,
+    dk, dv.  bf16 qwen3: the forward with lse timed beside SDPA and the
+    bound (row 4d), the backward beside SDPA's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as A
+
+    c = dict(c)
+    b, sq, h, hkv, hd, chunk = (c.pop(k) for k in ("b", "sq", "h", "hkv", "hd", "chunk"))
+    kw = dict(causal=True, window=0, softcap=0.0, scale=1.0 / math.sqrt(hd),
+              prefix_len=0) | c
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((b, sq, h, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, sq, hkv, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, sq, hkv, hd), generator=g, device="cuda").to(dtype)
+    dout = torch.randn((b, sq, h, hd), generator=g, device="cuda").to(dtype)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = FA.KERNEL.launches
+    out, lse = A.FlashAttention.apply(*ins, chunk, kw["causal"], kw["window"], kw["softcap"],
+                                      kw["scale"], 0, kw["prefix_len"])
+    grads = torch.autograd.grad(out, ins, dout)
+    check(FA.KERNEL.launches == n0 + 1, f"train attention {label}: the kernel did not launch")
+    pins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want, want_lse = ref.flash_attention_lse_ref(*pins, q_offset=0, **kw)
+    want_grads = torch.autograd.grad(want, pins, dout)
+    errs = {"out": rel_err(out, want), "lse": rel_err(lse, want_lse)}
+    errs |= {n: rel_err(a, w) for n, a, w in zip(("dq", "dk", "dv"), grads, want_grads)}
+    tol = TRAIN_TOL[dtype]
+    check(max(errs.values()) <= tol, f"train attention {label} {dtype}: {errs} > {tol}")
+    line = (f"[train] (a) attention {label}, {str(dtype).removeprefix('torch.')}: "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) + f" (tol {tol} x max)")
+    if dtype == torch.bfloat16 and label == "qwen3-4b":
+        fwd = functools.partial(FA.flash_attention_lse, q, k, v, causal=True,
+                                scale=kw["scale"])
+        ms = device_ms(fwd, iters=QUEUED)
+        nbytes, flops = flash_bytes_flops(q, k, 0, 0)
+        nbytes += b * sq * h * 4  # lse written
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        sdpa = sdpa_prefill(q, k, v, 0, kw["scale"])
+        lib_ms = device_ms(sdpa, iters=QUEUED)
+        bwd = functools.partial(A.flash_backward, q, k, v, out.detach(), lse, dout,
+                                q_offset=0, chunk=chunk, **kw)
+        plain_ms = time_ms(functools.partial(ref.flash_attention_lse_ref, q, k, v, q_offset=0,
+                                             **kw), iters=10, warmup=2)
+        bwd_ms = time_ms(bwd, iters=10, warmup=2)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+        mask = torch.ones((sq, sq), dtype=torch.bool, device="cuda").tril()
+        so = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+                                            enable_gqa=True)
+        dot = dout.transpose(1, 2).contiguous()
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(so, (qt, kt, vt), dot,
+                                                          retain_graph=True), iters=10, warmup=2)
+        res13["row_4d"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                           "plain_ms": plain_ms, "bwd_torch_ops_ms": bwd_ms,
+                           "sdpa_bwd_ms": sdpa_bwd_ms}
+        line += (f"; row 4d: forward with lse {ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+                 f"({ms / lib_ms:.2f}x), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+                 f"({b_by}), {flash_plan(q, k)}; "
+                 f"backward (torch ops, no kernel) {bwd_ms:.3f} ms, SDPA's backward "
+                 f"{sdpa_bwd_ms:.3f} ms")
+    print(line)
+
+
+def train_ssd_case(dtype) -> None:
+    """SSDChunked (kernel forward, plain-recompute backward) against autograd
+    through the plain version at mamba2-2.7b's shapes (H 80, P 64, N 128,
+    chunk 256), from a random state: y, the final state and the six
+    grads."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as SSD
+    from repro_torch.models import mamba as M
+
+    b, s, h, p, n, chunk = 2, 512, 80, 64, 128, 256
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((b, s, h, p), generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device="cuda") - 2)
+    a = -torch.exp(torch.randn((h,), generator=g, device="cuda"))
+    bm = torch.randn((b, s, n), generator=g, device="cuda").to(dtype)
+    cm = torch.randn((b, s, n), generator=g, device="cuda").to(dtype)
+    st = torch.randn((b, h, p, n), generator=g, device="cuda")
+    dy = torch.randn((b, s, h, p), generator=g, device="cuda").to(dtype)
+    dst = torch.randn((b, h, p, n), generator=g, device="cuda")
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, a, bm, cm, st)]
+    n0 = SSD.KERNEL.launches
+    y, final = M.SSDChunked.apply(*ins, chunk)
+    grads = torch.autograd.grad((y, final), ins, (dy, dst))
+    check(SSD.KERNEL.launches == n0 + 1, "train SSD: the kernel did not launch")
+    pins = [t.clone().requires_grad_(True) for t in (x, dt, a, bm, cm, st)]
+    wy, wf = ref.ssd_chunked_ref(*pins[:5], chunk=chunk, init_state=pins[5])
+    wgrads = torch.autograd.grad((wy, wf), pins, (dy, dst))
+    errs = {"y": rel_err(y, wy), "state": rel_err(final, wf)}
+    errs |= {f"d{n_}": rel_err(a_, w_) for n_, a_, w_ in
+             zip(("x", "dt", "a", "b", "c", "state0"), grads, wgrads)}
+    tol = max(TRAIN_TOL[dtype], SSD_RTOL[dtype])
+    check(max(errs.values()) <= tol, f"train SSD {dtype}: {errs} > {tol}")
+    print(f"[train] (a) SSD mamba2-2.7b shapes (B {b}, S {s}, H {h}, P {p}, N {n}, chunk "
+          f"{chunk}), {str(dtype).removeprefix('torch.')}: "
+          + ", ".join(f"{k_} {e:.2e}" for k_, e in errs.items()) + f" (tol {tol} x max)")
+
+
+def two_layer(arch: str):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(arch), n_layers=2, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+
+
+def train_step_card_vs_cpu(arch: str, accum: int) -> None:
+    """One make_train_step step of 2-layer full-width ``arch`` in f32 on the
+    card and on the CPU from the same params and batch: loss, grad norm
+    and every leaf's grad held together; a leaf with a CPU grad must have
+    a card grad (a kernel output without a grad_fn would leave the
+    projections before it without one)."""
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    cfg = two_layer(arch)
+    ocfg = adamw.AdamWConfig(lr=1e-3)
+    # drawn on the card and copied: the CPU takes ~25 s to draw the 0.6B
+    params = to_device(T.init_params(cfg, 0, device="cuda"), "cpu")
+    batch = SyntheticLM(cfg.vocab_size, global_batch=2, seq_len=64, seed=1).batch_at(0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _clone_tree(to_device(params, dev))
+        opt = adamw.init_state(p)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        _, _, m = steps.make_train_step(cfg, ocfg, accum=accum, keep_grads=True)(p, opt, b)
+        float(m["loss"])
+        out[dev] = (m, time.perf_counter() - t0)
+    (mc, tc), (mp, tp) = out["cuda"], out["cpu"]
+    loss_err = abs(float(mc["loss"]) - float(mp["loss"])) / abs(float(mp["loss"]))
+    norm_err = abs(float(mc["grad_norm"]) - float(mp["grad_norm"])) / float(mp["grad_norm"])
+    cpu_g, card_g = dict(tree_paths(mp["grads"])), dict(tree_paths(mc["grads"]))
+    worst, where, missing = 0.0, ("-",), []
+    for path, want in cpu_g.items():
+        got = card_g[path].cpu()
+        if want.abs().max() > 0 and got.abs().max() == 0:
+            missing.append(path)
+        e = rel_err(got, want)
+        if e > worst:
+            worst, where = e, path
+    check(not missing, f"{arch} accum {accum}: no card grad for {missing}")
+    check(loss_err <= 1e-4 and norm_err <= 1e-4 and worst <= STEP_TOL,
+          f"{arch} accum {accum}: loss {loss_err:.2e}, grad norm {norm_err:.2e}, "
+          f"worst grad {worst:.2e} at {where}")
+    print(f"[train] (b) {arch} 2 layers full width f32, accum {accum}: card vs CPU loss "
+          f"{float(mc['loss']):.6f} / {float(mp['loss']):.6f} (rel {loss_err:.2e}), grad norm "
+          f"rel {norm_err:.2e}, {len(cpu_g)} leaves, worst grad {worst:.2e} x max at "
+          f"{'/'.join(where)} (tol {STEP_TOL}); card {tc:.2f}s, cpu {tp:.2f}s")
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
+
+
+def train_full(res: dict, res13: dict, smi: str) -> None:
+    """(c) The launcher at its settings on full qwen3-4b (36 layers, bf16,
+    remat "dots"), then full mamba2-2.7b (64 layers) for a few steps; each
+    run's launches counted from 0 and joined to the kernels line."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch import configs
+
+    for arch, n_steps in (("qwen3-4b", TRAIN_STEPS), ("mamba2-2.7b", MAMBA_TRAIN_STEPS)):
+        alloc = torch.cuda.memory_allocated() / 2**30
+        check(alloc < 2.0, f"train {arch}: {alloc:.2f} GiB allocated before (a model is alive)")
+        cfg = configs.get_config(arch)
+        counters = zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        out = launcher.main(["--arch", arch, "--full", "--steps", str(n_steps), "--batch",
+                             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum", "1",
+                             "--lr", "1e-3"])
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        fold_launches(res, launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = out["losses"]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"train {arch}: losses {losses}")
+        step_s = out["step_s"]
+        p50 = float(np.median(step_s))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        active = T.active_param_count(cfg)
+        mfu = 6 * active * tokens / p50 / PEAK_FLOPS[torch.bfloat16]
+        n_mixer = cfg.n_layers
+        kernel = "flash_attention" if arch == "qwen3-4b" else "ssd"
+        check(launches[kernel] >= n_mixer * n_steps,
+              f"train {arch}: {launches[kernel]} {kernel} launches < {n_mixer} x {n_steps}")
+        del out
+        res13[arch] = {"losses": losses, "step_s": step_s, "step_s_p50": p50,
+                       "tokens_per_s": tokens / p50, "mfu": mfu, "peak_gb": peak,
+                       "launches": {k: v for k, v in launches.items() if v}}
+        print(f"[train] (c) {arch} full ({cfg.n_layers} layers, {str(cfg.param_dtype)[6:]}, "
+              f"remat {cfg.remat}, "
+              f"{active / 1e9:.3f}B params), {n_steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, "
+              f"accum 1, lr 1e-3, warmup 2: losses {[round(x, 4) for x in losses]}; step s "
+              f"{[round(x, 3) for x in step_s]}, p50 {p50:.3f} s, {tokens / p50:.0f} tokens/s, "
+              f"6 N tokens/s = {mfu:.3f} of 989 TFLOP/s; peak allocated {peak:.1f} GB; "
+              f"launches {res13[arch]['launches']} ({smi})")
+        print(f"[train] memory_reserved after dropping {arch}: {reserved_gib():.3f} GiB")
+
+
+def work_trainer(cfg, tcfg, work_ms: float, params_fn):
+    """A Trainer on the card that starts from ``params_fn()`` and whose
+    synthetic source spends ``work_ms`` of host time a batch (the
+    reference's ``SyntheticLM(work_ms=)``)."""
+    from repro_torch.data.pipeline import PrefetchIterator, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer
+
+    class WorkTrainer(Trainer):
+        def init_state(self, seed):
+            params = params_fn()
+            return params, adamw.init_state(params)
+
+        def _source(self, start_step):
+            src = SyntheticLM(self.cfg.vocab_size, global_batch=self.tcfg.global_batch,
+                              seq_len=self.tcfg.seq_len, seed=self.tcfg.seed, work_ms=work_ms)
+            return PrefetchIterator(iter(src), depth=self.tcfg.prefetch_depth,
+                                    start_step=start_step, device=self.device)
+
+    return WorkTrainer(cfg, tcfg, log=lambda *_: None, device="cuda")
+
+
+def train_resume_prefetch(res13: dict) -> None:
+    """(d) 2-layer full-width qwen3-4b (bf16): an uninterrupted 5-step run,
+    then the same run with checkpoints every 3 steps whose last checkpoint
+    is removed (a crash before the final save) and a resume: losses of
+    steps 3-4 equal.  Then PrefetchIterator at depth 0 and 2 with host work
+    of about half a step a batch: losses equal, walls printed."""
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import TrainConfig
+
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_config("qwen3-4b"), n_layers=2)
+    params0 = T.init_params(cfg, 0, device="cuda")
+    fresh = lambda: _clone_tree(params0)  # noqa: E731
+    ck_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=5, log_every=100, lr=1e-3,
+              warmup=2, checkpoint_every=3)
+    with deterministic():
+        full = work_trainer(cfg, TrainConfig(**kw), 0.0, fresh).train()
+        t0 = time.perf_counter()
+        work_trainer(cfg, TrainConfig(checkpoint_dir=str(ck_dir), **kw), 0.0,
+                          fresh).train()
+        ckpt_s = time.perf_counter() - t0
+        ck = Checkpointer(str(ck_dir))
+        check(ck.steps() == [2, 4], f"train resume: checkpoints {ck.steps()}")
+        shutil.rmtree(ck._step_dir(4))
+        t0 = time.perf_counter()
+        resumed = work_trainer(cfg, TrainConfig(checkpoint_dir=str(ck_dir), **kw), 0.0,
+                                    fresh).train()
+        resume_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in ck_dir.rglob("*") if f.is_file()) / 1e9 / 2
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    check(resumed["losses"] == full["losses"][3:],
+          f"train resume: {resumed['losses']} != {full['losses'][3:]}")
+    step_ms = float(np.median(full["step_s"])) * 1e3
+    print(f"[train] (d) 2-layer full-width qwen3-4b bf16, 5 steps: resumed from step 2, "
+          f"losses of steps 3-4 {resumed['losses']} bit-equal to the uninterrupted run's; "
+          f"run with 2 async saves {ckpt_s:.1f} s, restore + 3 steps + final save "
+          f"{resume_s:.1f} s, {size:.2f} GB a checkpoint; step p50 {step_ms:.1f} ms")
+    work_ms = 0.5 * step_ms
+    walls, losses = {}, {}
+    for depth in (0, 2):
+        with deterministic():
+            tr = work_trainer(cfg, TrainConfig(prefetch_depth=depth, **dict(
+                kw, steps=12, checkpoint_every=0)), work_ms, fresh)
+            out = tr.train()
+        walls[depth], losses[depth] = out["wall_s"], out["losses"]
+    check(losses[0] == losses[2], f"train prefetch: depth 0 {losses[0]} != depth 2 {losses[2]}")
+    res13["resume"] = {"ckpt_run_s": ckpt_s, "resume_s": resume_s, "ckpt_gb": size,
+                       "step_ms": step_ms}
+    res13["prefetch"] = {"work_ms": work_ms, "wall_s_depth0": walls[0],
+                         "wall_s_depth2": walls[2]}
+    print(f"[train] (d) prefetch, host work {work_ms:.1f} ms a batch, 12 steps: depth 0 wall "
+          f"{walls[0]:.3f} s, depth 2 wall {walls[2]:.3f} s ({walls[0] / walls[2]:.2f}x); "
+          f"losses bit-equal")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic kernels where torch has them (the embedding's
+    accumulating backward among them), so that equal runs give equal bits."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_train(res: dict, smi: str) -> dict:
+    """Phase 13: (a) the Functions against their plain versions at training
+    shapes, (b) a 2-layer train step card vs CPU, (c) full-width training,
+    (d) resume and prefetch."""
+    res13: dict = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, c in TRAIN_ATTN_CASES:
+            train_attn_case(label, dtype, c, res13)
+        train_ssd_case(dtype)
+    print(f"[train] (a) {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for arch in ("qwen3-4b", "mamba2-2.7b"):
+        for accum in (1, 2):
+            train_step_card_vs_cpu(arch, accum)
+    print(f"[train] (b) {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    # The host issues a training step op by op, so a step's time includes
+    # the collector's passes over every live object: the earlier phases'
+    # objects are moved out of its way (gc.freeze) while (c) and (d) time
+    # steps, and handed back after.
+    gc.collect()
+    tracked = len(gc.get_objects())
+    gc.freeze()
+    try:
+        t0 = time.perf_counter()
+        train_full(res, res13, smi)
+        print(f"[train] (c) {time.perf_counter() - t0:.1f}s ({tracked} objects frozen)")
+        t0 = time.perf_counter()
+        train_resume_prefetch(res13)
+        print(f"[train] (d) {time.perf_counter() - t0:.1f}s")
+    finally:
+        gc.unfreeze()
+    print(f"[train] summary {json.dumps(res13)}")
+    return res13
+
+
 def _leaves(t):
     for v in t.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -3445,6 +3836,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_rest(res, profile=args.profile)
     print(f"[rest] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_train(res, smi)
+    print(f"[train] {time.perf_counter() - t0:.1f}s")
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0],
                 "replaces": KERNELS[n][1], "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

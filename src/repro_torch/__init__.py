@@ -9,7 +9,10 @@ serving with state snapshots; and the paper's streaming machinery
 ``HostStreamExecutor`` over CUDA streams, driven by ``launch/streams``);
 the reference's observability layer (``obs/``: spans, metrics, SLO,
 request timelines, overlap, the doctor) wired into the engine, with its
-R-gated serving policy (``measure_stage_times``, ``autotune``).
+R-gated serving policy (``measure_stage_times``, ``autotune``); and
+single-device training (``runtime.trainer.Trainer``, ``launch.train``:
+AdamW, the prefetching data pipeline, async checkpoints, supervised
+steps), whose gradients go through the prefill and SSD kernels.
 Every TPU kernel of the reference has a hand-written CUDA counterpart in
 ``kernels/csrc``: paged decode attention (four entries), prefill attention,
 the SSD chunk scan, the streamed matmul, the Walsh-Hadamard transform and

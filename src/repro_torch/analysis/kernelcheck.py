@@ -43,6 +43,7 @@ from repro_torch.device import resolve_device
 ORACLE_PAIRS = (
     ("matmul", "matmul_ref"),
     ("flash_attention", "flash_attention_ref"),
+    ("flash_attention_lse", "flash_attention_lse_ref"),
     ("paged_attention", "paged_attention_ref"),
     ("paged_attention_multi", "paged_attention_multi_ref"),
     ("paged_attention_quant", "paged_attention_quant_ref"),

@@ -22,3 +22,28 @@ def tree_leaves(tree: Any) -> list[Any]:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_paths(tree: dict, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
+    """``(path, leaf)`` pairs of a tree of nested dicts, keys sorted at every
+    level: ``jax.tree``'s leaf order for dicts, which sums over leaves
+    (a global norm) follow."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.extend(tree_paths(v, prefix + (k,)))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def tree_from_paths(pairs) -> dict:
+    """The nested dicts that ``tree_paths`` flattened."""
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out

@@ -14,6 +14,10 @@
 //   q    (B, Sq, H, hd)     f32 or bf16
 //   k/v  (B, Sk, Hkv, hd)
 //   out  (B, Sq, H, hd)
+//   lse  (B, Sq, H) f32, or null: the natural-log logsumexp of each row's
+//        visible scaled (and softcapped) scores, which the training path's
+//        backward recomputes P from (exp(s - lse)); serving passes null.
+//        A row that sees no key gets NEG_INF, finite.
 //
 // Two bodies share the entry; the wrapper (kernels/flash_attention.py,
 // plan_flash) picks one and passes its tiling:
@@ -95,8 +99,9 @@ constexpr int kMaxDPerLane = 8;                          // head_dim <= 256
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int sq, int sk, int n_heads, int n_kv, int head_dim,
-    int q_offset, int causal, int prefix_len, int window, float softcap, float scale) {
+    T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int n_heads, int n_kv,
+    int head_dim, int q_offset, int causal, int prefix_len, int window, float softcap,
+    float scale) {
   extern __shared__ float smem[];
   const int bh = blockIdx.x;
   const int b = bh / n_heads;
@@ -203,7 +208,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(
     const int qi = q0 + warp * kRowsPerWarp + rr;
     if (qi >= sq) continue;
     const float denom = l[rr] == 0.f ? 1.f : l[rr];
-    T* o = out + ((static_cast<size_t>(b) * sq + qi) * n_heads + h) * hd;
+    const size_t row = (static_cast<size_t>(b) * sq + qi) * n_heads + h;
+    // m and l are the same in every lane of the warp (warp_max / warp_sum).
+    if (lse != nullptr && lane == 0) lse[row] = l[rr] == 0.f ? NEG_INF : m[rr] + logf(l[rr]);
+    T* o = out + row * hd;
 #pragma unroll
     for (int c = 0; c < kMaxDPerLane; ++c) {
       const int d = lane + 32 * c;
@@ -213,10 +221,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_simt_kernel(
 }
 
 template <typename T>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, int batch,
-                        int sq, int sk, int n_heads, int n_kv, int head_dim, int q_offset,
-                        int causal, int prefix_len, int window, float softcap, float scale,
-                        cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int batch, int sq, int sk, int n_heads, int n_kv, int head_dim,
+                        int q_offset, int causal, int prefix_len, int window, float softcap,
+                        float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBlockQ) * head_dim +
                        static_cast<size_t>(kBlockK) * (head_dim + 1) +
@@ -226,8 +234,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, 
   const dim3 grid(batch * n_heads, (sq + kBlockQ - 1) / kBlockQ);
   flash_attention_simt_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, sk, n_heads, n_kv, head_dim, q_offset, causal, prefix_len,
-      window, softcap, scale);
+      static_cast<T*>(out), lse, sq, sk, n_heads, n_kv, head_dim, q_offset, causal,
+      prefix_len, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -239,6 +247,7 @@ constexpr int kStageKeys = 64;                 // keys a cp.async stage holds
 constexpr int kSubKeys = 16;                   // keys a softmax step takes
 constexpr int kSubs = kStageKeys / kSubKeys;   // sub-tiles a stage
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -264,8 +273,9 @@ size_t tc_smem_bytes(int head_dim) {
 template <int kNT>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, int sq, int sk, int n_heads, int n_kv, int head_dim,
-    int q_offset, int causal, int prefix_len, int window, float softcap, float scale) {
+    bf16* __restrict__ out, float* __restrict__ lse, int sq, int sk, int n_heads, int n_kv,
+    int head_dim, int q_offset, int causal, int prefix_len, int window, float softcap,
+    float scale) {
   constexpr int kStages = kTcStages<kNT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kvh = blockIdx.y;
@@ -286,10 +296,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   bf16* kv_s = q_s + 16 * stride;  // stage st: K rows, then V rows
   float* ml_s = reinterpret_cast<float*>(kv_s + kStages * 2 * kStageKeys * stride);
 
-  auto row_offset = [&](int r) -> size_t {  // of block row r in q and out
+  auto row_index = [&](int r) -> size_t {  // of block row r in lse (times hd: q, out)
     const int i = (r0 + r) / g;
-    return ((static_cast<size_t>(b) * sq + i) * n_heads + kvh * g + (r0 + r - i * g)) * hd;
+    return (static_cast<size_t>(b) * sq + i) * n_heads + kvh * g + (r0 + r - i * g);
   };
+  auto row_offset = [&](int r) -> size_t { return row_index(r) * hd; };
 
   // Q by 16-byte copies (rows past nr zero-filled); they join the first
   // stage's copy group.
@@ -586,6 +597,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     if (rr >= nr) continue;
     const float l = h ? l_b : l_a;
     const float inv = 1.f / (l == 0.f ? 1.f : l);
+    // m is in log2 units of the scaled scores: lse = (m + log2 l) ln 2.
+    if (lse != nullptr && tig == 0)
+      lse[row_index(rr)] = l == 0.f ? NEG_INF : ((h ? mx_b : mx_a) + log2f(l)) * kLn2;
     bf16* o = out + row_offset(rr);
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
@@ -598,10 +612,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
 }
 
 template <int kNT>
-cudaError_t launch_tc_nt(const void* q, const void* k, const void* v, void* out, int batch,
-                         int sq, int sk, int n_heads, int n_kv, int head_dim, int q_offset,
-                         int causal, int prefix_len, int window, float softcap, float scale,
-                         cudaStream_t stream) {
+cudaError_t launch_tc_nt(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int batch, int sq, int sk, int n_heads, int n_kv, int head_dim,
+                         int q_offset, int causal, int prefix_len, int window, float softcap,
+                         float scale, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<kNT>(head_dim);
   auto kernel = flash_attention_tc_kernel<kNT>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -610,37 +624,38 @@ cudaError_t launch_tc_nt(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((rows + 15) / 16, n_kv, batch);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), sq, sk, n_heads, n_kv, head_dim, q_offset, causal, prefix_len,
-      window, softcap, scale);
+      static_cast<bf16*>(out), lse, sq, sk, n_heads, n_kv, head_dim, q_offset, causal,
+      prefix_len, window, softcap, scale);
   return cudaGetLastError();
 }
 
 // head_dim / 8 accumulator tiles, rounded up to 4, 8, 16 or 32.
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int batch,
-                      int sq, int sk, int n_heads, int n_kv, int head_dim, int q_offset,
-                      int causal, int prefix_len, int window, float softcap, float scale,
-                      cudaStream_t stream) {
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int batch, int sq, int sk, int n_heads, int n_kv, int head_dim,
+                      int q_offset, int causal, int prefix_len, int window, float softcap,
+                      float scale, cudaStream_t stream) {
   const int tiles = head_dim / 8;
   if (tiles <= 4)
-    return launch_tc_nt<4>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
+    return launch_tc_nt<4>(q, k, v, out, lse, batch, sq, sk, n_heads, n_kv, head_dim,
                            q_offset, causal, prefix_len, window, softcap, scale, stream);
   if (tiles <= 8)
-    return launch_tc_nt<8>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
+    return launch_tc_nt<8>(q, k, v, out, lse, batch, sq, sk, n_heads, n_kv, head_dim,
                            q_offset, causal, prefix_len, window, softcap, scale, stream);
   if (tiles <= 16)
-    return launch_tc_nt<16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
+    return launch_tc_nt<16>(q, k, v, out, lse, batch, sq, sk, n_heads, n_kv, head_dim,
                             q_offset, causal, prefix_len, window, softcap, scale, stream);
-  return launch_tc_nt<32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
+  return launch_tc_nt<32>(q, k, v, out, lse, batch, sq, sk, n_heads, n_kv, head_dim,
                           q_offset, causal, prefix_len, window, softcap, scale, stream);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// tc: 1 runs the tensor-core body (bf16 and head_dim % 16 == 0 only, as the
-// wrapper's plan_flash picks it), 0 the SIMT body.
+// lse: a (B, Sq, H) f32 output, or null.  tc: 1 runs the tensor-core body
+// (bf16 and head_dim % 16 == 0 only, as the wrapper's plan_flash picks it),
+// 0 the SIMT body.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
-                               void* out, int batch, int sq, int sk, int n_heads,
+                               void* out, void* lse, int batch, int sq, int sk, int n_heads,
                                int n_kv, int head_dim, int q_offset, int causal,
                                int prefix_len, int window, float softcap, float scale,
                                int tc, void* stream) {
@@ -650,17 +665,18 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
       (sq + kBlockQ - 1) / kBlockQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err;
   if (tc) {
     if (dtype != DTYPE_BF16 || head_dim % 16 != 0 || n_kv > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_tc(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim, q_offset, causal,
+    err = launch_tc(q, k, v, out, l, batch, sq, sk, n_heads, n_kv, head_dim, q_offset, causal,
                     prefix_len, window, softcap, scale, s);
   } else if (dtype == DTYPE_BF16) {
-    err = launch_simt<__nv_bfloat16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim,
+    err = launch_simt<__nv_bfloat16>(q, k, v, out, l, batch, sq, sk, n_heads, n_kv, head_dim,
                                      q_offset, causal, prefix_len, window, softcap, scale, s);
   } else {
-    err = launch_simt<float>(q, k, v, out, batch, sq, sk, n_heads, n_kv, head_dim, q_offset,
+    err = launch_simt<float>(q, k, v, out, l, batch, sq, sk, n_heads, n_kv, head_dim, q_offset,
                              causal, prefix_len, window, softcap, scale, s);
   }
   return static_cast<int>(err);

@@ -15,6 +15,10 @@ body's rounding for the tests.
 On a CPU tensor the wrapper runs the plain version
 (:func:`flash_attention_plain`, from ``kernels/ref.py``); on a CUDA tensor
 it launches the kernel or raises — it never falls back.
+:func:`flash_attention_lse` also returns each row's natural-log
+logsumexp, (B, Sq, H) f32, which the kernel writes beside the output (the
+training path's backward recomputes P from it); the serving path passes
+the kernel a null ``lse`` and pays nothing for it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels._build import CudaKernel, ptr, stream_of
+from repro_torch.kernels.ref import flash_attention_lse_ref as flash_attention_lse_plain
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -33,7 +38,7 @@ MAX_HEAD_DIM = 256
 _I, _P = ctypes.c_int, ctypes.c_void_p
 KERNEL = CudaKernel(
     "flash_attention.cu", "flash_attention",
-    [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
      ctypes.c_float, ctypes.c_float, _I, _P])
 
 TC_WARPS = 4  # warps a block of the tensor-core body
@@ -110,6 +115,33 @@ def _check_inputs(q, k, v) -> None:
         raise ValueError("flash_attention: inputs must be contiguous")
 
 
+def _launch(q, k, v, lse, *, causal, window, softcap, scale, q_offset, prefix_len
+            ) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; ``lse`` is a (B, Sq, H) f32
+    output or None."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel: head_dim {hd} > {MAX_HEAD_DIM}")
+    plan = plan_flash(b, sq, h, hkv, hd, q.dtype)
+    if plan.body == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: the tensor-core body copies q, k and v "
+                         "in 16-byte chunks; they must start on 16-byte boundaries")
+    out = torch.empty_like(q)
+    KERNEL.launch(
+        _DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out),
+        ptr(lse) if lse is not None else None, b, sq, sk, h, hkv,
+        hd, int(q_offset), int(bool(causal)), int(prefix_len), int(window), float(softcap),
+        float(scale), int(plan.body == "tc"), ctypes.c_void_p(stream_of(q)))
+    return out
+
+
+def _checked(q, k, v, prefix_len: int) -> None:
+    _check_inputs(q, k, v)
+    if prefix_len < 0:
+        raise ValueError(f"flash_attention: prefix_len must be >= 0, got {prefix_len}")
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, Hkv, hd)
@@ -125,24 +157,34 @@ def flash_attention(
     """Causal: key j is seen by query i when ``j <= q_offset + i`` or ``j <
     prefix_len`` (a bidirectional prefix, prefix-LM); ``causal=False``
     sees every key (an encoder, cross-attention)."""
-    _check_inputs(q, k, v)
-    if prefix_len < 0:
-        raise ValueError(f"flash_attention: prefix_len must be >= 0, got {prefix_len}")
+    _checked(q, k, v, prefix_len)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_offset=q_offset, prefix_len=prefix_len)
     if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, causal=causal, window=window, softcap=softcap,
-            scale=scale, q_offset=q_offset, prefix_len=prefix_len)
-    b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel: head_dim {hd} > {MAX_HEAD_DIM}")
-    plan = plan_flash(b, sq, h, hkv, hd, q.dtype)
-    if plan.body == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel: the tensor-core body copies q, k and v "
-                         "in 16-byte chunks; they must start on 16-byte boundaries")
-    out = torch.empty_like(q)
-    KERNEL.launch(
-        _DTYPES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(out), b, sq, sk, h, hkv,
-        hd, int(q_offset), int(bool(causal)), int(prefix_len), int(window), float(softcap),
-        float(scale), int(plan.body == "tc"), ctypes.c_void_p(stream_of(q)))
-    return out
+        return flash_attention_plain(q, k, v, **kw)
+    return _launch(q, k, v, None, **kw)
+
+
+def flash_attention_lse(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float,
+    q_offset: int = 0,
+    prefix_len: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` and the natural-log logsumexp of each row's
+    visible scores, (B, Sq, H) f32 (a row that sees no key: about -1e30,
+    finite)."""
+    _checked(q, k, v, prefix_len)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_offset=q_offset, prefix_len=prefix_len)
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, **kw)
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, lse, **kw), lse

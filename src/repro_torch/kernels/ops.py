@@ -50,6 +50,26 @@ def flash_attention(
                                prefix_len=prefix_len)
 
 
+def flash_attention_lse(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float | None = None,
+    q_offset: int = 0,
+    prefix_len: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` and each row's natural-log logsumexp (B, Sq,
+    H) f32, which the kernel writes beside the output: the training path's
+    forward, whose backward recomputes P from it."""
+    return _fa.flash_attention_lse(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=_scale(q, scale),
+                                   q_offset=q_offset, prefix_len=prefix_len)
+
+
 def paged_attention(
     q: torch.Tensor,  # (B, H, hd) single-token queries
     k_pool: torch.Tensor,  # (num_blocks, block_size, Hkv, hd)

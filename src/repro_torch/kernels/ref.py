@@ -237,6 +237,26 @@ def cancelling_quant_case(seed: int, t: int, kv_dtype: str):
             torch.tensor([139, 133, 131, 127], dtype=torch.int32))
 
 
+def _flash_scores(q, k, *, causal, window, softcap, scale, q_offset, prefix_len):
+    """Masked, scaled (and softcapped) f32 scores (B, Hkv, g, Sq, Sk) of
+    :func:`flash_attention_ref`."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(b, sq, hkv, g, hd)
+    s = torch.einsum("bqngd,bknd->bngqk", qf, k.float()) * scale
+    s = _softcap(s, softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = (qpos >= kpos) | (kpos < prefix_len)
+    if window > 0:
+        ok = ok & (qpos - kpos < window)
+    return s.masked_fill(~ok, NEG_INF)
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Sk, Hkv, hd)
@@ -256,23 +276,36 @@ def flash_attention_ref(
     i``, or when ``j < prefix_len`` (a bidirectional prefix, prefix-LM).
     Materializes the score matrix."""
     b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qf = q.float().reshape(b, sq, hkv, g, hd)
-    s = torch.einsum("bqngd,bknd->bngqk", qf, k.float()) * scale
-    s = _softcap(s, softcap)
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok = (qpos >= kpos) | (kpos < prefix_len)
-    if window > 0:
-        ok = ok & (qpos - kpos < window)
-    s = s.masked_fill(~ok, NEG_INF)
+    s = _flash_scores(q, k, causal=causal, window=window, softcap=softcap, scale=scale,
+                      q_offset=q_offset, prefix_len=prefix_len)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bngqk,bknd->bqngd", p, v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,  # (B, Sk, Hkv, hd)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: float | None = None,
+    q_offset: int = 0,
+    prefix_len: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref`'s output and the natural-log logsumexp
+    of each row's masked scores, (B, Sq, H) f32: the ``lse`` the
+    reference's ``_flash_fwd_impl`` returns for its backward (a row that
+    sees no key gets about NEG_INF, finite)."""
+    b, sq, h, hd = q.shape
+    s = _flash_scores(q, k, causal=causal, window=window, softcap=softcap, scale=scale,
+                      q_offset=q_offset, prefix_len=prefix_len)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngqk,bknd->bqngd", p, v.float())
+    lse = torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2).reshape(b, sq, h)
+    return out.reshape(b, sq, h, hd).to(q.dtype), lse
 
 
 def flash_attention_tc_plain(

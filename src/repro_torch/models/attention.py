@@ -19,7 +19,8 @@ the cache branches of the reference ``attention_apply``.
   write the chunk at ``q_offset`` of a contiguous cache, then attend over
   its first ``q_offset + s`` rows with the prefill kernel.
 * **First chunk / no cache** (reference ``attention.py:699-716``): attend
-  over the chunk's own K/V with the prefill kernel, then (with a cache)
+  over the chunk's own K/V with the prefill kernel (through :func:`flash`:
+  training's path), then (with a cache)
   store them; an SWA ring shorter than the chunk keeps the last
   ``window`` rows, rolled so position p lands in slot p % window.
 
@@ -28,6 +29,16 @@ fp8 codes with one f32 scale per (page, kv head): decode writes rescale
 the page on grow (:func:`_quant_paged_write`), prefill writes quantize
 page by page, decode reads dequantize inside the paged kernel, and prefill
 reads the context dequantized by torch ops into the prefill kernel.
+
+Training (no cache, gradients wanted) reaches the prefill kernel through
+:class:`FlashAttention`, an ``autograd.Function`` (the reference's flash
+custom VJP, ``attention.py:118-309``): its forward is the kernel (the plain
+version on the CPU) and returns the output with each row's logsumexp; its
+backward, :func:`flash_backward`, is the twin of the reference's jnp
+``_flash_bwd``: P recomputed per (q-chunk, k-chunk) pair from the lse, in
+torch ops (the reference has no backward kernel either).  :func:`flash`
+picks the Function only when a gradient is wanted, so serving launches
+the kernel with a null lse, as before.
 
 Every prefill branch passes ``causal`` and ``prefix_len`` (paligemma's
 bidirectional image prefix) to the prefill kernel; ``causal=False`` is the
@@ -40,6 +51,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -48,6 +60,141 @@ from repro_torch.models import layers
 
 Params = dict
 NEG_INF = -1e30  # the reference's mask value (a finite -inf keeps softmax NaN-free)
+
+
+# ----------------------------------------------------------------------------
+# Training: the prefill kernel with a backward
+# ----------------------------------------------------------------------------
+
+
+def _pick_chunk(s: int, chunk: int, *, at_least: int = 0) -> int:
+    """Largest block size <= chunk dividing s (and >= the prefix if any):
+    the reference's ``_pick_chunk``."""
+    for c in range(min(chunk, s), 0, -1):
+        if s % c == 0 and (at_least == 0 or c >= at_least):
+            return c
+    for c in range(max(1, at_least), s + 1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def _block_pairs(n_q: int, n_k: int, *, causal: bool, window: int, chunk_q: int,
+                 chunk_k: int, q_offset: int = 0, prefix_len: int = 0):
+    """The (q-chunk, k-chunk) pairs that hold a visible entry, each with its
+    (chunk_q, chunk_k) boolean mask (the reference's ``_block_pairs``, the
+    masks kept per pair)."""
+    out = []
+    oq, ok_ = np.arange(chunk_q), np.arange(chunk_k)
+    for qi in range(n_q):
+        for kj in range(n_k):
+            q_lo = qi * chunk_q + q_offset
+            q_hi = q_lo + chunk_q - 1
+            k_lo = kj * chunk_k
+            k_hi = k_lo + chunk_k - 1
+            if causal and k_lo > q_hi and not (prefix_len > 0 and k_lo < prefix_len):
+                continue
+            if window > 0 and q_lo - k_hi >= window:
+                continue
+            qpos, kpos = q_lo + oq, k_lo + ok_
+            m = np.ones((chunk_q, chunk_k), bool)
+            if causal:
+                m = qpos[:, None] >= kpos[None, :]
+                if prefix_len > 0:
+                    m = m | (kpos[None, :] < prefix_len)
+            if window > 0:
+                m = m & (qpos[:, None] - kpos[None, :] < window)
+            if m.any():
+                out.append((qi, kj, m))
+    return out
+
+
+def flash_backward(q, k, v, out, lse, dout, *, chunk: int, causal: bool, window: int,
+                   softcap: float, scale: float, q_offset: int, prefix_len: int):
+    """dq, dk, dv of the masked attention whose forward gave ``out`` and
+    ``lse`` (B, Sq, H) f32: the reference's ``_flash_bwd`` in torch ops.
+    Per (q-chunk, k-chunk) pair with a visible entry, P = exp(s - lse) is
+    recomputed (zero where masked), ``dv += P^T dout`` with P rounded to
+    v's type, ``dS = P (dout v^T - delta)`` with delta = rowsum(dout *
+    out), times the softcap's derivative and the scale, rounded to q's
+    type for ``dq += dS k`` and ``dk += dS^T q``; products of the inputs'
+    types summed in f32, as the reference's ``preferred_element_type``.
+    K/V are read per query head (kv head ``h // g``) and dk/dv summed over
+    each group at the end, in f32."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    chunk_q = _pick_chunk(sq, chunk, at_least=prefix_len)
+    chunk_k = _pick_chunk(sk, chunk)
+    pairs = _block_pairs(sq // chunk_q, sk // chunk_k, causal=causal, window=window,
+                         chunk_q=chunk_q, chunk_k=chunk_k, q_offset=q_offset,
+                         prefix_len=prefix_len)
+    f32 = torch.float32
+    kf = k.repeat_interleave(g, dim=2).float()  # (B, Sk, H, hd): head h reads kv head h // g
+    vf = v.repeat_interleave(g, dim=2).float()
+    qf, dof = q.float(), dout.to(q.dtype).float()
+    delta = (dof * out.float()).sum(-1)  # (B, Sq, H)
+    dq = torch.zeros((b, sq, h, hd), dtype=f32, device=q.device)
+    dk = torch.zeros((b, sk, h, hd), dtype=f32, device=q.device)
+    dv = torch.zeros((b, sk, h, hd), dtype=f32, device=q.device)
+    for qi, kj, mask in pairs:
+        qs = slice(qi * chunk_q, (qi + 1) * chunk_q)
+        ks = slice(kj * chunk_k, (kj + 1) * chunk_k)
+        qc, kc, vc, do = qf[:, qs], kf[:, ks], vf[:, ks], dof[:, qs]
+        s_cap = layers.softcap(torch.einsum("bqhd,bkhd->bhqk", qc, kc) * scale, softcap)
+        ok = torch.as_tensor(mask, device=q.device)
+        p = torch.where(ok, torch.exp(s_cap - lse[:, qs].permute(0, 2, 1)[..., None]), 0.0)
+        dv[:, ks] += torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), do)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do, vc)
+        ds = p * (dp - delta[:, qs].permute(0, 2, 1)[..., None])
+        if softcap > 0.0:
+            ds = ds * (1.0 - torch.square(s_cap / softcap))
+        ds = (ds * scale).to(q.dtype).float()
+        dq[:, qs] += torch.einsum("bhqk,bkhd->bqhd", ds, kc)
+        dk[:, ks] += torch.einsum("bhqk,bqhd->bkhd", ds, qc)
+    dk = dk.reshape(b, sk, hkv, g, hd).sum(3)
+    dv = dv.reshape(b, sk, hkv, g, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The prefill kernel with a backward: forward through
+    ``ops.flash_attention_lse`` (the CUDA kernel on the card, the plain
+    version on the CPU), returning the output and each row's lse (no
+    gradient flows into the lse); it saves q, k, v, out and lse, and its
+    backward is :func:`flash_backward` at ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk, causal, window, softcap, scale, q_offset, prefix_len):
+        scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+        out, lse = ops.flash_attention_lse(q, k, v, causal=causal, window=window,
+                                           softcap=softcap, scale=scale, q_offset=q_offset,
+                                           prefix_len=prefix_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(chunk=chunk, causal=causal, window=window, softcap=softcap,
+                      scale=scale, q_offset=q_offset, prefix_len=prefix_len)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash(q, k, v, *, chunk: int = 512, causal: bool = True, window: int = 0,
+          softcap: float = 0.0, scale: float | None = None, q_offset: int = 0,
+          prefix_len: int = 0) -> torch.Tensor:
+    """The prefill kernel's output, through :class:`FlashAttention` when a
+    gradient is wanted (grad mode on and an input that requires one), else
+    through ``ops.flash_attention`` (serving: no lse written)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, chunk, causal, window, softcap, scale,
+                                    q_offset, prefix_len)[0]
+    return ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                               scale=scale, q_offset=q_offset, prefix_len=prefix_len)
 
 
 def attention_init(
@@ -165,6 +312,7 @@ def attention_apply(
     softcap_val: float = 0.0,
     scale: float | None = None,
     qk_norm: bool = False,
+    chunk: int = 512,  # the backward's (q-chunk, k-chunk) block size (training)
     # {"k", "v"[, "k_scale", "v_scale"]}: page pools with a page_table, else a
     # contiguous (B, S_cache, Hkv, hd) cache
     cache: dict | None = None,
@@ -218,9 +366,8 @@ def attention_apply(
         # First chunk (or no cache): attend over the chunk itself, then store
         # the rope'd K/V; a ring shorter than the chunk keeps the last rows,
         # rolled so that position p lands in slot p % s_cache.
-        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=causal, window=window, softcap=softcap_val,
-                                  scale=scale, prefix_len=prefix_len)
+        out = flash(q, k, v, chunk=chunk, causal=causal, window=window, softcap=softcap_val,
+                    scale=scale, prefix_len=prefix_len)
         if cache is not None:
             s_cache = cache["k"].shape[1]
             for key, rows in (("k", k), ("v", v)):

@@ -4,7 +4,8 @@ Port of the reference ``models/layers.py`` for the serving slice: the same
 init distributions (drawn from an explicit ``torch.Generator``), rmsnorm
 with the ``1 + scale`` convention in f32, half-split rope with f32 angles,
 whisper's sinusoidal absolute positions, the FFN kinds (swiglu, geglu,
-gelu_mlp) and the tanh softcap.  Weights are
+gelu_mlp), the tanh softcap and the training loss (the chunked cross
+entropy).  Weights are
 stored ``(in, out)`` and applied as ``x @ w``, as in the reference.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Params = dict
 
@@ -130,3 +132,49 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0.0:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ----------------------------------------------------------------------------
+# Chunked cross-entropy (vocab/sequence streaming)
+# ----------------------------------------------------------------------------
+
+
+def _chunk_nll(h: torch.Tensor, embed_f32: torch.Tensor, t: torch.Tensor, m: torch.Tensor,
+               final_softcap: float) -> torch.Tensor:
+    logits = softcap(h.float() @ embed_f32.T, final_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, t.long()[..., None])[..., 0]
+    return ((logz - gold) * m.float()).sum()
+
+
+def chunked_cross_entropy(
+    hidden: torch.Tensor,  # (B, S, D) final hidden states
+    out_embed: torch.Tensor,  # (V, D) output embedding (logits = h @ E^T)
+    targets: torch.Tensor,  # (B, S) int
+    mask: torch.Tensor,  # (B, S) 0/1 loss mask
+    *,
+    chunk: int = 512,
+    final_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Mean CE over masked tokens, streaming over sequence chunks
+    (reference ``layers.chunked_cross_entropy``): f32 logits over the
+    whole (padded) vocabulary, the final softcap, the masked mean.  The
+    table is cast to f32 once, outside the chunk loop; under autograd each
+    chunk is a checkpoint, so only one chunk's (B, chunk, V) logits exist
+    at a time, in the backward too."""
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} % loss chunk {chunk} != 0")
+    embed_f32 = out_embed.float()
+    loss_sum = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    grad = torch.is_grad_enabled() and (hidden.requires_grad or out_embed.requires_grad)
+    for i in range(0, s, chunk):
+        args = (hidden[:, i:i + chunk], embed_f32, targets[:, i:i + chunk],
+                mask[:, i:i + chunk], final_softcap)
+        nll = (checkpoint(_chunk_nll, *args, use_reentrant=False) if grad
+               else _chunk_nll(*args))
+        loss_sum = loss_sum + nll
+        count = count + mask[:, i:i + chunk].float().sum()
+    return loss_sum / count.clamp_min(1.0)

@@ -6,7 +6,11 @@ cut into chunk tasks and the O(1) SSM state is handed from each to the
 next.  The prefill branch of :func:`mamba_apply` runs it through the SSD
 kernel wrapper (``kernels/ssd_chunk``: the CUDA kernel on the card, the
 plain version on the CPU); the decode branch is one recurrence step in
-plain PyTorch ops (the reference has no kernel for it).
+plain PyTorch ops (the reference has no kernel for it).  When a gradient
+is wanted (training) the scan goes through :class:`SSDChunked`, an
+``autograd.Function`` whose forward is the same kernel and whose backward
+recomputes through the plain ``ssd_chunked_ref`` under autograd: the
+counterpart of the reference's JAX autodiff of its jnp scan.
 
 Shapes follow the minimal-SSD reference: x (B, S, H, P), dt (B, S, H), A
 (H,) negative, B/C (B, S, N) single-group, state (B, H, P, N) f32.
@@ -28,8 +32,45 @@ CONV_WIDTH = 4
 #: Leaves kept in f32 whatever ``param_dtype`` is (reference mamba.py:168-170).
 F32_PARAMS = ("A_log", "D", "dt_bias")
 
-__all__ = ["CONV_WIDTH", "F32_PARAMS", "mamba_dims", "mamba_shapes", "mamba_init",
-           "mamba_apply", "mamba_cache_init", "ssd_chunked", "ssd_ref", "ssd_decode_step"]
+__all__ = ["CONV_WIDTH", "F32_PARAMS", "SSDChunked", "mamba_dims", "mamba_shapes", "mamba_init",
+           "mamba_apply", "mamba_cache_init", "ssd", "ssd_chunked", "ssd_ref", "ssd_decode_step"]
+
+
+class SSDChunked(torch.autograd.Function):
+    """The SSD kernel with a backward: forward through
+    ``kernels/ssd_chunk.ssd_chunked`` (the CUDA kernel on the card, the plain
+    version on the CPU) -> (y, final state); backward by differentiating
+    the plain version at the saved inputs, for x, dt, a, b_, c_ and
+    init_state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_, c_, init_state, chunk):
+        y, final = ssd_kernel.ssd_chunked(x, dt, a, b_, c_, chunk=chunk, init_state=init_state)
+        ctx.save_for_backward(x, dt, a, b_, c_, init_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, final = ssd_chunked(*inputs[:5], chunk=ctx.chunk, init_state=inputs[5])
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad((y, final), wanted, (dy, dfinal), allow_unused=True))
+        out = [next(grads) if t is not None and t.requires_grad else None for t in inputs]
+        return (*out, None)
+
+
+def ssd(x, dt, a, b_, c_, *, chunk: int, init_state=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The prefill scan: through :class:`SSDChunked` when a gradient is
+    wanted, else straight through the kernel wrapper."""
+    args = (x.contiguous(), dt.contiguous(), a.contiguous(), b_.contiguous(), c_.contiguous())
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (*args, init_state)):
+        return SSDChunked.apply(*args, init_state, chunk)
+    return ssd_kernel.ssd_chunked(*args, chunk=chunk, init_state=init_state)
 
 
 def ssd_decode_step(state, x_t, dt_t, a, b_t, c_t) -> tuple[torch.Tensor, torch.Tensor]:
@@ -149,9 +190,7 @@ def mamba_apply(
         y = y_t[:, None]
     else:
         init = state.float().contiguous() if state is not None else None
-        y, new_state = ssd_kernel.ssd_chunked(
-            x.contiguous(), dt.contiguous(), a.contiguous(), b_.contiguous(),
-            c_.contiguous(), chunk=chunk, init_state=init)
+        y, new_state = ssd(x, dt, a, b_, c_, chunk=chunk, init_state=init)
 
     y = y + p["D"][None, None, :, None].to(y.dtype) * x  # skip connection
     y = y.reshape(bsz, s, d_inner)

@@ -29,13 +29,14 @@ layers carry slot-indexed ``ssm`` ``(r, B, H, P, N)`` f32 and ``conv``
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
 from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
@@ -322,19 +323,35 @@ def _at(tree: dict, i: int) -> dict:
     return {k: _at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """Every repeat's view of a stacked subtree, from one ``unbind`` a leaf:
+    under autograd its backward stacks the n repeats' grads once, where n
+    ``_at`` views would each add a zero-filled full-size grad into the
+    leaf's (O(n^2) traffic over the depth)."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
 _KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, *,
                  positions, cache, cur_len, q_offset, page_table, enc_out=None,
-                 prefix_len: int = 0, causal: bool = True) -> torch.Tensor:
+                 prefix_len: int = 0, causal: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer (pre-norm, residual): the mixer -- attention (with
     sandwich norms, its output normed before the residual add) or a mamba
     block (decode when ``cur_len`` is given, else a prefill piece that
     continues from the cached state) --, then the cross-attention block,
-    then a dense or MoE FFN (the MoE aux loss is dropped, as serving drops
-    it).  The cache views in ``cache`` (None: no cache, as the encoder) are
-    written in place."""
+    then a dense or MoE FFN.  Returns (h, the MoE aux loss: an f32 0-d
+    tensor, or the float 0.0 without a MoE FFN).  The cache views in
+    ``cache`` (None: no cache, as the encoder and training) are written in
+    place."""
+    aux = 0.0
     if spec.mixer in ("attn", "attn_local"):
         kv = (None if cache is None or "k" not in cache
               else {k: cache[k] for k in _KV_LEAVES if k in cache})
@@ -344,8 +361,8 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, 
             head_dim=cfg.head_dim, positions=positions if cfg.use_rope else None,
             rope_theta=cfg.rope_theta, causal=causal, window=cfg.spec_window(spec),
             prefix_len=prefix_len, softcap_val=cfg.attn_softcap, scale=cfg.query_scale,
-            qk_norm=cfg.qk_norm, cache=kv, cur_len=cur_len, q_offset=q_offset,
-            page_table=page_table)
+            qk_norm=cfg.qk_norm, chunk=cfg.attn_chunk, cache=kv, cur_len=cur_len,
+            q_offset=q_offset, page_table=page_table)
         if cfg.sandwich_norm:
             out = layers.rmsnorm(p["post_mixer_norm"], out)
         h = h + out
@@ -370,11 +387,11 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, 
         h = h + out
     elif spec.ffn == "moe":
         x = layers.rmsnorm(p["ffn_norm"], h)
-        out, _ = moe.moe_apply(p["ffn"], x, top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor, moe_chunk=cfg.moe_chunk,
-                               impl=cfg.moe_impl, expert_shards=cfg.expert_shards)
+        out, aux = moe.moe_apply(p["ffn"], x, top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor, moe_chunk=cfg.moe_chunk,
+                                 impl=cfg.moe_impl, expert_shards=cfg.expert_shards)
         h = h + out
-    return h
+    return h, aux
 
 
 def _cross_attend(cfg: ModelConfig, p: Params, h: torch.Tensor, *, cache, cur_len,
@@ -383,7 +400,8 @@ def _cross_attend(cfg: ModelConfig, p: Params, h: torch.Tensor, *, cache, cur_le
     ``cross_attn`` branch), before the residual add.  Prefill: the encoder
     output's K/V (``enc_out`` given: computed and stored into the slot's
     ``cross_k`` / ``cross_v``; else, a later chunk of the prompt, the ones
-    the first chunk stored), attended without a mask by the prefill kernel.
+    the first chunk stored), attended without a mask by the prefill kernel
+    (through ``attention.flash``: with its backward in training).
     Decode: the stored K/V, every frame visible, by torch ops
     (:func:`attention.decode_attention`, as the reference's jnp)."""
     x = layers.rmsnorm(p["cross_norm"], h)
@@ -408,9 +426,34 @@ def _cross_attend(cfg: ModelConfig, p: Params, h: torch.Tensor, *, cache, cur_le
             kc, vc = cache["cross_k"], cache["cross_v"]
         else:
             raise ValueError(f"{cfg.name}: cross-attention needs enc_out or stored K/V")
-        out = ops.flash_attention(q.contiguous(), kc.contiguous(), vc.contiguous(),
-                                  causal=False)
+        out = attn_lib.flash(q, kc, vc, chunk=cfg.attn_chunk, causal=False)
     return out.reshape(b, s, cfg.n_heads * hd) @ p["cross"]["wo"]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: save the outputs of matmuls without batch dims
+    (``aten.mm``: the projections and FFN products), recompute the rest
+    (batched products, norms, elementwise ops, the kernels' launches): the
+    twin of JAX's ``dots_with_no_batch_dims_saveable``."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg: ModelConfig, fn):
+    """One repeat's unit under the config's remat (reference ``_remat_wrap``):
+    "none" as it is, "full" a checkpoint that saves only its inputs,
+    "dots" a selective checkpoint (:func:`_dots_policy`)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
 def forward_hidden(
@@ -418,24 +461,57 @@ def forward_hidden(
     params: Params,
     h: torch.Tensor,  # (B, S, D) embedded inputs
     *,
-    positions: torch.Tensor,
-    caches: Params,  # paged pools or contiguous slot state, stacked over repeats
+    positions: torch.Tensor | None,
+    caches: Params | None = None,  # paged pools or contiguous slot state, or None
     page_table: torch.Tensor | None = None,  # (B, n_pages) int32, shared by every layer
     cur_len: torch.Tensor | None = None,  # decode: (B,) int32
     q_offset: int = 0,
     enc_out: torch.Tensor | None = None,  # (B, encoder_seq, D): the first chunk's
     prefix_len: int = 0,  # the first chunk's bidirectional image prefix
-) -> tuple[torch.Tensor, Params]:
-    """Run the stacked blocks over the caches (updated in place)."""
-    blocks, pools = params["blocks"], caches["blocks"]
-    for i in range(cfg.n_repeats):
-        for j, spec in enumerate(cfg.layer_unit):
+    causal: bool = True,
+    unit: tuple[LayerSpec, ...] | None = None,  # the encoder's ENC_UNIT
+    blocks: Params | None = None,  # the encoder's stacked blocks
+) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
+    """Run the stacked blocks, repeat by repeat, over the caches (updated
+    in place; None in training and the encoder).  Returns (h, the caches,
+    the MoE aux loss summed over layers: without caches only, else 0.0,
+    so that a serving step does no extra work).  Without caches, with
+    gradients on and params that want them, each repeat's unit runs under
+    ``cfg.remat``."""
+    unit = unit if unit is not None else cfg.layer_unit
+    blocks = blocks if blocks is not None else params["blocks"]
+    pools = caches["blocks"] if caches is not None else None
+    n_rep = next(iter(_leaves(blocks))).shape[0]
+    kw = dict(positions=positions, cur_len=cur_len, q_offset=q_offset,
+              page_table=page_table, enc_out=enc_out, prefix_len=prefix_len, causal=causal)
+
+    collect = pools is None
+
+    def run_unit(h, bp, pc):
+        aux = 0.0
+        for j, spec in enumerate(unit):
             name = f"layer{j}"
-            h = _apply_layer(
-                cfg, spec, _at(blocks[name], i), h, positions=positions,
-                cache=_at(pools[name], i), cur_len=cur_len, q_offset=q_offset,
-                page_table=page_table, enc_out=enc_out, prefix_len=prefix_len)
-    return h, caches
+            h, a = _apply_layer(cfg, spec, bp[name], h,
+                                cache=pc[name] if pc is not None else None, **kw)
+            if collect:
+                aux = aux + a
+        return h, aux
+
+    train = (collect and torch.is_grad_enabled()
+             and any(t.requires_grad for t in _leaves(blocks)))
+    step = _remat_wrap(cfg, run_unit) if train else run_unit
+    reps = _unstack(blocks, n_rep) if train else None
+    aux = 0.0
+    for i in range(n_rep):
+        bp = reps[i] if train else _at(blocks, i)
+        h, a = step(h, bp, _at(pools, i) if pools is not None else None)
+        aux = aux + a
+    return h, caches, aux
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def encode(cfg: ModelConfig, params: Params, enc_inputs: torch.Tensor) -> torch.Tensor:
@@ -446,12 +522,9 @@ def encode(cfg: ModelConfig, params: Params, enc_inputs: torch.Tensor) -> torch.
     h = enc_inputs.to(cfg.compute_dtype)
     h = h + layers.sinusoidal_positions(h.shape[1], cfg.d_model, cfg.compute_dtype,
                                         device=h.device)[None]
-    enc_cfg, enc = _enc_cfg(cfg), params["encoder"]
-    for i in range(cfg.n_encoder_layers):
-        for j, spec in enumerate(ENC_UNIT):
-            h = _apply_layer(enc_cfg, spec, _at(enc["blocks"][f"layer{j}"], i), h,
-                             positions=None, cache=None, cur_len=None, q_offset=0,
-                             page_table=None, causal=False)
+    enc = params["encoder"]
+    h, _, _ = forward_hidden(_enc_cfg(cfg), params, h, positions=None, causal=False,
+                             unit=ENC_UNIT, blocks=enc["blocks"])
     return layers.rmsnorm(enc["final_norm"], h)
 
 
@@ -481,6 +554,69 @@ def _unembed(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
+def _prepare_inputs(cfg: ModelConfig, params: Params, batch: dict):
+    """Embed tokens (+ the encoder's output / the image prefix), as the
+    reference's ``_prepare_inputs``.  Returns (h, enc_out, positions,
+    prefix_len)."""
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    enc_out = encode(cfg, params, batch["enc_inputs"]) if cfg.is_encoder_decoder else None
+    prefix_len = 0
+    if cfg.prefix_len > 0 and "prefix_embeds" in batch:
+        pre = _scaled(cfg, batch["prefix_embeds"].to(cfg.compute_dtype))
+        h = torch.cat([pre, h], dim=1)
+        prefix_len = pre.shape[1]
+    s = h.shape[1]
+    if cfg.sinusoidal_pos:
+        h = h + layers.sinusoidal_positions(s, cfg.d_model, cfg.compute_dtype,
+                                            device=h.device)[None]
+    return h, enc_out, torch.arange(s, device=h.device), prefix_len
+
+
+def train_loss(cfg: ModelConfig, params: Params, batch: dict
+               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token CE (+ the MoE aux loss) of a batch: tokens (B, S) [+
+    enc_inputs / prefix_embeds / loss_mask] (reference ``train_loss``).
+    The loss covers text tokens only (not the image prefix), under
+    ``loss_mask`` with its last position zeroed (it has no next token).
+    Returns (ce + router_aux_coef * aux, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    b, s_tok = tokens.shape
+    h, enc_out, positions, prefix_len = _prepare_inputs(cfg, params, batch)
+    h, _, aux = forward_hidden(cfg, params, h, positions=positions, enc_out=enc_out,
+                               prefix_len=prefix_len, causal=True)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    h = layers.rmsnorm(params["final_norm"], h)
+    if prefix_len > 0:
+        h = h[:, prefix_len:]  # loss only over text tokens
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones((b, s_tok), dtype=torch.float32, device=h.device) if mask is None
+            else mask.to(torch.float32).clone())
+    mask[:, -1] = 0.0
+    loss = layers.chunked_cross_entropy(h, _unembed(cfg, params), targets, mask,
+                                        chunk=cfg.loss_chunk, final_softcap=cfg.final_softcap)
+    return loss + cfg.router_aux_coef * aux, {"ce": loss, "aux": aux}
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Total parameter count, from :func:`param_shapes` (reference
+    ``ModelConfig.param_count``)."""
+    return sum(math.prod(shape) for shape in _leaves(param_shapes(cfg)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k + shared experts only;
+    dead padding experts are never touched), as the reference's."""
+    total = param_count(cfg)
+    if cfg.n_experts == 0:
+        return total
+    e_ff = cfg.expert_d_ff or cfg.d_ff
+    per_expert = 3 * cfg.d_model * e_ff
+    n_moe_layers = sum(1 for s in cfg.layer_unit if s.ffn == "moe") * cfg.n_repeats
+    stored = cfg.n_experts_pad or cfg.n_experts
+    return total - n_moe_layers * (stored - cfg.top_k) * per_expert
+
+
 def unembed_f32(cfg: ModelConfig, params: Params) -> torch.Tensor:
     """The (padded_vocab, D) output matrix in f32.  Made once and handed to
     the steps: casting the full table every tick would copy it every tick
@@ -507,8 +643,8 @@ def prefill_chunk_paged(
     h = _embed_tokens(cfg, params, tokens)
     positions = pos0 + torch.arange(h.shape[1], device=h.device)
     h = _add_positions(cfg, h, positions)
-    h, pools = forward_hidden(cfg, params, h, positions=positions, caches=pools,
-                              page_table=page_table, q_offset=pos0)
+    h, pools, _ = forward_hidden(cfg, params, h, positions=positions, caches=pools,
+                                 page_table=page_table, q_offset=pos0)
     return _logits(cfg, params, h[:, -1:], unembed), pools
 
 
@@ -519,9 +655,9 @@ def decode_step_paged(
     """One decode step: tokens (B, 1) at per-slot positions ``cur_len``
     (B,).  Returns logits (B, 1, V) and the pools."""
     h = _add_positions(cfg, _embed_tokens(cfg, params, tokens), cur_len[:, None])
-    h, caches = forward_hidden(cfg, params, h, positions=cur_len[:, None],
-                               caches=caches, page_table=page_table,
-                               cur_len=cur_len)
+    h, caches, _ = forward_hidden(cfg, params, h, positions=cur_len[:, None],
+                                  caches=caches, page_table=page_table,
+                                  cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
 
 
@@ -537,8 +673,8 @@ def decode_step_multi_paged(
     h = _embed_tokens(cfg, params, tokens)
     positions = cur_len.long()[:, None] + torch.arange(tokens.shape[1], device=h.device)
     h = _add_positions(cfg, h, positions)
-    h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
-                               page_table=page_table, cur_len=cur_len)
+    h, caches, _ = forward_hidden(cfg, params, h, positions=positions, caches=caches,
+                                  page_table=page_table, cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
 
 
@@ -561,8 +697,8 @@ def prefill_chunk(
         prefix_len = cfg.prefix_len
     positions = pos0 + torch.arange(h.shape[1], device=h.device)
     h = _add_positions(cfg, h, positions)
-    h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
-                               q_offset=pos0, enc_out=enc_out, prefix_len=prefix_len)
+    h, caches, _ = forward_hidden(cfg, params, h, positions=positions, caches=caches,
+                                  q_offset=pos0, enc_out=enc_out, prefix_len=prefix_len)
     return _logits(cfg, params, h[:, -1:], unembed), caches
 
 
@@ -573,8 +709,8 @@ def decode_step(
     """One decode step over a contiguous cache: tokens (B, 1) at per-slot
     positions ``cur_len`` (B,).  Returns logits (B, 1, V) and the caches."""
     h = _add_positions(cfg, _embed_tokens(cfg, params, tokens), cur_len[:, None])
-    h, caches = forward_hidden(cfg, params, h, positions=cur_len[:, None], caches=caches,
-                               cur_len=cur_len)
+    h, caches, _ = forward_hidden(cfg, params, h, positions=cur_len[:, None],
+                                  caches=caches, cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
 
 
@@ -611,8 +747,8 @@ def decode_step_multi(
     h = _embed_tokens(cfg, params, tokens)
     positions = cur_len.long()[:, None] + torch.arange(tokens.shape[1], device=h.device)
     h = _add_positions(cfg, h, positions)
-    h, caches = forward_hidden(cfg, params, h, positions=positions, caches=caches,
-                               cur_len=cur_len)
+    h, caches, _ = forward_hidden(cfg, params, h, positions=positions, caches=caches,
+                                  cur_len=cur_len)
     return _logits(cfg, params, h, unembed), caches
 
 

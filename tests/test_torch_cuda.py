@@ -11,7 +11,11 @@ config, whisper and jamba) against their eager runs; the engine's stage
 probe leaving a live pool or slot cache as it was with slots active, and
 ``autotune``'s pool rebuild dropping every graph over the old pool; the
 analyzer's quant contract through the quantized kernels and its live sync
-audit (a clean tick passes, a planted ``.item()`` raises).  Every
+audit (a clean tick passes, a planted ``.item()`` raises); training: the
+prefill kernel's and the SSD kernel's ``autograd.Function``s (outputs, lse
+and grads against autograd through the plain versions, f32 1e-4 / bf16
+2e-2 of the plain tensor's largest magnitude) and a 2-layer train step
+card = CPU (grads within 1e-3 of each leaf's largest magnitude).  Every
 test carries
 the ``cuda`` marker and skips without a card.  The file imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
@@ -1470,3 +1474,116 @@ def test_live_audit_passes_a_clean_tick_and_raises_on_a_planted_item(cuda):
     assert [(f.rule, f.target) for f in audit.findings] == [
         ("STR001", "live:StreamedBatchEngine._plain_tick")]
     assert torch.cuda.get_sync_debug_mode() == 0  # the audit leaves the mode off
+
+
+# -- training: the kernels with a backward ----------------------------------------------
+
+TRAIN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of the plain tensor's max
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    dict(h=4, hkv=2, hd=64, sq=96, chunk=32),
+    dict(h=8, hkv=2, hd=128, sq=80, chunk=32, window=24, softcap=30.0),
+    dict(h=4, hkv=4, hd=64, sq=70, chunk=32, causal=False),
+    dict(h=8, hkv=1, hd=256, sq=48, chunk=16, prefix_len=20),
+], ids=["causal", "window_softcap", "noncausal", "prefix"])
+def test_flash_function_on_the_card(cuda, dtype, case):
+    """FlashAttention: the kernel's out and lse and the torch-ops backward's
+    grads against autograd through the plain version; one launch."""
+    from repro_torch.models import attention as A
+
+    c = dict(case)
+    h, hkv, hd, sq, chunk = (c.pop(k) for k in ("h", "hkv", "hd", "sq", "chunk"))
+    kw = dict(causal=True, window=0, softcap=0.0, scale=1.0 / math.sqrt(hd),
+              prefix_len=0) | c
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, dout = (torch.randn((2, sq, h, hd), generator=g, device=cuda).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn((2, sq, hkv, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = FA.KERNEL.launches
+    out, lse = A.FlashAttention.apply(*ins, chunk, kw["causal"], kw["window"], kw["softcap"],
+                                      kw["scale"], 0, kw["prefix_len"])
+    grads = torch.autograd.grad(out, ins, dout)
+    assert FA.KERNEL.launches == n0 + 1 and out.grad_fn is not None
+    pins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want, want_lse = ref.flash_attention_lse_ref(*pins, q_offset=0, **kw)
+    want_grads = torch.autograd.grad(want, pins, dout)
+    assert _rel(lse, want_lse) <= TRAIN_RTOL[dtype]
+    for got, w in zip((out, *grads), (want, *want_grads)):
+        assert _rel(got, w) <= TRAIN_RTOL[dtype]
+
+
+def test_flash_serving_launch_writes_no_lse(cuda):
+    """The serving call is unchanged by the lse output: ops.flash_attention
+    equals flash_attention_lse's output bit for bit."""
+    q, k, v = (torch.randn((1, 64, 8, 128), device=cuda).to(torch.bfloat16) for _ in range(3))
+    k, v = k[:, :, :2].contiguous(), v[:, :, :2].contiguous()
+    plain = ops.flash_attention(q, k, v)
+    out, lse = ops.flash_attention_lse(q, k, v)
+    assert torch.equal(plain, out) and lse.shape == (1, 64, 8) and torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_ssd_function_on_the_card(cuda, dtype):
+    from repro_torch.models import mamba as M
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    b, s, h, p, n, chunk = 2, 96, 4, 64, 64, 32
+    x = torch.randn((b, s, h, p), generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device=cuda) - 2)
+    a = -torch.exp(torch.randn((h,), generator=g, device=cuda))
+    bm, cm = (torch.randn((b, s, n), generator=g, device=cuda).to(dtype) for _ in range(2))
+    st = torch.randn((b, h, p, n), generator=g, device=cuda)
+    dy = torch.randn((b, s, h, p), generator=g, device=cuda).to(dtype)
+    dst = torch.randn((b, h, p, n), generator=g, device=cuda)
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, a, bm, cm, st)]
+    n0 = SSD.KERNEL.launches
+    y, final = M.SSDChunked.apply(*ins, chunk)
+    grads = torch.autograd.grad((y, final), ins, (dy, dst))
+    assert SSD.KERNEL.launches == n0 + 1
+    pins = [t.clone().requires_grad_(True) for t in (x, dt, a, bm, cm, st)]
+    wy, wf = ref.ssd_chunked_ref(*pins[:5], chunk=chunk, init_state=pins[5])
+    wgrads = torch.autograd.grad((wy, wf), pins, (dy, dst))
+    for got, w in zip((y, final, *grads), (wy, wf, *wgrads)):
+        assert _rel(got, w) <= max(TRAIN_RTOL[dtype], SSD_RTOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-2.7b", "whisper-medium"])
+def test_train_step_card_equals_cpu(cuda, arch):
+    """One 2-layer smoke-config train step (f32, remat "dots") on the card and
+    on the CPU from the same params and batch: loss, grad norm and every
+    leaf's grad; a leaf with a CPU grad has a card grad."""
+    from repro_torch.core.tree import tree_from_paths, tree_paths
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), remat="dots")
+    params = T.init_params(cfg, 0, device="cpu")
+    src = SyntheticLM(cfg.vocab_size, global_batch=2, seq_len=32, seed=2,
+                      extra={"enc_inputs": ((cfg.encoder_seq, cfg.d_model), np.float32)}
+                      if cfg.is_encoder_decoder else None)
+    batch = src.batch_at(0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_from_paths((k, v.to(dev).clone()) for k, v in tree_paths(params))
+        m = steps.make_train_step(cfg, adamw.AdamWConfig(), keep_grads=True)(
+            p, adamw.init_state(p), {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})[2]
+        out[dev.type] = m
+    assert float(out["cuda"]["loss"]) == pytest.approx(float(out["cpu"]["loss"]), rel=1e-5)
+    assert float(out["cuda"]["grad_norm"]) == pytest.approx(float(out["cpu"]["grad_norm"]),
+                                                            rel=1e-4)
+    card = dict(tree_paths(out["cuda"]["grads"]))
+    for path, want in tree_paths(out["cpu"]["grads"]):
+        got = card[path].cpu()
+        if want.abs().max() > 0:
+            assert got.abs().max() > 0, path
+        assert _rel(got, want) <= 1e-3, path

@@ -125,7 +125,7 @@ def test_gemma2_layers_match_reference(over):
         want, _, _ = RT._apply_layer(rcfg, rs, pr, jnp.asarray(h), positions=jnp.asarray(pos),
                                      cache=None, cur_len=None, enc_out=None, prefix_len=0,
                                      causal=True)
-        got = PT._apply_layer(pcfg, ps, PT._at(params["blocks"][f"layer{i}"], 0), _t(h),
+        got, _ = PT._apply_layer(pcfg, ps, PT._at(params["blocks"][f"layer{i}"], 0), _t(h),
                               positions=_t(pos), cache=None, cur_len=None, q_offset=0,
                               page_table=None)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)

@@ -85,7 +85,7 @@ def test_hybrid_layer_kinds_match_reference(jamba, pos):
     want, _, _ = RT._apply_layer(rcfg, rcfg.layer_unit[pos], pr, jnp.asarray(h),
                                  positions=jnp.arange(16), cache=None, cur_len=None,
                                  enc_out=None, prefix_len=0, causal=True)
-    got = PT._apply_layer(pcfg, pcfg.layer_unit[pos], PT._at(params["blocks"][f"layer{pos}"], 0),
+    got, _ = PT._apply_layer(pcfg, pcfg.layer_unit[pos], PT._at(params["blocks"][f"layer{pos}"], 0),
                           _t(h), positions=torch.arange(16), cache=None, cur_len=None,
                           q_offset=0, page_table=None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -14,9 +14,12 @@ import pytest
 import torch
 
 from repro_torch import bridge, configs, resolve_device
+from repro_torch.data.pipeline import PrefetchIterator, SyntheticLM
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import transformer as T
 from repro_torch.runtime import kv_cache, serving
+from repro_torch.runtime.trainer import TrainConfig, Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -42,7 +45,9 @@ def test_port_files_are_found():
             "paligemma_3b.py", "model_iface.py", "graphs.py", "layers.py", "trace.py",
             "metrics.py", "slo.py", "requests.py", "overlap.py", "doctor.py",
             "budget.py", "workload.py", "db.py", "profiler.py", "search.py", "astlint.py",
-            "synccheck.py", "kernelcheck.py", "poolcheck.py"} <= names
+            "synccheck.py", "kernelcheck.py", "poolcheck.py", "schedule.py", "adamw.py",
+            "pipeline.py", "checkpointer.py", "fault_tolerance.py", "steps.py", "trainer.py",
+            "train.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -126,3 +131,19 @@ def test_mamba_entry_points_raise_without_cuda(no_cuda):
 
 def _to_numpy(t):
     return {k: _to_numpy(v) if isinstance(v, dict) else v.numpy() for k, v in t.items()}
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    cfg = configs.get_smoke_config("qwen3-4b")
+    tcfg = TrainConfig(global_batch=2, seq_len=8, steps=1, log_every=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launcher.main(["--steps", "1", "--batch", "2", "--seq", "8"])
+    src = iter(SyntheticLM(cfg.vocab_size, global_batch=2, seq_len=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PrefetchIterator(src, depth=0)
+    out = Trainer(cfg, tcfg, device="cpu", log=lambda *_: None).train()
+    assert len(out["losses"]) == 1
+    assert train_launcher.main(["--steps", "1", "--batch", "2", "--seq", "8",
+                                "--device", "cpu"])["final_loss"] is not None

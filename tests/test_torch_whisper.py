@@ -108,7 +108,7 @@ def test_cross_attention_layer_matches_reference(whisper):
     want, _, _ = RT._apply_layer(rcfg, rcfg.layer_unit[0], pr, jnp.asarray(h), positions=None,
                                  cache=None, cur_len=None, enc_out=jnp.asarray(enc_out),
                                  prefix_len=0, causal=True)
-    got = PT._apply_layer(pcfg, pcfg.layer_unit[0], PT._at(params["blocks"]["layer0"], 0),
+    got, _ = PT._apply_layer(pcfg, pcfg.layer_unit[0], PT._at(params["blocks"]["layer0"], 0),
                           _t(h), positions=None, cache=None, cur_len=None, q_offset=0,
                           page_table=None, enc_out=_t(enc_out))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
