@@ -5,9 +5,11 @@
   written last -- a crash mid-save never corrupts the latest checkpoint,
   and ``steps`` never lists a ``.tmp`` directory;
 * **async**: ``save`` takes a host snapshot on the calling thread (the
-  device -> host copy), then serializes it on a worker thread, so the
-  training loop goes on while the files are written; an error of the
-  write surfaces on the next ``wait()`` or ``save()``;
+  device -> host copy; a copy of a CPU tensor too, so the caller may
+  change the tree in place as soon as ``save`` returns), then serializes
+  it on a worker thread, so the training loop goes on while the files are
+  written; an error of the write surfaces on the next ``wait()`` or
+  ``save()``;
 * **auto-resume**: ``latest_step`` / ``restore`` pick up the newest
   complete checkpoint;
 * retention: keep the last ``keep`` checkpoints.
@@ -74,12 +76,14 @@ class Checkpointer:
 
     @staticmethod
     def _snapshot(tree: Params) -> tuple[list[np.ndarray], list[dict]]:
-        """The D2H stage: every leaf as a host numpy array (bf16 as its bit
-        pattern), and the leaves' key paths and types."""
+        """The D2H stage: every leaf copied into a host numpy array (bf16 as
+        its bit pattern), and the leaves' key paths and types.  The copy is
+        made whatever the leaf's device: the training step updates params
+        and moments in place while the worker thread writes."""
         arrays, index = [], []
         for path, t in tree_paths(tree):
             t = torch.as_tensor(t).detach()
-            host = t.to("cpu")
+            host = t.to("cpu", copy=True)
             if t.dtype in _BITS:
                 host = host.view(_BITS[t.dtype])
             arrays.append(host.numpy())

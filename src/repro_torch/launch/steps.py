@@ -74,8 +74,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, accum: int 
             loss = lsum / accum
             parts = {"ce": loss, "aux": auxsum / accum}
         grad_tree = tree_from_paths([(path, g) for (path, _), g in zip(paths, grads)])
-        params, opt_state, om = adamw.apply_updates(opt_cfg, params, grad_tree, opt_state,
-                                                    inplace=True)
+        params, opt_state, om = adamw.apply_updates(opt_cfg, params, grad_tree, opt_state)
         metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
                    "aux": parts["aux"].detach(), **om}
         if keep_grads:

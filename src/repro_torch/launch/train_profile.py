@@ -7,16 +7,13 @@ after ``--warm`` steps measures, each synchronized on the host clock:
 
 * a whole step, and the host's time to issue it (the call returns before
   the card finishes; an issue time close to the step's means the host
-  bounds it);
+  bounds it), after counting the synchronizing CUDA calls one step makes
+  (``torch.cuda.set_sync_debug_mode``): with none, the issue time holds
+  no wait for the card;
 * the loss and gradients alone, then the AdamW update alone;
 * one more step under ``torch.profiler`` (device activity only): device
   busy time by kernel group (the prefill and SSD kernels, bf16 and f32
   matmuls, everything else) and the idle share of the step's wall.
-
-``--prefetch-runs N`` instead trains through ``Trainer`` at the training
-launcher's settings, N runs in turns at prefetch depth 0 and 2
-(``--steps`` steps each), and prints each run's step p50 after its first
-step: what the prefetching worker thread costs or saves a step.
 
     PYTHONPATH=src python3 src/repro_torch/launch/train_profile.py --arch qwen3-4b --full
 
@@ -30,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+import warnings
 
 import torch
 
@@ -59,30 +57,23 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def prefetch_runs(cfg, args, dev) -> dict:
-    """``Trainer`` runs in turns at prefetch depth 0 and 2: each run's step
-    p50 after its first step."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.launch import train as launcher
-    from repro_torch.runtime.trainer import Trainer
-
-    base = launcher.train_config(launcher.parse_args(
-        ["--steps", str(args.steps), "--batch", str(args.batch), "--seq", str(args.seq)]))
-    out: dict = {"depth0": [], "depth2": []}
-    for i in range(args.prefetch_runs):
-        depth = 2 * (i % 2)
-        tr = Trainer(cfg, dataclasses.replace(base, prefetch_depth=depth, log_every=10**6),
-                     device=dev, log=lambda *_: None)
-        p50 = float(np.median(tr.train()["step_s"][1:]))
-        del tr
-        out[f"depth{depth}"].append(p50)
-        print(f"[train_profile] Trainer run {i}, prefetch depth {depth}: step p50 "
-              f"{p50 * 1e3:.1f} ms")
-    print(json.dumps(out))
-    return out
+def _sync_sites(dev: torch.device, fn) -> list[str] | None:
+    """Where ``fn()`` makes a synchronizing CUDA call: the Python line of
+    each (a backward's calls are reported at the ``autograd.grad`` line);
+    None on the CPU."""
+    if dev.type != "cuda":
+        fn()
+        return None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (setting the mode also warns, that the mode is a prototype)
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
 
 
 def main(argv=None) -> dict:
@@ -93,13 +84,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--warm", type=int, default=2)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--prefetch-runs", type=int, default=0)
-    ap.add_argument("--steps", type=int, default=6)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = configs.get_config(args.arch) if args.full else configs.get_smoke_config(args.arch)
-    if args.prefetch_runs:
-        return prefetch_runs(cfg, args, dev)
     params = T.init_params(cfg, 0, device=dev)
     opt = adamw.init_state(params)
     ocfg = adamw.AdamWConfig(lr=1e-3)
@@ -109,6 +96,8 @@ def main(argv=None) -> dict:
     step = steps.make_train_step(cfg, ocfg)
     for i in range(args.warm):
         step(params, opt, batches[i % 2])
+    sites = _sync_sites(dev, lambda: step(params, opt, batches[1]))
+    syncs = None if sites is None else len(sites)
     _sync(dev)
 
     t0 = time.perf_counter()
@@ -126,17 +115,17 @@ def main(argv=None) -> dict:
     fwd_bwd = time.perf_counter() - t0
     grad_tree = tree_from_paths((path, g) for (path, _), g in zip(tree_paths(params), grads))
     t0 = time.perf_counter()
-    adamw.apply_updates(ocfg, params, grad_tree, opt, inplace=True)
+    adamw.apply_updates(ocfg, params, grad_tree, opt)
     _sync(dev)
     update = time.perf_counter() - t0
     del grads, grad_tree, loss
 
     out = {"arch": args.arch, "full": args.full, "batch": args.batch, "seq": args.seq,
-           "remat": cfg.remat, "step_s": whole, "issue_s": issue, "fwd_bwd_s": fwd_bwd,
-           "adamw_s": update}
+           "remat": cfg.remat, "syncs": syncs, "sync_sites": sites, "step_s": whole,
+           "issue_s": issue, "fwd_bwd_s": fwd_bwd, "adamw_s": update}
     print(f"[train_profile] {args.arch}{' full' if args.full else ''} {args.batch} x "
-          f"{args.seq}, remat {cfg.remat}: step {whole * 1e3:.1f} ms (host issue "
-          f"{issue * 1e3:.1f} ms); loss + grads {fwd_bwd * 1e3:.1f} ms, AdamW "
+          f"{args.seq}, remat {cfg.remat}: {syncs} synchronizing calls a step {sites}; step "
+          f"{whole * 1e3:.1f} ms (host issue {issue * 1e3:.1f} ms); loss + grads {fwd_bwd * 1e3:.1f} ms, AdamW "
           f"{update * 1e3:.1f} ms")
     if dev.type == "cuda":
         from torch.autograd import DeviceType

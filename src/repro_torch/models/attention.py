@@ -79,13 +79,29 @@ def _pick_chunk(s: int, chunk: int, *, at_least: int = 0) -> int:
     return s
 
 
+def _visible(qpos, kpos, *, causal: bool, window: int, prefix_len: int):
+    """Which keys each query sees, from query positions ``qpos`` (n, 1) and
+    key positions ``kpos`` (1, m), numpy or torch integers alike: (n, m)
+    booleans, or None where every key is seen."""
+    m = None
+    if causal:
+        m = qpos >= kpos
+        if prefix_len > 0:
+            m = m | (kpos < prefix_len)
+    if window > 0:
+        w = qpos - kpos < window
+        m = w if m is None else m & w
+    return m
+
+
 def _block_pairs(n_q: int, n_k: int, *, causal: bool, window: int, chunk_q: int,
-                 chunk_k: int, q_offset: int = 0, prefix_len: int = 0):
-    """The (q-chunk, k-chunk) pairs that hold a visible entry, each with its
-    (chunk_q, chunk_k) boolean mask (the reference's ``_block_pairs``, the
-    masks kept per pair)."""
+                 chunk_k: int, q_offset: int = 0, prefix_len: int = 0
+                 ) -> list[tuple[int, int, bool]]:
+    """The (q-chunk, k-chunk) pairs that hold a visible entry (the
+    reference's ``_block_pairs``), decided on the host, each with whether
+    every entry of the pair is visible."""
     out = []
-    oq, ok_ = np.arange(chunk_q), np.arange(chunk_k)
+    oq, ok_ = np.arange(chunk_q)[:, None], np.arange(chunk_k)[None, :]
     for qi in range(n_q):
         for kj in range(n_k):
             q_lo = qi * chunk_q + q_offset
@@ -96,16 +112,10 @@ def _block_pairs(n_q: int, n_k: int, *, causal: bool, window: int, chunk_q: int,
                 continue
             if window > 0 and q_lo - k_hi >= window:
                 continue
-            qpos, kpos = q_lo + oq, k_lo + ok_
-            m = np.ones((chunk_q, chunk_k), bool)
-            if causal:
-                m = qpos[:, None] >= kpos[None, :]
-                if prefix_len > 0:
-                    m = m | (kpos[None, :] < prefix_len)
-            if window > 0:
-                m = m & (qpos[:, None] - kpos[None, :] < window)
-            if m.any():
-                out.append((qi, kj, m))
+            m = _visible(q_lo + oq, k_lo + ok_, causal=causal, window=window,
+                         prefix_len=prefix_len)
+            if m is None or m.any():
+                out.append((qi, kj, m is None or bool(m.all())))
     return out
 
 
@@ -129,6 +139,10 @@ def flash_backward(q, k, v, out, lse, dout, *, chunk: int, causal: bool, window:
     pairs = _block_pairs(sq // chunk_q, sk // chunk_k, causal=causal, window=window,
                          chunk_q=chunk_q, chunk_k=chunk_k, q_offset=q_offset,
                          prefix_len=prefix_len)
+    # a partly visible pair's mask is built on the card (a host mask's copy
+    # would wait for the stream)
+    oq = torch.arange(chunk_q, device=q.device)[:, None]
+    ok_ = torch.arange(chunk_k, device=q.device)[None, :]
     f32 = torch.float32
     kf = k.repeat_interleave(g, dim=2).float()  # (B, Sk, H, hd): head h reads kv head h // g
     vf = v.repeat_interleave(g, dim=2).float()
@@ -137,13 +151,16 @@ def flash_backward(q, k, v, out, lse, dout, *, chunk: int, causal: bool, window:
     dq = torch.zeros((b, sq, h, hd), dtype=f32, device=q.device)
     dk = torch.zeros((b, sk, h, hd), dtype=f32, device=q.device)
     dv = torch.zeros((b, sk, h, hd), dtype=f32, device=q.device)
-    for qi, kj, mask in pairs:
+    for qi, kj, full in pairs:
         qs = slice(qi * chunk_q, (qi + 1) * chunk_q)
         ks = slice(kj * chunk_k, (kj + 1) * chunk_k)
         qc, kc, vc, do = qf[:, qs], kf[:, ks], vf[:, ks], dof[:, qs]
         s_cap = layers.softcap(torch.einsum("bqhd,bkhd->bhqk", qc, kc) * scale, softcap)
-        ok = torch.as_tensor(mask, device=q.device)
-        p = torch.where(ok, torch.exp(s_cap - lse[:, qs].permute(0, 2, 1)[..., None]), 0.0)
+        p = torch.exp(s_cap - lse[:, qs].permute(0, 2, 1)[..., None])
+        if not full:
+            mask = _visible(oq + (qs.start + q_offset), ok_ + ks.start, causal=causal,
+                            window=window, prefix_len=prefix_len)
+            p = torch.where(mask, p, 0.0)
         dv[:, ks] += torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), do)
         dp = torch.einsum("bqhd,bkhd->bhqk", do, vc)
         ds = p * (dp - delta[:, qs].permute(0, 2, 1)[..., None])

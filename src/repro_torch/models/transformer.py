@@ -584,7 +584,8 @@ def train_loss(cfg: ModelConfig, params: Params, batch: dict
     h, enc_out, positions, prefix_len = _prepare_inputs(cfg, params, batch)
     h, _, aux = forward_hidden(cfg, params, h, positions=positions, enc_out=enc_out,
                                prefix_len=prefix_len, causal=True)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    if not isinstance(aux, torch.Tensor):  # no MoE layer
+        aux = h.new_zeros((), dtype=torch.float32)
     h = layers.rmsnorm(params["final_norm"], h)
     if prefix_len > 0:
         h = h[:, prefix_len:]  # loss only over text tokens

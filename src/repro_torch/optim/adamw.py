@@ -9,10 +9,10 @@ when the norm exceeds it, and decay applies to every leaf with ``ndim >=
 2`` -- in this layout every block leaf carries the repeat axis, so the
 stacked norm scales ``(r, D)`` are decayed too, as in the reference.
 
-:func:`apply_updates` returns new tensors by default, as the reference's
-does.  ``inplace=True`` writes them into the params and moments instead
-(the training step's commit: a second copy of a 4B-parameter model's state
-would not fit beside the first on an 80 GB card).  Every scalar of the step
+:func:`apply_updates` writes the new values into the params and moments
+it is given (the reference returns new arrays; a second copy of a
+4B-parameter model's state would not fit beside the first on an 80 GB
+card, so the training step commits in place).  Every scalar of the step
 (the norm, the clip scale, the LR, the bias corrections) is computed before
 the first write, and each leaf is updated in slices of at most
 ``SLICE`` elements, so the only allocations during the writes are one
@@ -27,7 +27,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.tree import tree_from_paths, tree_map, tree_paths
+from repro_torch.core.tree import tree_map, tree_paths
 
 Params = dict
 SLICE = 1 << 24  # elements of one leaf updated at a time (64 MiB of f32)
@@ -86,16 +86,15 @@ def _update(cfg: AdamWConfig, p, g, m, v, *, scale, lr, bc1, bc2, decay: bool):
     return p.float() - lr * step, m, v
 
 
-def apply_updates(cfg: AdamWConfig, params: Params, grads: Params, state: dict, *,
-                  inplace: bool = False) -> tuple[Params, dict, dict[str, torch.Tensor]]:
-    """One AdamW step.  Returns (new params, new state, {"grad_norm",
-    "lr"}); with ``inplace`` the params and ``state`` themselves, updated
-    (the count too)."""
+def apply_updates(cfg: AdamWConfig, params: Params, grads: Params, state: dict
+                  ) -> tuple[Params, dict, dict[str, torch.Tensor]]:
+    """One AdamW step, in place.  Returns (the params, ``state``, {"grad_norm",
+    "lr"}), the params and the state (the count too) updated."""
     count = state["count"] + 1
     gnorm = global_norm(grads)
     scale = torch.where(gnorm > cfg.grad_clip, cfg.grad_clip / gnorm.clamp_min(1e-9),
                         1.0).to(torch.float32)
-    lr = torch.tensor(cfg.lr, dtype=torch.float32, device=gnorm.device)
+    lr = torch.full((), cfg.lr, dtype=torch.float32, device=gnorm.device)
     if cfg.schedule is not None:
         lr = lr * cfg.schedule(count)
     cf = count.to(torch.float32)
@@ -104,40 +103,27 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params, state: dict, 
     kw = dict(scale=scale, lr=lr, bc1=bc1, bc2=bc2)
 
     gs, ms, vs = (dict(tree_paths(t)) for t in (grads, state["m"], state["v"]))
-    out_p, out_m, out_v = [], [], []
-    touched = False  # an in-place write has begun
+    done = 0  # leaves written
+    touched = False  # a write has begun
     with torch.no_grad():
         try:
             for path, p in tree_paths(params):
                 g, m, v = gs[path], ms[path], vs[path]
-                if inplace:
-                    np_, nm, nv = p, m, v
-                else:
-                    np_, nm, nv = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
-                fp, fg, fm, fv = (t.reshape(-1) for t in (p, g.contiguous(), m, v))
-                tp, tm, tv = np_.view(-1), nm.view(-1), nv.view(-1)
+                fp, fm, fv, fg = p.view(-1), m.view(-1), v.view(-1), g.reshape(-1)
                 decay = p.dim() >= 2 and cfg.weight_decay > 0.0
                 for i in range(0, fp.numel(), SLICE):
                     sl = slice(i, i + SLICE)
                     a, b, c = _update(cfg, fp[sl], fg[sl], fm[sl], fv[sl], decay=decay, **kw)
-                    touched = inplace
-                    tp[sl] = a.to(p.dtype)
-                    tm[sl] = b.to(m.dtype)
-                    tv[sl] = c.to(v.dtype)
-                out_p.append((path, np_))
-                out_m.append((path, nm))
-                out_v.append((path, nv))
-            if inplace:
-                state["count"].copy_(count)
+                    touched = True
+                    fp[sl] = a.to(p.dtype)
+                    fm[sl] = b.to(m.dtype)
+                    fv[sl] = c.to(v.dtype)
+                done += 1
+            state["count"].copy_(count)
         except Exception as e:
             if touched:
                 raise CommitError(
-                    f"AdamW failed after {len(out_p)} leaves were updated in place: "
+                    f"AdamW failed after {done} leaves were updated in place: "
                     f"{type(e).__name__}: {e}") from e
             raise
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    if inplace:
-        return params, state, metrics
-    return (tree_from_paths(out_p),
-            {"m": tree_from_paths(out_m), "v": tree_from_paths(out_v), "count": count},
-            metrics)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

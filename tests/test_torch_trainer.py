@@ -1,8 +1,9 @@
 """The training path's loop half against the JAX package, on the CPU: AdamW
 (``apply_updates`` on identical inputs, from a fresh and a mid-run state,
-f32 and bf16 moments; in place = functional), the schedules, the
+f32 and bf16 moments; the update written into the given tensors), the schedules, the
 synthetic data (bit-equal to the reference's) and the prefetch pipeline,
-the checkpointer (bf16 bit-exact, retention, atomicity, errors), the step
+the checkpointer (bf16 bit-exact, retention, atomicity, errors, a
+snapshot that later in-place changes do not reach), the step
 supervisor (the reference's cases, and a retry after a step that raised
 part way), ``Trainer`` (8 steps from bridged params, losses equal to the
 reference ``Trainer``'s at accum 1 and 2; resume) and the launcher.
@@ -15,6 +16,7 @@ same operations on the same state).
 """
 
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -114,8 +116,12 @@ def test_apply_updates_matches_reference(case):
     rp, rs, rm = RA.apply_updates(rcfg, jax.tree.map(jnp.asarray, params),
                                   jax.tree.map(jnp.asarray, grads),
                                   jax.tree.map(jnp.asarray, rstate))
-    pstate = _port_opt_state(rstate)
-    pp, ps, pm = PA.apply_updates(pcfg, _torch_tree(params), _torch_tree(grads), pstate)
+    pp, pstate = _torch_tree(params), _port_opt_state(rstate)
+    ids = [id(t) for _, t in tree_paths(pp)] + [id(t) for _, t in tree_paths(pstate)]
+    pp2, ps, pm = PA.apply_updates(pcfg, pp, _torch_tree(grads), pstate)
+    # in place: the params and the state given, updated
+    assert pp2 is pp and ps is pstate
+    assert [id(t) for _, t in tree_paths(pp)] + [id(t) for _, t in tree_paths(ps)] == ids
     want = dict(tree_paths({"p": rp, "m": rs["m"], "v": rs["v"]}))
     got = dict(tree_paths({"p": pp, "m": ps["m"], "v": ps["v"]}))
     for path, w in want.items():
@@ -127,14 +133,6 @@ def test_apply_updates_matches_reference(case):
     assert int(ps["count"]) == int(rs["count"])
     np.testing.assert_allclose(float(pm["grad_norm"]), float(rm["grad_norm"]), **OPT_TOL)
     np.testing.assert_allclose(float(pm["lr"]), float(rm["lr"]), **OPT_TOL)
-    # in place: the same values, written into the given tensors
-    ip, ist = _torch_tree(params), _port_opt_state(rstate)
-    ids = [id(t) for _, t in tree_paths(ip)]
-    ip2, ist2, _ = PA.apply_updates(pcfg, ip, _torch_tree(grads), ist, inplace=True)
-    assert [id(t) for _, t in tree_paths(ip2)] == ids and ist2 is ist
-    for path, t in tree_paths(ip):
-        assert torch.equal(t, dict(tree_paths(pp))[path])
-    assert torch.equal(ist["m"]["w"], ps["m"]["w"]) and int(ist["count"]) == int(rs["count"])
 
 
 def test_opt_state_from_numpy_takes_the_reference_state():
@@ -177,8 +175,7 @@ def test_apply_updates_from_a_bridged_mid_run_state(mdt):
     rp, rs, _ = RA.apply_updates(rcfg, rp, jax.tree.map(jnp.asarray, grads[3]), rs)
     pcfg = PA.AdamWConfig(lr=2e-3, moment_dtype=ps["m"]["embed"].dtype,
                           schedule=PS.warmup_cosine(2, 10))
-    PA.apply_updates(pcfg, pp, bridge.params_from_numpy(grads[3], cfg, device="cpu"), ps,
-                     inplace=True)
+    PA.apply_updates(pcfg, pp, bridge.params_from_numpy(grads[3], cfg, device="cpu"), ps)
     got = dict(tree_paths({"p": pp, "m": ps["m"], "v": ps["v"]}))
     for path, w in tree_paths({"p": rp, "m": rs["m"], "v": rs["v"]}):
         # a bf16 leaf: its f32 value one f32 ulp apart can round to
@@ -205,11 +202,11 @@ def test_apply_updates_commit_error_when_a_write_fails(monkeypatch):
 
     monkeypatch.setattr(PA, "_update", flaky)
     with pytest.raises(PA.CommitError, match="1 leaves"):
-        PA.apply_updates(cfg, p, g, st, inplace=True)
+        PA.apply_updates(cfg, p, g, st)
     calls["n"] = 1  # the first write fails: nothing was written, a plain error
     p2 = _torch_tree(params)
     with pytest.raises(RuntimeError, match="out of memory") as e:
-        PA.apply_updates(cfg, p2, g, PA.init_state(p2), inplace=True)
+        PA.apply_updates(cfg, p2, g, PA.init_state(p2))
     assert not isinstance(e.value, PA.CommitError)
 
 
@@ -314,6 +311,35 @@ def test_checkpoint_write_error_surfaces_on_next_wait(tmp_path, monkeypatch):
     assert ck.steps() == []
     with pytest.raises(FileNotFoundError):
         ck.restore(device="cpu")
+
+
+def test_checkpoint_snapshot_is_not_changed_by_later_in_place_updates(tmp_path, monkeypatch):
+    """A non-blocking save of CPU tensors, then the tree changed in place
+    (as the training step does) before the worker writes: the checkpoint
+    holds the values of the save."""
+    ck = Checkpointer(str(tmp_path))
+    go = threading.Event()
+    real = np.savez
+
+    def held(*a, **k):
+        assert go.wait(10)
+        return real(*a, **k)
+
+    monkeypatch.setattr(np, "savez", held)
+    tree = {"p": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+            "m": torch.ones(4, dtype=torch.bfloat16),
+            "count": torch.tensor(3, dtype=torch.int32)}
+    want = {k: v.clone() for k, v in tree.items()}
+    ck.save(3, tree)
+    tree["p"].add_(100.0)
+    tree["m"].mul_(2.0)
+    tree["count"].add_(1)
+    go.set()
+    ck.wait()
+    got, meta = ck.restore(device="cpu")
+    assert meta["step"] == 3
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
 
 
 # -- the supervisor -------------------------------------------------------------------
