@@ -244,6 +244,20 @@ Phases (any failed check raises, and the script exits non-zero):
      run's losses bit for bit (deterministic kernels where torch has
      them), and PrefetchIterator at depth 0 and 2 with host work of half a
      step a batch gives equal losses, both walls printed.
+  14. training over a device mesh: (a) the full qwen3-4b (bf16, 4 x 512,
+     remat dots, phase 13c's settings, 3 steps) through Trainer(mesh=) in a
+     world of 1 over NCCL (mesh 1 x 1: params and moments DTensors, every
+     rule of the policy on axes of size 1), against the single-device
+     Trainer from the same seed, both with deterministic kernels: losses
+     and every param bit-equal (else the largest difference is printed and
+     the check fails); step p50, tokens/s, peak allocated, and the prefill
+     kernel's launches (they join the kernels line); (b) the launcher under
+     ``torch.distributed.run --nproc-per-node 1 --mesh-data 1 --mesh-model
+     1`` on the 2-layer full-width qwen3-4b for 4 steps: exit 0, falling
+     loss; (c) ``repro_torch.launch.dryrun --arch qwen3-4b --shape
+     train_4k --mesh single`` (a fake 256-rank world on the CPU, run beside
+     (a) and (b)): per-rank memory, flops, collective bytes by op and the
+     bottleneck beside the analytic 6 N D.
 On the card every serve's ticks, chunks and page moves replay CUDA graphs
 (runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
 eager step functions and holds the graphed serve to it (tokens identical,
@@ -464,22 +478,15 @@ def flash_case(dtype, sq, q_offset, *, seed=0, h=32, hkv=8, hd=128):
     return q, k, v
 
 
-def flash_bytes_flops(q, k, q_offset, window, *, causal=True, prefix_len=0):
-    """Bytes (q, k, v read once, out written once) and the flops of the
-    scores and P V over the keys each query may see: causal up to its
-    position or the end of a bidirectional prefix, else every key."""
-    sq, h, hd = q.shape[1], q.shape[2], q.shape[3]
-    sk = k.shape[1]
-    keys = 0
-    for i in range(sq):
-        qpos = q_offset + i
-        if not causal:
-            keys += sk
-            continue
-        hi = min(sk, max(qpos + 1, prefix_len))
-        keys += hi - (max(0, qpos - window + 1) if window else 0)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return nbytes, 4.0 * keys * h * hd
+def flash_bytes_flops(q, k, q_offset, window, *, causal=True, prefix_len=0, lse=False):
+    """Bytes (q, k, v read once, out and the lse written once) and the flops
+    of the scores and P V over the keys each query may see: the kernel
+    wrapper's own count (``flash_attention.cost``)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    flops, nbytes = FA.cost(q, k, causal=causal, window=window, q_offset=q_offset,
+                            prefix_len=prefix_len, lse=lse)
+    return nbytes, flops
 
 
 def attn_case(dtype, sq, sk, *, h, hkv, hd, seed):
@@ -519,22 +526,12 @@ def ssd_case(dtype, b, s, *, init, seed=0, h=80, p=64, n=128):
 
 
 def ssd_bytes_flops(x, bm, chunk, init):
-    """Bytes: x, dt, a, B, C and the initial state read once, y and the
-    final state written once.  Operations (what the chunked algorithm
-    needs on these inputs): per batch row, the causal half of each chunk's
-    C B^T (shared by the heads); per head, the decayed scores times x, the
-    carried state's term and the state update."""
-    b, s, h, p = x.shape
-    n = bm.shape[-1]
-    e = x.element_size()
-    state = b * h * p * n * 4
-    nbytes = (2 * x.numel() * e + b * s * h * 4 + h * 4 + 2 * bm.numel() * e
-              + (state if init else 0) + state)
-    pairs = 0
-    for t0 in range(0, s, chunk):
-        q = min(chunk, s - t0)
-        pairs += q * (q + 1) // 2
-    flops = b * (2.0 * pairs * n + h * (2.0 * pairs * p + 4.0 * s * p * n))
+    """Bytes and operations of one scan: the kernel wrapper's own count
+    (``ssd_chunk.cost``: inputs read and outputs written once, the chunked
+    algorithm's products on these inputs)."""
+    from repro_torch.kernels import ssd_chunk as SSD
+
+    flops, nbytes = SSD.cost(x, bm, chunk=chunk, init=init)
     return nbytes, flops
 
 
@@ -3464,8 +3461,7 @@ def train_attn_case(label: str, dtype, c: dict, res13: dict) -> None:
         fwd = functools.partial(FA.flash_attention_lse, q, k, v, causal=True,
                                 scale=kw["scale"])
         ms = device_ms(fwd, iters=QUEUED)
-        nbytes, flops = flash_bytes_flops(q, k, 0, 0)
-        nbytes += b * sq * h * 4  # lse written
+        nbytes, flops = flash_bytes_flops(q, k, 0, 0, lse=True)
         b_ms, b_by = bound(nbytes, flops, dtype)
         sdpa = sdpa_prefill(q, k, v, 0, kw["scale"])
         lib_ms = device_ms(sdpa, iters=QUEUED)
@@ -3766,6 +3762,170 @@ def phase_train(res: dict, smi: str) -> dict:
     return res13
 
 
+MESH_STEPS = 3  # phase 14a
+DRYRUN_OUT = ROOT / "build" / "dryrun_qwen3_train_4k.json"
+
+
+def mesh_env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def mesh_step(res: dict, res14: dict, smi: str) -> None:
+    """(a) Trainer(mesh=) over a 1 x 1 NCCL mesh against the single-device
+    Trainer: the full qwen3-4b at phase 13c's settings for MESH_STEPS
+    steps, deterministic kernels; losses and params bit-equal."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.launch import mesh as M
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = configs.get_config("qwen3-4b")
+    tcfg = TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=MESH_STEPS,
+                       accum=1, log_every=100, lr=1e-3, warmup=2)
+    quiet = lambda *_: None  # noqa: E731
+    alloc = torch.cuda.memory_allocated() / 2**30
+    check(alloc < 2.0, f"mesh: {alloc:.2f} GiB allocated before (a model is alive)")
+    with deterministic():
+        one = Trainer(cfg, tcfg, device="cuda", log=quiet).train()
+    want = {path: t.detach().cpu() for path, t in tree_paths(one["params"])}
+    want_losses, one_p50 = one["losses"], float(np.median(one["step_s"]))
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = M.init_distributed("cuda")
+    try:
+        mesh = M.make_host_mesh(data=1, model=1)
+        counters = zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        with deterministic():
+            out = Trainer(cfg, tcfg, mesh=mesh, device=dev, log=quiet).train()
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        worst, where = 0.0, None
+        for path, t in tree_paths(out["params"]):
+            d = float((t.detach().to_local().float() - want[path].to(t.device).float()).abs().max())
+            if d > worst:
+                worst, where = d, path
+        placements = str(out["params"]["blocks"]["layer0"]["mixer"]["wq"].placements)
+        losses, step_s = out["losses"], out["step_s"]
+        del out
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fold_launches(res, launches)
+    check(losses == want_losses and worst == 0.0,
+          f"mesh 1 x 1: losses {losses} vs single device {want_losses}; largest param "
+          f"difference {worst:.3e} at {where}")
+    n_fa = launches["flash_attention"]
+    check(n_fa >= cfg.n_layers * MESH_STEPS,
+          f"mesh 1 x 1: {n_fa} flash_attention launches < {cfg.n_layers} x {MESH_STEPS}")
+    p50 = float(np.median(step_s))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res14["step"] = {"losses": losses, "step_s": step_s, "step_s_p50": p50,
+                     "single_device_step_s_p50": one_p50,
+                     "tokens_per_s": tokens / p50, "peak_gb": peak,
+                     "launches": {k: v for k, v in launches.items() if v}}
+    print(f"[mesh] (a) qwen3-4b full ({cfg.n_layers} layers, bf16, remat {cfg.remat}), "
+          f"Trainer(mesh=1 x 1 over NCCL), {MESH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"losses {[round(x, 4) for x in losses]} bit-equal to the single-device Trainer's, "
+          f"every param bit-equal (wq placed {placements}); step s "
+          f"{[round(x, 3) for x in step_s]}, p50 {p50:.3f} s (single device {one_p50:.3f} s), "
+          f"{tokens / p50:.0f} tokens/s; "
+          f"peak allocated {peak:.1f} GB; launches {res14['step']['launches']} ({smi})")
+
+
+def mesh_launcher(res14: dict) -> None:
+    """(b) The launcher under torch.distributed.run, one rank over NCCL,
+    on the 2-layer full-width qwen3-4b."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train", "--mesh-data", "1",
+           "--mesh-model", "1", "--full", "--layers", "2", "--steps", "4", "--batch",
+           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=mesh_env(), capture_output=True, text=True,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    line = next((ln for ln in out.stdout.splitlines() if ln.startswith("[train] ")), "")
+    check(out.returncode == 0 and line, f"mesh launcher: exit {out.returncode}\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    first, last = (float(x) for x in line.split("loss ")[1].split(" in ")[0].split(" -> "))
+    check(last < first, f"mesh launcher: loss {first} -> {last}")
+    res14["launcher"] = {"exit": out.returncode, "loss_first": first, "loss_last": last,
+                         "wall_s": wall}
+    print(f"[mesh] (b) {' '.join(cmd[1:])}: exit {out.returncode} in {wall:.1f} s; {line}")
+
+
+def mesh_dryrun_start() -> subprocess.Popen:
+    """(c) The dry run, started in the background on the CPU (fake world)."""
+    DRYRUN_OUT.unlink(missing_ok=True)
+    env = dict(mesh_env(), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen3-4b", "--shape",
+           "train_4k", "--mesh", "single", "--out", str(DRYRUN_OUT)]
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def mesh_dryrun_finish(proc: subprocess.Popen, res14: dict, t_start: float) -> None:
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t_start
+    check(proc.returncode == 0 and DRYRUN_OUT.exists(),
+          f"dryrun: exit {proc.returncode}\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    r = json.loads(DRYRUN_OUT.read_text())[0]
+    check(r["hlo_flops"] > 0 and r["mem_temp_bytes"] > 0 and "all-gather" in
+          r["collective_breakdown"], f"dryrun: {r}")
+    keep = ("mesh", "n_chips", "accum", "mem_argument_bytes", "mem_output_bytes",
+            "mem_temp_bytes", "hlo_flops", "hlo_bytes", "collective_bytes",
+            "collective_breakdown", "bottleneck", "t_compute_s", "t_memory_s",
+            "t_collective_s", "model_flops", "useful_flops_ratio", "trace_s")
+    res14["dryrun"] = {k: r[k] for k in keep}
+    print(f"[mesh] (c) dryrun qwen3-4b train_4k on a fake {r['mesh']} world (rank 0, "
+          f"{r['n_chips']} ranks, accum {r['accum']}, CPU, {wall:.1f} s wall): per-rank "
+          f"memory arguments {r['mem_argument_bytes'] / 1e9:.3f} GB, outputs "
+          f"{r['mem_output_bytes'] / 1e9:.3f} GB, temporaries {r['mem_temp_bytes'] / 1e9:.3f} GB; "
+          f"flops {r['hlo_flops']:.4e} a rank ({r['hlo_flops'] * r['n_chips']:.4e} in all) "
+          f"against the analytic 6 N D {r['model_flops']:.4e} (ratio "
+          f"{r['useful_flops_ratio']:.3f}); bytes {r['hlo_bytes']:.4e}; collective bytes "
+          f"{json.dumps(r['collective_breakdown'])}; bottleneck {r['bottleneck']} "
+          f"(compute {r['t_compute_s']:.3f} s, memory {r['t_memory_s']:.3f} s, collective "
+          f"{r['t_collective_s']:.3f} s at H100 peaks)")
+
+
+def phase_mesh(res: dict, smi: str) -> dict:
+    """Phase 14: (a) the world-of-1 sharded Trainer against the
+    single-device one, (b) the launcher under torch.distributed.run, (c)
+    the dry run, beside them on the CPU."""
+    res14: dict = {}
+    t0 = time.perf_counter()
+    dry = mesh_dryrun_start()
+    try:
+        gc.collect()
+        tracked = len(gc.get_objects())
+        gc.freeze()  # as phase 13: the collector stays off the earlier phases' objects
+        try:
+            mesh_step(res, res14, smi)
+        finally:
+            gc.unfreeze()
+        print(f"[mesh] (a) {time.perf_counter() - t0:.1f}s ({tracked} objects frozen)")
+        t1 = time.perf_counter()
+        mesh_launcher(res14)
+        print(f"[mesh] (b) {time.perf_counter() - t1:.1f}s")
+    finally:
+        mesh_dryrun_finish(dry, res14, t0)
+    print(f"[mesh] summary {json.dumps(res14)}")
+    return res14
+
+
 def _leaves(t):
     for v in t.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -3839,6 +3999,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train(res, smi)
     print(f"[train] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_mesh(res, smi)
+    print(f"[mesh] {time.perf_counter() - t0:.1f}s")
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0],
                 "replaces": KERNELS[n][1], "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import LayerSpec, ModelConfig, smoke_reduce
+from repro_torch.configs.base import SHAPES, LayerSpec, ModelConfig, ShapeSpec, smoke_reduce
 
 #: arch-id -> module name
 _MODULES: dict[str, str] = {
@@ -34,6 +34,11 @@ def _module(arch: str):
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
+#: The archs whose config module sets ``SUPPORTS_LONG_CONTEXT`` in the
+#: reference (sub-quadratic mixers: they alone get the long_500k cell).
+LONG_CONTEXT = frozenset({"mamba2-2.7b", "mixtral-8x7b", "jamba-1.5-large-398b"})
+
+
 def list_archs() -> list[str]:
     return list(_MODULES)
 
@@ -46,5 +51,24 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
-__all__ = ["LayerSpec", "ModelConfig", "smoke_reduce", "list_archs",
-           "get_config", "get_smoke_config"]
+def supports_long_context(arch: str) -> bool:
+    _module(arch)  # raises on an unknown arch
+    return arch in LONG_CONTEXT
+
+
+def cells(include_skipped: bool = False) -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells (the reference's set); long_500k
+    only for sub-quadratic archs."""
+    out = []
+    for arch in _MODULES:
+        for shape in SHAPES:
+            if shape == "long_500k" and not supports_long_context(arch):
+                if include_skipped:
+                    out.append((arch, shape + ":SKIP"))
+                continue
+            out.append((arch, shape))
+    return out
+
+
+__all__ = ["SHAPES", "ShapeSpec", "LayerSpec", "ModelConfig", "smoke_reduce", "list_archs",
+           "get_config", "get_smoke_config", "supports_long_context", "cells"]

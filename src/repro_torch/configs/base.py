@@ -2,7 +2,7 @@
 
 Field for field the same as ``repro.models.transformer.ModelConfig`` and
 ``LayerSpec`` (a test holds them equal), with torch dtypes in place of jnp
-ones.
+ones; ``ShapeSpec`` and ``SHAPES`` are the reference's assigned shapes.
 """
 
 from __future__ import annotations
@@ -11,6 +11,24 @@ import dataclasses
 from typing import Any
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+#: The assigned LM shape set (same for all 10 archs; reference
+#: ``configs/base.py``).
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,9 +22,10 @@ The paper's overlap model is kept verbatim:
     T_multi-stream  = max(stages) + (sum - max) / n        (pipeline + fill)
 
 The port's copy of the reference ``core/rmetric.py`` (it imports nothing
-of it).  The reference's XLA-text parsers (``collective_bytes_from_hlo``,
-``roofline_from_cost``, ``cost_analysis_scalars``) are not copied: the port
-has no HLO to read.
+of it).  The reference's readers of compiled XLA (``collective_bytes_from_hlo``,
+``cost_analysis_scalars``) read ``core.costanalysis.CostTotals`` in the
+port and live there; :func:`roofline_from_cost` is here, with the H100's
+peaks.
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ class HardwareSpec:
     hbm_bw: float = 3.35e12  # bytes/s
     hbm_bytes: float = 80e9  # capacity, for fit checks
     nvlink_bw: float = 450e9  # bytes/s each way, to the other cards of the host
+    # bytes/s each way off the host: one 400 Gb/s ConnectX-7 InfiniBand port a
+    # GPU (NVIDIA DGX H100 data sheet: 8 x 400 Gb/s for 8 GPUs)
+    ib_bw: float = 50e9
+    cards_per_host: int = 8
     pcie_bw: float = 64e9  # bytes/s each way, PCIe Gen5 x16 (the H2D/D2H link)
     smem_per_sm_bytes: int = 232_448  # shared memory one block can use
     l2_bytes: float = 50e6
@@ -196,6 +201,29 @@ def streaming_speedup(times: StageTimes, n_streams: int) -> float:
     if t1 <= 0.0:
         return 0.0
     return 1.0 - tn / t1
+
+
+def roofline_from_cost(
+    *,
+    hlo_flops: float,
+    hlo_bytes: float,
+    collective_bytes: float,
+    n_chips: int,
+    hw: HardwareSpec = H100_SXM,
+) -> RooflineTerms:
+    """The three roofline terms of one step (reference
+    ``rmetric.roofline_from_cost``): each rank's flops over the bf16 peak,
+    its bytes over HBM, its collective bytes over the link.  The counts are
+    per rank already (``core.costanalysis`` counts a rank's local shards).
+    The link: NVLink within one host of ``cards_per_host`` cards, else the
+    InfiniBand port of each card (a 16-wide axis of 8-card hosts spans two
+    hosts)."""
+    link_bw = hw.nvlink_bw if n_chips <= hw.cards_per_host else hw.ib_bw
+    return RooflineTerms(
+        compute=hlo_flops / hw.peak_flops,
+        memory=hlo_bytes / hw.hbm_bw,
+        collective=collective_bytes / link_bw,
+    )
 
 
 def model_flops(n_params: float, n_tokens: float, *, backward: bool = True) -> float:

@@ -26,8 +26,10 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.core import costanalysis
 from repro_torch.kernels._build import CudaKernel, ptr, stream_of
 from repro_torch.kernels.ref import flash_attention_lse_ref as flash_attention_lse_plain
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
@@ -136,6 +138,22 @@ def _launch(q, k, v, lse, *, causal, window, softcap, scale, q_offset, prefix_le
     return out
 
 
+def cost(q, k, *, causal: bool, window: int, q_offset: int, prefix_len: int,
+         lse: bool) -> tuple[float, float]:
+    """(flops, bytes) of one call: the scores and P V over the keys each
+    query sees (causal up to its position or the end of a bidirectional
+    prefix, else every key; within the window), and q, k, v read once, the
+    output (and the lse) written once."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    qpos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk, np.maximum(qpos + 1, prefix_len)) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, dtype=np.int64)
+    keys = int(np.maximum(hi - lo, 0).sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + (b * sq * h * 4 if lse else 0)
+    return 4.0 * b * keys * h * hd, float(nbytes)
+
+
 def _checked(q, k, v, prefix_len: int) -> None:
     _check_inputs(q, k, v)
     if prefix_len < 0:
@@ -160,9 +178,11 @@ def flash_attention(
     _checked(q, k, v, prefix_len)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset, prefix_len=prefix_len)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
-    return _launch(q, k, v, None, **kw)
+    return costanalysis.as_kernel(
+        lambda: (flash_attention_plain(q, k, v, **kw) if q.device.type == "cpu"
+                 else _launch(q, k, v, None, **kw)),
+        lambda: cost(q, k, causal=causal, window=window, q_offset=q_offset,
+                     prefix_len=prefix_len, lse=False))
 
 
 def flash_attention_lse(
@@ -183,8 +203,14 @@ def flash_attention_lse(
     _checked(q, k, v, prefix_len)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset, prefix_len=prefix_len)
-    if q.device.type == "cpu":
-        return flash_attention_lse_plain(q, k, v, **kw)
-    b, sq, h, _ = q.shape
-    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
-    return _launch(q, k, v, lse, **kw), lse
+
+    def run():
+        if q.device.type == "cpu":
+            return flash_attention_lse_plain(q, k, v, **kw)
+        b, sq, h, _ = q.shape
+        lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+        return _launch(q, k, v, lse, **kw), lse
+
+    return costanalysis.as_kernel(
+        run, lambda: cost(q, k, causal=causal, window=window, q_offset=q_offset,
+                          prefix_len=prefix_len, lse=True))

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import costanalysis
 from repro_torch.kernels._build import CudaKernel, ptr, stream_of
 from repro_torch.kernels.ref import ssd_chunked_ref as ssd_chunked_plain
 
@@ -65,6 +66,25 @@ def _check_inputs(x, dt, a, b_, c_, init_state) -> None:
         raise ValueError("ssd: inputs must be contiguous")
 
 
+def cost(x, b_, *, chunk: int, init: bool) -> tuple[float, float]:
+    """(flops, bytes) of one call: per batch row the causal half of each
+    chunk's C B^T (shared by the heads), per head the decayed scores times
+    x, the carried state's term and the state update; x, dt, a, B, C and
+    the initial state read once, y and the final state written once."""
+    b, s, h, p = x.shape
+    n = b_.shape[-1]
+    e = x.element_size()
+    state = b * h * p * n * 4
+    nbytes = (2 * x.numel() * e + b * s * h * 4 + h * 4 + 2 * b_.numel() * e
+              + (state if init else 0) + state)
+    pairs = 0
+    for t0 in range(0, s, chunk):
+        q = min(chunk, s - t0)
+        pairs += q * (q + 1) // 2
+    flops = b * (2.0 * pairs * n + h * (2.0 * pairs * p + 4.0 * s * p * n))
+    return flops, float(nbytes)
+
+
 def ssd_chunked(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H) f32, positive
@@ -81,8 +101,15 @@ def ssd_chunked(
     _check_inputs(x, dt, a, b_, c_, init_state)
     if chunk < 1:
         raise ValueError(f"ssd: chunk must be >= 1, got {chunk}")
-    if x.device.type == "cpu":
-        return ssd_chunked_plain(x, dt, a, b_, c_, chunk=chunk, init_state=init_state)
+    return costanalysis.as_kernel(
+        lambda: (ssd_chunked_plain(x, dt, a, b_, c_, chunk=chunk, init_state=init_state)
+                 if x.device.type == "cpu"
+                 else _launch(x, dt, a, b_, c_, chunk=chunk, init_state=init_state)),
+        lambda: cost(x, b_, chunk=min(chunk, x.shape[1]), init=init_state is not None))
+
+
+def _launch(x, dt, a, b_, c_, *, chunk, init_state) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on CUDA tensors."""
     bsz, s, h, p = x.shape
     n = b_.shape[-1]
     if n > MAX_STATE:

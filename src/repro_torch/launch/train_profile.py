@@ -17,6 +17,11 @@ after ``--warm`` steps measures, each synchronized on the host clock:
 
     PYTHONPATH=src python3 src/repro_torch/launch/train_profile.py --arch qwen3-4b --full
 
+With ``--mesh`` the state is DTensors on a 1 x 1 mesh (a world of 1:
+NCCL on the card, gloo on the CPU) and the step is the sharded one, whose
+only communication is then on axes of size 1: its synchronizing calls
+should be 0 as the single-device step's are.
+
 Needs one CUDA card (``--device cpu`` runs the same timings on the CPU,
 without the profile).  Prints one ``[train_profile]`` line per measurement
 and a JSON summary as its last line.
@@ -25,6 +30,7 @@ and a JSON summary as its last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 import warnings
@@ -35,7 +41,9 @@ import repro_torch.configs as configs
 from repro_torch.core.tree import tree_from_paths, tree_paths
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.launch import steps
+from repro_torch.launch import mesh as M
+from repro_torch.launch import sharding, steps
+from repro_torch.models import meshutil
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -84,15 +92,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--warm", type=int, default=2)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--mesh", action="store_true", help="the sharded step on a 1 x 1 mesh")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = configs.get_config(args.arch) if args.full else configs.get_smoke_config(args.arch)
     params = T.init_params(cfg, 0, device=dev)
-    opt = adamw.init_state(params)
-    ocfg = adamw.AdamWConfig(lr=1e-3)
     src = SyntheticLM(cfg.vocab_size, global_batch=args.batch, seq_len=args.seq)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in src.batch_at(i).items()}
                for i in range(2)]
+    scope = contextlib.nullcontext()
+    if args.mesh:
+        dev = M.init_distributed(args.device)
+        mesh = M.make_host_mesh(data=1, model=1)
+        params = sharding.distribute(params, sharding.param_specs(params, mesh), mesh)
+        local = batches
+        batches = [sharding.distribute_batch(b, mesh) for b in batches]
+        scope = meshutil.use_mesh(mesh, batch_axes=("data",))
+    opt = adamw.init_state(params)
+    ocfg = adamw.AdamWConfig(lr=1e-3)
     step = steps.make_train_step(cfg, ocfg)
     for i in range(args.warm):
         step(params, opt, batches[i % 2])
@@ -108,8 +125,9 @@ def main(argv=None) -> dict:
 
     t0 = time.perf_counter()
     leaves = [p for _, p in tree_paths(params)]
-    loss, _ = T.train_loss(cfg, params, batches[1])
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with scope:
+        loss, _ = T.train_loss(cfg, params, local[1] if args.mesh else batches[1])
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     _sync(dev)
     fwd_bwd = time.perf_counter() - t0
@@ -120,10 +138,11 @@ def main(argv=None) -> dict:
     update = time.perf_counter() - t0
     del grads, grad_tree, loss
 
-    out = {"arch": args.arch, "full": args.full, "batch": args.batch, "seq": args.seq,
-           "remat": cfg.remat, "syncs": syncs, "sync_sites": sites, "step_s": whole,
+    out = {"arch": args.arch, "full": args.full, "mesh": args.mesh, "batch": args.batch,
+           "seq": args.seq, "remat": cfg.remat, "syncs": syncs, "sync_sites": sites, "step_s": whole,
            "issue_s": issue, "fwd_bwd_s": fwd_bwd, "adamw_s": update}
-    print(f"[train_profile] {args.arch}{' full' if args.full else ''} {args.batch} x "
+    print(f"[train_profile] {args.arch}{' full' if args.full else ''}"
+          f"{' on a 1 x 1 mesh' if args.mesh else ''} {args.batch} x "
           f"{args.seq}, remat {cfg.remat}: {syncs} synchronizing calls a step {sites}; step "
           f"{whole * 1e3:.1f} ms (host issue {issue * 1e3:.1f} ms); loss + grads {fwd_bwd * 1e3:.1f} ms, AdamW "
           f"{update * 1e3:.1f} ms")
@@ -151,6 +170,8 @@ def main(argv=None) -> dict:
               + json.dumps({k: round(v, 3) for k, v in sorted(groups.items())}))
         for name, ms, n in out["top"]:
             print(f"[train_profile]   {ms:9.3f} ms  {n:6d} x  {name}")
+    if args.mesh:
+        torch.distributed.destroy_process_group()
     print(json.dumps(out))
     return out
 

@@ -155,13 +155,17 @@ def chunked_cross_entropy(
     *,
     chunk: int = 512,
     final_softcap: float = 0.0,
+    total_count: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Mean CE over masked tokens, streaming over sequence chunks
     (reference ``layers.chunked_cross_entropy``): f32 logits over the
     whole (padded) vocabulary, the final softcap, the masked mean.  The
     table is cast to f32 once, outside the chunk loop; under autograd each
     chunk is a checkpoint, so only one chunk's (B, chunk, V) logits exist
-    at a time, in the backward too."""
+    at a time, in the backward too.  ``total_count``: the denominator in
+    place of the mask's count, when these rows are one rank's share of a
+    batch (the whole batch's count: the ranks' results then sum to its
+    mean)."""
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -177,4 +181,6 @@ def chunked_cross_entropy(
                else _chunk_nll(*args))
         loss_sum = loss_sum + nll
         count = count + mask[:, i:i + chunk].float().sum()
+    if total_count is not None:
+        count = total_count
     return loss_sum / count.clamp_min(1.0)

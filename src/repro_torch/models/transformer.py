@@ -33,6 +33,7 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -41,6 +42,7 @@ from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models import mamba
+from repro_torch.models import meshutil
 from repro_torch.models import moe
 from repro_torch.runtime import sampling
 
@@ -191,18 +193,22 @@ def _layer_init(cfg: ModelConfig, spec: LayerSpec, gen: torch.Generator) -> Para
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
-                device=None) -> Params:
+                device=None, store=None) -> Params:
     """The reference's distributions: truncated-normal fan-in matrices,
     N(0, 0.02) embeddings, zero rmsnorm scales.  Drawn from ``generator``
     (or a generator seeded with it, on ``device``), directly on the device.
     Each repeat's layer is drawn alone and copied into the stacked leaves,
-    so only one layer's temporaries exist at a time."""
+    so only one layer's temporaries exist at a time.  ``store`` keeps the
+    leaves on another device (the host, when each rank of a mesh moves only
+    its own block to its card); the draws, and so the values, stay the
+    generator device's."""
     check_supported(cfg)
     if isinstance(generator, torch.Generator):
         gen = generator
     else:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(generator))
-    dev, dt = gen.device, cfg.param_dtype
+    dt = cfg.param_dtype
+    dev = torch.device(store) if store is not None else gen.device
     shapes = param_shapes(cfg)
 
     def empty(tree):
@@ -217,10 +223,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0, *,
             else:
                 dst[k][i].copy_(v)
 
-    p: Params = {"embed": layers.embed_init(gen, shapes["embed"], dt),
+    p: Params = {"embed": layers.embed_init(gen, shapes["embed"], dt).to(dev),
                  "final_norm": layers.rmsnorm_init(cfg.d_model, dt, dev)}
     if not cfg.tie_embeddings:
-        p["unembed"] = layers.embed_init(gen, shapes["unembed"], dt)
+        p["unembed"] = layers.embed_init(gen, shapes["unembed"], dt).to(dev)
     p["blocks"] = empty(shapes["blocks"])
     for i in range(cfg.n_repeats):
         for j, spec in enumerate(cfg.layer_unit):
@@ -356,13 +362,21 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, 
         kv = (None if cache is None or "k" not in cache
               else {k: cache[k] for k in _KV_LEAVES if k in cache})
         x = layers.rmsnorm(p["mixer_norm"], h)
+        # A rank's heads: all of them, or its tensor-parallel share.
+        n_heads = p["mixer"]["wq"].shape[-1] // cfg.head_dim
+        tp = n_heads != cfg.n_heads
+        if tp:
+            x = meshutil.to_model_parallel(x)
         out, _ = attn_lib.attention_apply(
-            p["mixer"], x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            p["mixer"], x, n_heads=n_heads,
+            n_kv_heads=p["mixer"]["wk"].shape[-1] // cfg.head_dim,
             head_dim=cfg.head_dim, positions=positions if cfg.use_rope else None,
             rope_theta=cfg.rope_theta, causal=causal, window=cfg.spec_window(spec),
             prefix_len=prefix_len, softcap_val=cfg.attn_softcap, scale=cfg.query_scale,
             qk_norm=cfg.qk_norm, chunk=cfg.attn_chunk, cache=kv, cur_len=cur_len,
             q_offset=q_offset, page_table=page_table)
+        if tp:
+            out = meshutil.from_model_parallel(out)
         if cfg.sandwich_norm:
             out = layers.rmsnorm(p["post_mixer_norm"], out)
         h = h + out
@@ -381,16 +395,22 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: Params, h: torch.Tensor, 
         h = h + _cross_attend(cfg, p, h, cache=cache, cur_len=cur_len, enc_out=enc_out)
     if spec.ffn == "dense":
         x = layers.rmsnorm(p["ffn_norm"], h)
-        out = layers.ffn_apply(p["ffn"], x, kind=cfg.ffn_kind)
+        tp = p["ffn"]["wi"].shape[-1] != cfg.d_ff
+        out = layers.ffn_apply(p["ffn"], meshutil.to_model_parallel(x) if tp else x,
+                               kind=cfg.ffn_kind)
+        if tp:
+            out = meshutil.from_model_parallel(out)
         if cfg.sandwich_norm:
             out = layers.rmsnorm(p["post_ffn_norm"], out)
         h = h + out
     elif spec.ffn == "moe":
-        x = layers.rmsnorm(p["ffn_norm"], h)
+        # Routing is decided over the whole batch (a sharded step gathers
+        # every rank's rows; the aux loss is then the whole batch's too).
+        x = meshutil.gather_rows(layers.rmsnorm(p["ffn_norm"], h))
         out, aux = moe.moe_apply(p["ffn"], x, top_k=cfg.top_k,
                                  capacity_factor=cfg.capacity_factor, moe_chunk=cfg.moe_chunk,
                                  impl=cfg.moe_impl, expert_shards=cfg.expert_shards)
-        h = h + out
+        h = h + meshutil.own_rows(out)
     return h, aux
 
 
@@ -477,7 +497,8 @@ def forward_hidden(
     the MoE aux loss summed over layers: without caches only, else 0.0,
     so that a serving step does no extra work).  Without caches, with
     gradients on and params that want them, each repeat's unit runs under
-    ``cfg.remat``."""
+    ``cfg.remat``.  Stored (DTensor) blocks are gathered a repeat at a
+    time, inside the remat region (``meshutil.gather_unit``)."""
     unit = unit if unit is not None else cfg.layer_unit
     blocks = blocks if blocks is not None else params["blocks"]
     pools = caches["blocks"] if caches is not None else None
@@ -488,6 +509,8 @@ def forward_hidden(
     collect = pools is None
 
     def run_unit(h, bp, pc):
+        if sharded:  # FSDP: this repeat's weights, gathered (again in the backward)
+            bp = meshutil.gather_unit(cfg, unit, bp)
         aux = 0.0
         for j, spec in enumerate(unit):
             name = f"layer{j}"
@@ -499,11 +522,12 @@ def forward_hidden(
 
     train = (collect and torch.is_grad_enabled()
              and any(t.requires_grad for t in _leaves(blocks)))
+    sharded = isinstance(next(iter(_leaves(blocks))), DTensor)
     step = _remat_wrap(cfg, run_unit) if train else run_unit
-    reps = _unstack(blocks, n_rep) if train else None
+    reps = _unstack(blocks, n_rep) if train or sharded else None
     aux = 0.0
     for i in range(n_rep):
-        bp = reps[i] if train else _at(blocks, i)
+        bp = reps[i] if reps is not None else _at(blocks, i)
         h, a = step(h, bp, _at(pools, i) if pools is not None else None)
         aux = aux + a
     return h, caches, aux
@@ -572,13 +596,31 @@ def _prepare_inputs(cfg: ModelConfig, params: Params, batch: dict):
     return h, enc_out, torch.arange(s, device=h.device), prefix_len
 
 
+def gathered(params: Params) -> Params:
+    """Stored (DTensor) params as a rank computes with them outside the
+    layer loop: every leaf gathered whole (``meshutil.gather``) but the
+    stacked ``blocks``, which ``forward_hidden`` gathers a repeat at a
+    time.  Local tensors are returned as they are."""
+    return {k: v if k == "blocks" else gathered(v) if isinstance(v, dict)
+            else meshutil.gather(v) for k, v in params.items()}
+
+
 def train_loss(cfg: ModelConfig, params: Params, batch: dict
                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token CE (+ the MoE aux loss) of a batch: tokens (B, S) [+
     enc_inputs / prefix_embeds / loss_mask] (reference ``train_loss``).
     The loss covers text tokens only (not the image prefix), under
     ``loss_mask`` with its last position zeroed (it has no next token).
-    Returns (ce + router_aux_coef * aux, {"ce", "aux"})."""
+    Returns (ce + router_aux_coef * aux, {"ce", "aux"}).
+
+    Inside a sharded step (``meshutil.use_mesh`` with batch axes) the batch
+    is this rank's rows and the stored params are DTensors: the blocks are
+    gathered a repeat at a time, every other leaf whole, here.  The CE is
+    then this rank's share of the whole batch's mean (its masked sum over
+    the whole batch's count) and the MoE aux, already the whole batch's,
+    is divided by the number of batch shards, so that the ranks' losses
+    sum to the reference's loss."""
+    params = gathered(params)
     tokens = batch["tokens"]
     b, s_tok = tokens.shape
     h, enc_out, positions, prefix_len = _prepare_inputs(cfg, params, batch)
@@ -594,9 +636,13 @@ def train_loss(cfg: ModelConfig, params: Params, batch: dict
     mask = (torch.ones((b, s_tok), dtype=torch.float32, device=h.device) if mask is None
             else mask.to(torch.float32).clone())
     mask[:, -1] = 0.0
-    loss = layers.chunked_cross_entropy(h, _unembed(cfg, params), targets, mask,
-                                        chunk=cfg.loss_chunk, final_softcap=cfg.final_softcap)
-    return loss + cfg.router_aux_coef * aux, {"ce": loss, "aux": aux}
+    ctx = meshutil.current()
+    shards = ctx.batch_ways if ctx is not None else 1
+    loss = layers.chunked_cross_entropy(
+        h, _unembed(cfg, params), targets, mask, chunk=cfg.loss_chunk,
+        final_softcap=cfg.final_softcap,
+        total_count=meshutil.batch_sum(mask.sum()) if shards > 1 else None)
+    return loss + cfg.router_aux_coef * aux / shards, {"ce": loss, "aux": aux}
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -18,6 +18,10 @@ the first write, and each leaf is updated in slices of at most
 ``SLICE`` elements, so the only allocations during the writes are one
 slice's f32 temporaries; should the writes still fail part way,
 :class:`CommitError` says that the state is half-updated.
+
+Over a device mesh the params, grads and moments are DTensors of equal
+placements: the update runs on each rank's local shards, and the global
+norm counts every element once (:func:`global_norm`).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.tree import tree_map, tree_paths
 
@@ -51,10 +56,10 @@ class AdamWConfig:
 
 
 def init_state(params: Params, moment_dtype=torch.float32) -> dict[str, Any]:
-    """Zero moments shaped as the params, and a 0-d int32 step count, on
-    the params' device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)  # noqa: E731
-    dev = tree_paths(params)[0][1].device
+    """Zero moments shaped (and, for DTensor params, placed) as the params,
+    and a 0-d int32 step count, on the params' device."""
+    zeros = lambda p: torch.zeros_like(p, dtype=moment_dtype)  # noqa: E731
+    dev = _local(tree_paths(params)[0][1]).device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -65,12 +70,35 @@ def _sq_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts).sum() if len(parts) > 1 else parts[0]
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the same storage); a tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum over leaves (in ``tree_paths`` order) of each
-    leaf's f32 sum of squares."""
+    leaf's f32 sum of squares.  DTensor leaves: each rank sums its shard's
+    squares, and those sums are added over the mesh dims that shard the
+    leaf only (one all-reduce for each set of sharding dims), so an
+    element replicated over a dim counts once, not once a rank.  On a mesh
+    of one rank that is one set, summed in leaf order: the single-device
+    norm, bit for bit."""
     total = None
+    parts: dict[tuple, torch.Tensor] = {}
+    mesh = None
     for _, x in tree_paths(tree):
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            key = tuple(isinstance(pl, Shard) and n > 1
+                        for pl, n in zip(x.placements, mesh.shape))
+            s = _sq_sum(x.to_local())
+            parts[key] = s if key not in parts else parts[key] + s
+            continue
         s = _sq_sum(x)
+        total = s if total is None else total + s
+    for key, s in parts.items():
+        s = DTensor.from_local(s, mesh, [Partial() if k else Replicate() for k in key])
+        s = s.full_tensor()
         total = s if total is None else total + s
     return total.sqrt()
 
@@ -90,7 +118,7 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params, state: dict
                   ) -> tuple[Params, dict, dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns (the params, ``state``, {"grad_norm",
     "lr"}), the params and the state (the count too) updated."""
-    count = state["count"] + 1
+    count = _local(state["count"]) + 1
     gnorm = global_norm(grads)
     scale = torch.where(gnorm > cfg.grad_clip, cfg.grad_clip / gnorm.clamp_min(1e-9),
                         1.0).to(torch.float32)
@@ -108,9 +136,9 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params, state: dict
     with torch.no_grad():
         try:
             for path, p in tree_paths(params):
-                g, m, v = gs[path], ms[path], vs[path]
-                fp, fm, fv, fg = p.view(-1), m.view(-1), v.view(-1), g.reshape(-1)
                 decay = p.dim() >= 2 and cfg.weight_decay > 0.0
+                p, g, m, v = (_local(t) for t in (p, gs[path], ms[path], vs[path]))
+                fp, fm, fv, fg = p.view(-1), m.view(-1), v.view(-1), g.reshape(-1)
                 for i in range(0, fp.numel(), SLICE):
                     sl = slice(i, i + SLICE)
                     a, b, c = _update(cfg, fp[sl], fg[sl], fm[sl], fv[sl], decay=decay, **kw)
@@ -119,7 +147,7 @@ def apply_updates(cfg: AdamWConfig, params: Params, grads: Params, state: dict
                     fm[sl] = b.to(m.dtype)
                     fv[sl] = c.to(v.dtype)
                 done += 1
-            state["count"].copy_(count)
+            _local(state["count"]).copy_(count)
         except Exception as e:
             if touched:
                 raise CommitError(

@@ -1,5 +1,5 @@
 """Trainer: the end-to-end training loop (reference ``runtime/trainer.py``),
-on one device.
+on one device or over a device mesh.
 
 Streams in play per step:
   L1  host batch prefetch (``PrefetchIterator``: the next batches' H2D on
@@ -9,8 +9,15 @@ Streams in play per step:
   L3  grad-accumulation micro-batch streaming inside the train step,
 plus fault tolerance: supervised steps with retry (the step leaves the
 state as it was when it raises before its commit), auto-resume from the
-latest checkpoint, straggler logging.  Training over a device mesh (the
-reference's ``mesh=``) comes with the mesh slice.
+latest checkpoint, straggler logging.
+
+With ``mesh=`` (a ``DeviceMesh`` over this process's group; every rank
+runs its own Trainer) the params and AdamW moments are DTensors placed by
+``sharding.param_specs``; every rank draws the same global batch from
+``SyntheticLM`` (bit-equal to the reference's per (seed, step)) and keeps
+its own rows (``sharding.local_batch``) before the copy to the card; the
+losses are logged on rank 0 (every rank holds them); a restore re-meshes
+the checkpoint onto the current mesh, whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -20,11 +27,15 @@ import time
 from typing import Any, Callable
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_from_paths, tree_paths
 from repro_torch.data.pipeline import PrefetchIterator, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -57,14 +68,14 @@ class Trainer:
         log: Callable[[str], None] = print,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): training over a device mesh is not ported yet "
-                "(ROADMAP A12b); the port trains on one device")
+        if mesh is not None and not dist.is_initialized():
+            raise RuntimeError("Trainer(mesh=...) needs the process group the mesh was built "
+                               "over (launch.mesh.init_distributed)")
         self.cfg = cfg
         self.tcfg = tcfg
         self.mesh = mesh
-        self.log = log
+        rank0 = mesh is None or dist.get_rank() == 0
+        self.log = log if rank0 else (lambda _msg: None)
         self.device = resolve_device(device)
         self.supervisor = StepSupervisor()
         self.ckpt = (
@@ -79,9 +90,20 @@ class Trainer:
 
     def init_state(self, seed: int) -> tuple[Any, Any]:
         """Params drawn from ``seed`` on the trainer's device, and zero
-        AdamW state."""
-        params = T.init_params(self.cfg, seed, device=self.device)
+        AdamW state; on a mesh the draws (the same values) are kept on the
+        host and each rank moves only its block of them to its card."""
+        if self.mesh is None:
+            params = T.init_params(self.cfg, seed, device=self.device)
+        else:
+            params = T.init_params(self.cfg, seed, device=self.device, store="cpu")
+            params = sharding.distribute(params, self._param_specs(), self.mesh)
         return params, adamw.init_state(params, self.opt_cfg.moment_dtype)
+
+    def _param_specs(self):
+        """The params' spec tree on the trainer's mesh, from their shapes."""
+        shapes = tree_paths(T.param_shapes(self.cfg))
+        return sharding.param_specs(
+            tree_from_paths([(p, torch.empty(s, device="meta")) for p, s in shapes]), self.mesh)
 
     def _source(self, start_step: int) -> PrefetchIterator:
         extra = {}
@@ -91,12 +113,13 @@ class Trainer:
         if self.cfg.prefix_len:
             extra["prefix_embeds"] = (
                 (self.cfg.prefix_len, self.cfg.d_model), np.float32)
-        src = SyntheticLM(
+        src = iter(SyntheticLM(
             self.cfg.vocab_size, global_batch=self.tcfg.global_batch,
-            seq_len=self.tcfg.seq_len, seed=self.tcfg.seed, extra=extra)
+            seq_len=self.tcfg.seq_len, seed=self.tcfg.seed, extra=extra))
+        if self.mesh is not None:  # this rank's rows, before the copy
+            src = (sharding.local_batch(b, self.mesh, accum=self.tcfg.accum) for b in src)
         return PrefetchIterator(
-            iter(src), depth=self.tcfg.prefetch_depth, start_step=start_step,
-            device=self.device)
+            src, depth=self.tcfg.prefetch_depth, start_step=start_step, device=self.device)
 
     # -- loop -------------------------------------------------------------------
 
@@ -118,6 +141,10 @@ class Trainer:
         try:
             for step in range(start_step, self.tcfg.steps):
                 batch = next(data)
+                if self.mesh is not None:
+                    batch = sharding.from_local_batch(
+                        batch, self.mesh, global_batch=self.tcfg.global_batch,
+                        accum=self.tcfg.accum)
 
                 def run(batch=batch):
                     nonlocal params, opt_state
@@ -159,5 +186,12 @@ class Trainer:
         }
 
     def _restore(self):
-        tree, meta = self.ckpt.restore(device=self.device)
+        """The latest checkpoint; on a mesh, read on the host and each rank's
+        block moved to its card (elastic re-mesh: any mesh may have saved it)."""
+        if self.mesh is None:
+            tree, meta = self.ckpt.restore(device=self.device)
+        else:
+            specs = self._param_specs()
+            tree, meta = self.ckpt.restore(device="cpu", shardings=(
+                self.mesh, {"params": specs, "opt": sharding.opt_state_specs(specs)}))
         return (tree["params"], tree["opt"]), meta

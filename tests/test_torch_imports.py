@@ -47,7 +47,9 @@ def test_port_files_are_found():
             "budget.py", "workload.py", "db.py", "profiler.py", "search.py", "astlint.py",
             "synccheck.py", "kernelcheck.py", "poolcheck.py", "schedule.py", "adamw.py",
             "pipeline.py", "checkpointer.py", "fault_tolerance.py", "steps.py", "trainer.py",
-            "train.py"} <= names
+            "train.py", "mesh.py", "sharding.py", "meshutil.py", "costanalysis.py",
+            "dryrun.py"} <= names
+    assert ROOT / "src" / "repro_torch" / "core" / "overlap.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -147,3 +149,13 @@ def test_training_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert len(out["losses"]) == 1
     assert train_launcher.main(["--steps", "1", "--batch", "2", "--seq", "8",
                                 "--device", "cpu"])["final_loss"] is not None
+
+
+def test_mesh_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.init_distributed()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launcher.main(["--mesh-data", "1", "--steps", "1", "--batch", "2", "--seq", "8"])
+    assert not torch.distributed.is_initialized()

@@ -487,7 +487,9 @@ def test_trainer_resume_equals_uninterrupted(tmp_path):
 
 def test_trainer_refuses_a_mesh_and_a_torn_state(monkeypatch):
     cfg = PC.get_smoke_config("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="A12b"):
+    # a mesh needs its process group (training over a mesh:
+    # tests/test_torch_multidevice.py)
+    with pytest.raises(RuntimeError, match="process group"):
         Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
 
     def torn(*a, **k):
@@ -509,8 +511,8 @@ def test_launcher_runs_on_cpu(capsys):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("[train] mamba2-2.7b: loss ") and "supervisor: {" in line
     assert len(out["losses"]) == 3
-    with pytest.raises(SystemExit):
-        PLAUNCH.parse_args(["--mesh-data", "2"])
+    mesh_args = PLAUNCH.parse_args(["--mesh-data", "2"])
+    assert (mesh_args.mesh_data, mesh_args.mesh_model) == (2, 1)
     tc = PLAUNCH.train_config(PLAUNCH.parse_args(["--steps", "40"]))
     assert (tc.warmup, tc.checkpoint_every, tc.lr) == (4, 10, 1e-3)
 
