@@ -258,6 +258,18 @@ Phases (any failed check raises, and the script exits non-zero):
      train_4k --mesh single`` (a fake 256-rank world on the CPU, run beside
      (a) and (b)): per-rank memory, flops, collective bytes by op and the
      bottleneck beside the analytic 6 N D.
+  15. the last modules: (a) on phase 5's full qwen3-4b (before its weights
+     are dropped), ServingEngine.prefill_streamed of a B 2 x 512 prompt in 8
+     chunks of 64 against transformer.prefill of the same prompt in one shot
+     (the check): max |dlogit| of the last logits within LAST_RTOL (5e-2,
+     bf16) of the one-shot's largest magnitude, exactly 36 x 8 and 36
+     prefill launches and nothing else, the wall and the peak allocated of
+     each (reset between; O(chunk) vs O(prompt) activations), then generate
+     of 16 tokens through prefill_streamed (its first token the argmax of the
+     streamed logits); (b) after phase 14, each repro_torch.examples module's
+     main in process at the reference's default arguments (train_e2e at
+     --size 10m --steps 40): exit 0, its path's kernels launched, its printed
+     lines kept.  Every launch joins the kernels line.
 On the card every serve's ticks, chunks and page moves replay CUDA graphs
 (runtime/graphs.py): phase 4 also serves each 2-layer case with the card's
 eager step functions and holds the graphed serve to it (tokens identical,
@@ -3926,6 +3938,144 @@ def phase_mesh(res: dict, smi: str) -> dict:
     return res14
 
 
+# -- phase 15: the last modules -----------------------------------------------------
+
+LAST_B, LAST_S, LAST_CHUNK, LAST_NEW = 2, 512, 64, 16  # 15a's prompt, chunk, new tokens
+# 15a: max |streamed - one-shot| of the last logits over the one-shot's largest
+# magnitude.  Both paths round every activation to bf16 (2^-8 relative) but
+# group the matmuls and the prefill kernel's key splits differently, and 36
+# layers carry a last-bit difference on: a few bf16 ulps of the logits, so
+# 5e-2 leaves room without admitting a wrong mask or position (O(1)).
+LAST_RTOL = 5e-2
+E2E_CKPT = ROOT / "build" / "e2e_ckpt"  # train_e2e's checkpoints (git-ignored)
+# Each example at the reference's default arguments, and the kernels its path
+# must launch (serve_streamed's n-gram drafts rarely fire on random prompts, so
+# its verify entry may not run).
+EXAMPLE_RUNS = (
+    ("quickstart", [], ("flash_attention",)),
+    ("serve_streamed", [], ("flash_attention", "paged_attention", "paged_attention_quant")),
+    ("overlap_demo", [], ("streamed_matmul", "fwt", "fwt_columns", "nw_tile")),
+    ("nw_wavefront", [], ("nw_tile",)),
+    ("train_e2e", ["--size", "10m", "--steps", "40", "--ckpt", str(E2E_CKPT)],
+     ("flash_attention",)),
+)
+
+
+def measured_prefill(res: dict, label: str, run, flash: int) -> tuple[torch.Tensor, dict]:
+    """``run()`` (a prefill of the full model, warmed once before) with the
+    launch counts at 0 and the peak memory reset just before it: its wall
+    (synchronized), peak allocated and the peak above what was allocated
+    before (caches + activations), and exactly ``flash`` prefill launches
+    (nothing else launches).  Returns (its logits, the row)."""
+    with torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, launches = count_launches(
+            label, run, lambda _: {name: 0 for name in KERNELS} | {"flash_attention": flash})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fold_launches(res, launches)
+    peak = torch.cuda.max_memory_allocated()
+    return logits.clone(), {"wall_ms": wall * 1e3, "peak_gb": peak / 1e9,
+                            "above_base_gb": (peak - base) / 1e9,
+                            "flash_launches": launches["flash_attention"]}
+
+
+def phase_last_full(res: dict, main: tuple) -> dict:
+    """Phase 15a: on phase 5's full qwen3-4b, ServingEngine.prefill_streamed
+    of a B 2 x 512 prompt in chunks of 64 against transformer.prefill of the
+    same prompt in one shot (the check), then generate of 16 tokens through
+    prefill_streamed."""
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serving import ServeConfig, ServingEngine
+
+    cfg, params = qwen3_4b.CONFIG, main[2]
+    max_seq = LAST_S + LAST_NEW
+    tokens = torch.randint(0, cfg.vocab_size, (LAST_B, LAST_S), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(15)).cuda()
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_seq=max_seq, prefill_chunk=LAST_CHUNK, max_new_tokens=LAST_NEW),
+        device="cuda", unembed=T.unembed_f32(cfg, params))
+    n_chunks = LAST_S // LAST_CHUNK
+    streamed, row_s = measured_prefill(res, "prefill_streamed",
+                                       lambda: eng.prefill_streamed(tokens)[0],
+                                       cfg.n_layers * n_chunks)
+    one, row_o = measured_prefill(res, "transformer.prefill", lambda: T.prefill(
+        cfg, params, {"tokens": tokens}, max_seq=max_seq, unembed=eng.unembed)[0],
+        cfg.n_layers)
+    check(streamed.shape == one.shape == (LAST_B, 1, cfg.padded_vocab),
+          f"last logits {tuple(streamed.shape)} / {tuple(one.shape)}")
+    check(bool(torch.isfinite(streamed).all() and torch.isfinite(one).all()),
+          "non-finite last logits")
+    scale = one.abs().max().item()
+    err = (streamed - one).abs().max().item()
+    check(err <= LAST_RTOL * scale, f"streamed vs one-shot: max |dlogit| {err} > "
+          f"{LAST_RTOL} x {scale}")
+    agree = (streamed.argmax(-1) == one.argmax(-1)).float().mean().item()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, launches = count_launches(
+        "generate", lambda: eng.generate(tokens),
+        lambda _: {name: 0 for name in KERNELS} | {"flash_attention": cfg.n_layers * n_chunks})
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    fold_launches(res, launches)
+    check(tuple(toks.shape) == (LAST_B, LAST_NEW)
+          and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()), f"generate: {toks}")
+    check(torch.equal(toks[:, 0], streamed[:, -1].argmax(-1).to(toks.dtype)),
+          "generate's first token is not the argmax of prefill_streamed's logits")
+    out = {"prompt": [LAST_B, LAST_S], "chunk": LAST_CHUNK, "streamed": row_s,
+           "one_shot": row_o, "max_abs_dlogit": err, "one_shot_max_abs": scale,
+           "rel": err / scale, "tol": LAST_RTOL, "argmax_agreement": agree,
+           "generate": {"tokens": LAST_NEW, "wall_s": gen_s, "flash_launches":
+                        launches["flash_attention"]}}
+    print(f"[last] full qwen3-4b, B {LAST_B} x {LAST_S} tokens: prefill_streamed ({n_chunks} "
+          f"chunks of {LAST_CHUNK}) {row_s['wall_ms']:.2f} ms, peak {row_s['peak_gb']:.3f} GB "
+          f"({row_s['above_base_gb']:.3f} above what was allocated before), "
+          f"{row_s['flash_launches']} prefill launches; transformer.prefill (one shot) "
+          f"{row_o['wall_ms']:.2f} ms, peak {row_o['peak_gb']:.3f} GB "
+          f"({row_o['above_base_gb']:.3f} above), "
+          f"{row_o['flash_launches']} launches; max |dlogit| {err:.4e} = {err / scale:.3e} of "
+          f"{scale:.3f} (tol {LAST_RTOL}), argmax agreement {agree:.2f}; generate "
+          f"{LAST_NEW} tokens {gen_s:.3f} s ({launches['flash_attention']} launches)")
+    del eng
+    return out
+
+
+def phase_last_examples(res: dict) -> dict:
+    """Phase 15b: each repro_torch.examples module's main in process at the
+    reference's default arguments, on the card, with the launch counts at 0
+    just before it; it returns 0 and its path's kernels launch."""
+    import importlib
+    import shutil
+
+    out = {}
+    for name, argv, kernels in EXAMPLE_RUNS:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        shutil.rmtree(E2E_CKPT, ignore_errors=True)
+        counters = zero_counters()
+        t0 = time.perf_counter()
+        rc = module.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        check(rc == 0, f"examples.{name} returned {rc}")
+        for k in kernels:
+            check(launches[k] > 0, f"examples.{name}: {k} not launched")
+        fold_launches(res, launches)
+        out[name] = {"argv": argv, "wall_s": wall,
+                     "launches": {k: n for k, n in launches.items() if n}}
+        print(f"[last] examples.{name} {' '.join(argv)}: exit 0 in {wall:.1f}s; launches "
+              f"{out[name]['launches']}")
+    shutil.rmtree(E2E_CKPT, ignore_errors=True)
+    return out
+
+
 def _leaves(t):
     for v in t.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -3982,8 +4132,12 @@ def main() -> int:
     print(f"[tune] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_analysis(res, main_path, cache)
-    del main_path  # the full model's weights
     print(f"[analysis] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    last = {"full": phase_last_full(res, main_path)}
+    t_last = time.perf_counter() - t0
+    print(f"[last] (a) {t_last:.1f}s")
+    del main_path  # the full model's weights
     t0 = time.perf_counter()
     phase_main_mamba(res, profile=args.profile)
     print(f"[mamba] {time.perf_counter() - t0:.1f}s")
@@ -4002,6 +4156,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_mesh(res, smi)
     print(f"[mesh] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    last["examples"] = phase_last_examples(res)
+    print(f"[last] (b) {time.perf_counter() - t0:.1f}s")
+    print(f"[last] summary {json.dumps(last)}")
+    print(f"[last] {t_last + time.perf_counter() - t0:.1f}s")
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0],
                 "replaces": KERNELS[n][1], "launches": r["launches"],
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

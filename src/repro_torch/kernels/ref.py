@@ -22,6 +22,11 @@ import torch
 NEG_INF = -1e30
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or kept in f64 (the tests' near-exact emulations)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _softcap(s: torch.Tensor, cap: float) -> torch.Tensor:
     return s if cap <= 0.0 else cap * torch.tanh(s / cap)
 
@@ -76,7 +81,8 @@ def paged_attention_multi_ref(
 ) -> torch.Tensor:
     """The ``q_len > 1`` twin of :func:`paged_attention_ref`: query t of row
     b sits at position ``cur_len[b] + t`` and sees keys at positions
-    ``<= cur_len[b] + t`` (causal within the block, and the window)."""
+    ``<= cur_len[b] + t`` (causal within the block, and the window).  In
+    f32, or in f64 for f64 inputs."""
     b, t, h, hd = q.shape
     _, bs, hkv, _ = k_pool.shape
     g = h // hkv
@@ -84,9 +90,9 @@ def paged_attention_multi_ref(
     s_log = n_pages * bs
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     pt = page_table.long()
-    k = k_pool[pt].reshape(b, s_log, hkv, hd).float()
-    v = v_pool[pt].reshape(b, s_log, hkv, hd).float()
-    qf = q.float().reshape(b, t, hkv, g, hd)
+    k = _wide(k_pool[pt].reshape(b, s_log, hkv, hd))
+    v = _wide(v_pool[pt].reshape(b, s_log, hkv, hd))
+    qf = _wide(q).reshape(b, t, hkv, g, hd)
     s = torch.einsum("btngd,bknd->bngtk", qf, k) * scale
     s = _softcap(s, softcap)
     pos = torch.arange(s_log, device=q.device)[None, None, :]
@@ -155,8 +161,9 @@ def paged_attention_multi_split_plain(q, k_pool, v_pool, page_table, cur_len, *,
     folded into P, which then meets the V codes, as in the kernel.
     ``p_bits`` is that P as P V takes it (see :func:`_pv_operand`): "f32",
     "bf16" (the kernel's tensor cores over bf16 pages) or "bf16x2" (over
-    code pages).  Equal to :func:`paged_attention_multi_ref` up to f32
-    rounding wherever every row sees some key, with ``p_bits`` "f32"."""
+    code pages).  Equal to :func:`paged_attention_multi_ref` up to rounding
+    wherever every row sees some key, with ``p_bits`` "f32"; f64 inputs
+    are computed in f64, as there."""
     b, t, h, hd = q.shape
     _, bs, hkv, _ = k_pool.shape
     g = h // hkv
@@ -173,11 +180,11 @@ def paged_attention_multi_split_plain(q, k_pool, v_pool, page_table, cur_len, *,
         vs = torch.nn.functional.pad(vs, (0, 0, 0, pad)).permute(0, 2, 1)
     else:
         vs = torch.ones((b, hkv, s_pad), device=q.device)
-    k = k_pool[pt].reshape(b, n_pages * bs, hkv, hd).float()
-    v = v_pool[pt].reshape(b, n_pages * bs, hkv, hd).float()
+    k = _wide(k_pool[pt].reshape(b, n_pages * bs, hkv, hd))
+    v = _wide(v_pool[pt].reshape(b, n_pages * bs, hkv, hd))
     k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    qf = q.float().reshape(b, t, hkv, g, hd)
+    qf = _wide(q).reshape(b, t, hkv, g, hd)
     s = _softcap(torch.einsum("btngd,bknd->bngtk", qf, k) * scale, softcap)
     pos = torch.arange(s_pad, device=q.device)[None, None, :]
     qpos = cur_len.long()[:, None, None] + torch.arange(t, device=q.device)[None, :, None]

@@ -251,24 +251,25 @@ def _slot_state(cfg: ModelConfig, bsz: int, dev) -> Params:
     return {k: v.view(r, bsz, *v.shape[1:]) for k, v in c.items()}
 
 
-def _cross_state(cfg: ModelConfig, bsz: int, dev) -> Params:
+def _cross_state(cfg: ModelConfig, bsz: int, dev, enc_seq: int | None = None) -> Params:
     """A cross-attention layer's slot-indexed encoder K/V: ``cross_k`` /
-    ``cross_v`` (r, B, encoder_seq, n_kv_heads, head_dim) in
+    ``cross_v`` (r, B, enc_seq or encoder_seq, n_kv_heads, head_dim) in
     ``compute_dtype``, written by the prefill, read by decode."""
-    shape = (cfg.n_repeats, bsz, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_repeats, bsz, enc_seq or cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"cross_k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
             "cross_v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
 
 
 def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, *, ring: bool = True,
-               device=None) -> Params:
+               enc_seq: int | None = None, device=None) -> Params:
     """Contiguous decode caches of ``bsz`` rows, stacked over the repeat
     axis per unit position (reference ``transformer.init_cache``):
     attention K/V ``(r, bsz, s_cache, n_kv_heads, head_dim)`` in
     ``compute_dtype``, where ``s_cache`` is ``max_seq`` or, for an SWA
     layer with ``ring=True``, ``min(window, max_seq)`` (a ring buffer; the
     streamed prefill needs ``ring=False``); mamba layers' slot-indexed
-    state; cross-attention layers' slot-indexed encoder K/V."""
+    state; cross-attention layers' slot-indexed encoder K/V of ``enc_seq``
+    rows (default ``encoder_seq``)."""
     dev = resolve_device(device)
     blocks = {}
     for i, spec in enumerate(cfg.layer_unit):
@@ -282,7 +283,7 @@ def init_cache(cfg: ModelConfig, bsz: int, max_seq: int, *, ring: bool = True,
         elif spec.mixer == "mamba":
             c.update(_slot_state(cfg, bsz, dev))
         if spec.cross_attn:
-            c.update(_cross_state(cfg, bsz, dev))
+            c.update(_cross_state(cfg, bsz, dev, enc_seq))
         blocks[f"layer{i}"] = c
     return {"blocks": blocks}
 
@@ -741,12 +742,33 @@ def prefill_chunk(
     prefix_len = 0
     if prefix is not None:
         h = torch.cat([_scaled(cfg, prefix.to(cfg.compute_dtype)), h], dim=1)
-        prefix_len = cfg.prefix_len
+        prefix_len = prefix.shape[1]
     positions = pos0 + torch.arange(h.shape[1], device=h.device)
     h = _add_positions(cfg, h, positions)
     h, caches, _ = forward_hidden(cfg, params, h, positions=positions, caches=caches,
                                   q_offset=pos0, enc_out=enc_out, prefix_len=prefix_len)
     return _logits(cfg, params, h[:, -1:], unembed), caches
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: dict, *, max_seq: int,
+            unembed: torch.Tensor | None = None) -> tuple[torch.Tensor, Params]:
+    """The whole prompt in one shot over fresh contiguous caches of
+    ``max_seq`` rows (reference ``prefill``): ``batch`` holds ``tokens``
+    (B, S) and, as the config wants them, ``enc_inputs`` (B, encoder_seq,
+    D; whisper's encoder runs first and the cross-attention state is sized
+    for its output) and ``prefix_embeds`` (B, prefix_len, D; paligemma's
+    image rows, put before the tokens and seen bidirectionally).  SWA
+    layers keep a ring of their window (``init_cache``'s default).
+    ``unembed`` is :func:`unembed_f32`'s table, made here when None.
+    Returns the last position's f32 logits (B, 1, V) and the caches."""
+    tokens = batch["tokens"]
+    enc_out = encode(cfg, params, batch["enc_inputs"]) if cfg.is_encoder_decoder else None
+    prefix = batch.get("prefix_embeds") if cfg.prefix_len > 0 else None
+    caches = init_cache(cfg, tokens.shape[0], max_seq, device=tokens.device,
+                        enc_seq=enc_out.shape[1] if enc_out is not None else None)
+    unembed = unembed if unembed is not None else unembed_f32(cfg, params)
+    return prefill_chunk(cfg, params, tokens, caches, 0, unembed=unembed, enc_out=enc_out,
+                         prefix=prefix)
 
 
 def decode_step(

@@ -1,6 +1,6 @@
 """Observability of the port's serving engine: trace spans, metrics, SLO
-scoring, request timelines, overlap reconstruction and the doctor (the
-reference ``obs/`` package, copied; ``baseline`` is not).
+scoring, request timelines, overlap reconstruction, the doctor and the
+perf-regression comparator (the reference ``obs/`` package, copied).
 
 ``Tracer`` records per-tick spans on the prefill/decode/transfer tracks
 (Chrome/Perfetto export); ``MetricsRegistry`` holds the engine's
@@ -10,7 +10,9 @@ compares it with the R-gate's analytic prediction.  On top of those:
 ``requests`` rebuilds per-request lifecycles (queue wait, TTFT,
 per-token ITLs, stalls) from a trace, ``slo`` scores them against
 TTFT/ITL targets (attainment + goodput), and ``doctor`` turns a trace into
-a ranked bottleneck diagnosis (``python -m repro_torch.obs.doctor``).
+a ranked bottleneck diagnosis (``python -m repro_torch.obs.doctor``);
+``baseline`` gates fresh bench results against baseline files
+(``python -m repro_torch.obs.baseline``).
 
 The span names, arguments, snapshot schema and trace format are the
 reference's, so either package's readers take the other's files.  Stdlib

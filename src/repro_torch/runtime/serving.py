@@ -366,23 +366,32 @@ class ServingEngine:
             pos += n + (cfg.prefix_len if first and prefix is not None else 0)
             yield logits, caches, pos
 
-    def generate(self, tokens, *, enc_inputs=None, prefix_embeds=None) -> torch.Tensor:
-        """Decode ``max_new_tokens`` after a streamed prefill of ``tokens``
-        (B, S) (reference ``ServingEngine.generate``): every row at one
-        position, one decode step a token over the contiguous cache, the
-        pick on the device.  ``enc_inputs`` (whisper) and ``prefix_embeds``
-        (paligemma) as in :meth:`iter_prefill_chunks`.  At temperature row b
-        draws its token i from stream (uid b, step i) of
-        ``runtime.sampling``, where the reference splits one key for the
-        whole batch per token.  Returns (B, max_new_tokens) int32 on the
-        engine's device."""
-        tokens = torch.as_tensor(np.asarray(tokens, np.int32)).to(self.device)
+    def prefill_streamed(self, tokens, *, enc_inputs=None, prefix_embeds=None
+                         ) -> tuple[torch.Tensor, dict, int]:
+        """The prompt ``tokens`` (B, S) in ``prefill_chunk``-token tasks over a
+        fresh full-length contiguous cache (reference ``prefill_streamed``),
+        eager; ``enc_inputs`` (whisper) and ``prefix_embeds`` (paligemma) as
+        in :meth:`iter_prefill_chunks`.  Returns (the last chunk's last
+        logits (B, 1, V), the caches, the prompt length incl. the prefix)."""
+        tokens = torch.as_tensor(tokens).to(device=self.device, dtype=torch.int32)
         logits = caches = None
         pos = 0
         for logits, caches, pos in self.iter_prefill_chunks(
                 tokens, enc_inputs=enc_inputs, prefix_embeds=prefix_embeds):
             pass
-        b = tokens.shape[0]
+        return logits, caches, pos
+
+    def generate(self, tokens, *, enc_inputs=None, prefix_embeds=None) -> torch.Tensor:
+        """Decode ``max_new_tokens`` after :meth:`prefill_streamed` of
+        ``tokens`` (B, S) (reference ``ServingEngine.generate``): every row
+        at one position, one decode step a token over the contiguous cache,
+        the pick on the device.  At temperature row b draws its token i from
+        stream (uid b, step i) of ``runtime.sampling``, where the reference
+        splits one key for the whole batch per token.  Returns (B,
+        max_new_tokens) int32 on the engine's device."""
+        logits, caches, pos = self.prefill_streamed(
+            tokens, enc_inputs=enc_inputs, prefix_embeds=prefix_embeds)
+        b = logits.shape[0]
         rows = torch.arange(b, dtype=torch.int32, device=self.device)
         temp = self.scfg.temperature
 

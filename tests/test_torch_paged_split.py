@@ -8,11 +8,22 @@ precision of P over code pools.  The kernel itself runs only on a card:
 ``tests/test_torch_cuda.py``.
 
 Tolerances, max abs error relative to the expected output's largest
-magnitude (at least 1): split emulation vs ``paged_attention_multi_ref``,
-both f32 in PyTorch, 1e-6 (the same sums regrouped by split); vs the JAX
-package 2e-5, as ``tests/test_torch_kernels.py`` (sums in another order).
-Relative to the magnitude because a shielded row attends only trash keys,
-whose garbage here is 100 times the data: its output is in the hundreds.
+magnitude (at least 1): split emulation vs ``paged_attention_multi_ref``
+over every split size and behind the window, both in f64, 1e-6 (the same sums regrouped by
+split); vs the JAX package, in f32, 2e-5, as ``tests/test_torch_kernels.py``
+(sums in another order).  Relative to the magnitude because a shielded row
+attends only trash keys, whose garbage here is 100 times the data: its
+output is in the hundreds.
+
+The regrouping sweep runs in f64 so that its bound does not rest on f32's
+last bits.  Regrouping a sum of n = 144 terms (9 pages of 16 keys) moves it
+by at most 2 (n - 1) u sum |p v| / l <= 2 (n - 1) u max |v|, u the unit
+roundoff (the weights p / l sum to 1), and the data's |v| stays under
+about 4.5: with f64's u = 2^-53 that is 1.4e-13, plus a few ulps from exp
+and the split weights, 10^6 times under 1e-6, while a wrong split, mask or
+weight moves the output by O(1).  In f32 (u = 2^-24) the same worst case
+is 7.7e-5, above 1e-6: the sweep in f32 passed at 0.3 of 1e-6 on every
+thread count tried, but once read 1.9e-5 in a full six-worker suite run.
 
 P over code pools (``ref.cancelling_quant_case``: the output is ~1e-7
 while sum |p v| / l is ~2.5): the emulation with P (times the v scale)
@@ -96,16 +107,24 @@ def _kw(case):
     return {k: case[k] for k in ("window", "softcap") if k in case}
 
 
+def _id(case) -> str:
+    """A case's test id without spaces, e.g. ``t5-cur139_111_88_76-w32``."""
+    tags = {"g": "g", "window": "w", "softcap": "cap", "trash_row": "trash"}
+    return "-".join([f"t{case['t']}", "cur" + "_".join(map(str, case["cur"]))]
+                    + [f"{tag}{case[k]:g}" for k, tag in tags.items() if k in case])
+
+
 def _torch(*arrs):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
 
 
-@pytest.mark.parametrize("pps", range(1, N_PAGES + 1))
-@pytest.mark.parametrize("case", CASES + MASKED_SPLIT_CASES + SINGLE_CASES, ids=str)
+@pytest.mark.parametrize("pps", range(1, N_PAGES + 1), ids=lambda p: f"pps{p}")
+@pytest.mark.parametrize("case", CASES + MASKED_SPLIT_CASES + SINGLE_CASES, ids=_id)
 def test_split_plain_matches_multi_ref(case, pps):
     arrs = _case(1, case["t"], case["cur"], trash_row=case.get("trash_row"),
                  g=case.get("g", 2))
     q, kp, vp, pt, cl = _torch(*arrs)
+    q, kp, vp = q.double(), kp.double(), vp.double()
     got = ref.paged_attention_multi_split_plain(q, kp, vp, pt, cl, pages_per_split=pps,
                                                 scale=0.25, **_kw(case))
     want = ref.paged_attention_multi_ref(q, kp, vp, pt, cl, scale=0.25, **_kw(case))
@@ -113,7 +132,7 @@ def test_split_plain_matches_multi_ref(case, pps):
     assert torch.isfinite(got).all()
 
 
-@pytest.mark.parametrize("case", CASES + MASKED_SPLIT_CASES, ids=str)
+@pytest.mark.parametrize("case", CASES + MASKED_SPLIT_CASES, ids=_id)
 def test_split_plain_matches_pallas_kernel(case):
     arrs = _case(2, case["t"], case["cur"], trash_row=case.get("trash_row"),
                  g=case.get("g", 2))
@@ -142,7 +161,7 @@ def _torch_codes(a):
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
-@pytest.mark.parametrize("case", [CASES[0], CASES[3], *MASKED_SPLIT_CASES], ids=str)
+@pytest.mark.parametrize("case", [CASES[0], CASES[3], *MASKED_SPLIT_CASES], ids=_id)
 def test_split_plain_quant_matches_pallas_kernel(case, kv_dtype):
     q, kp, vp, pt, cl = _case(3, case["t"], case["cur"], trash_row=case.get("trash_row"))
     kc, vc, ks, vs = _quantized(kp, vp, kv_dtype)
@@ -160,7 +179,7 @@ def test_split_plain_quant_matches_pallas_kernel(case, kv_dtype):
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
-@pytest.mark.parametrize("case", SINGLE_CASES, ids=str)
+@pytest.mark.parametrize("case", SINGLE_CASES, ids=_id)
 def test_split_plain_single_token_matches_pallas_kernel(case, kv_dtype):
     """q_len 1 through the split arithmetic, as the single-token entries run
     it, against the JAX package's single-token kernel (full-precision or
@@ -220,6 +239,7 @@ def test_a_split_behind_the_window_has_no_keys():
     any row may see, and the result still equals the reference."""
     case = MASKED_SPLIT_CASES[0]
     q, kp, vp, pt, cl = _torch(*_case(4, case["t"], case["cur"]))
+    q, kp, vp = q.double(), kp.double(), vp.double()
     lo = 139 - case["window"] + 1  # the oldest row's first visible key
     assert lo // 16 >= 2 * 3  # splits 0-2 (pages 0-5) lie wholly behind it
     vp_poisoned = vp.clone()
@@ -242,7 +262,7 @@ def test_a_split_behind_the_window_has_no_keys():
     ((128, 8, 5, 4, 9, 128), (1, 20, 9, 1, (128, 8, 1), None)),  # 1024 pairs: no split
     ((4, 8, 1, 4, 9, 128), (1, 4, 2, 5, (4, 8, 5), (640, 130))),  # decode tick
     ((4, 8, 1, 4, 128, 128), (1, 4, 8, 16, (4, 8, 16), (4 * 8 * 16 * 4, 130))),  # long
-], ids=str)
+], ids=lambda v: str(v).replace(" ", ""))
 def test_plan_split(shape, want):
     p = PA.plan_split(*shape)
     assert (p.tiles, p.tile_rows, p.pages_per_split, p.n_splits, p.grid,
