@@ -826,6 +826,7 @@ def phase_kernels() -> dict:
         lambda: SSD.ssd_chunked(xs, dts, as_, bs_, cs_, chunk=256, init_state=sts),
         lambda: SSD.ssd_chunked_plain(xs, dts, as_, bs_, cs_, chunk=256, init_state=sts),
         None, ssd_bytes_flops(xs, bs_, 64, True))
+    row4_other = other_body_ms(qf, kf, vf, scale=scale, q_offset=64)
     for name, (kern, plain, lib, (nbytes, flops)) in timed.items():
         r = res[name]
         r["ms"], r["plain_ms"] = device_ms(kern, iters=QUEUED), time_ms(plain)
@@ -839,30 +840,43 @@ def phase_kernels() -> dict:
               + (f"; fp8 codes: kernel {fp8_ms[name]:.4f} ms" if name in fp8_ms else "")
               + (f"; {split_plan(qm if 'multi' in name else q, kp, pt)}"
                  if name.startswith("paged") else "")
-              + (f"; {flash_plan(qf, kf)}" if name == "flash_attention" else ""))
+              + (f"; {flash_plan(qf, kf)}; the {row4_other[0]} body {row4_other[1]:.4f} ms"
+                 if name == "flash_attention" else ""))
     long_context(scale)
     prefill_long_context(scale)
     slice_rows()
     return res
 
 
-def sdpa_masked(q, k, v, scale, mask=None):
+def sdpa_masked(q, k, v, scale, mask=None, *, is_causal=False):
     """SDPA over (B, S, H, hd) inputs, heads-first copies made once outside
-    the call, with an optional boolean (Sq, Sk) mask; returns the call."""
+    the call, with an optional boolean (Sq, Sk) mask or ``is_causal`` (the
+    plain causal mask at q_offset 0, which lets SDPA take its FlashAttention
+    backend); returns the call."""
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
-                                                  enable_gqa=True)
+                                                  is_causal=is_causal, enable_gqa=True)
+
+
+def yardstick(libs: dict) -> tuple[float, str]:
+    """The fastest of several PyTorch calls computing the same function
+    (device time, queued) and its name."""
+    times = {name: device_ms(fn, iters=QUEUED) for name, fn in libs.items()}
+    name = min(times, key=times.get)
+    return times[name], name
 
 
 def slice_rows() -> dict:
-    """Rows 4b, 4c and 5b of PERF.md's kernel table, and whisper's paged
-    decode, bf16: each kernel at phase 9's shapes beside its plain version,
-    the library call (SDPA with the prefix-LM boolean mask for 4b, without a
-    mask for 4c; none for the SSD scan) and its bound.  Printed as one
-    ``[kernels] rows`` JSON line; the kernels JSON keeps the serve shapes'
-    numbers."""
+    """Rows 4b, 4c, 4e and 5b of PERF.md's kernel table, and whisper's paged
+    decode, bf16: each kernel at its path's shapes beside its plain
+    version, the library call (SDPA with the prefix-LM boolean mask for 4b,
+    without a mask for 4c, with the causal mask both as a boolean matrix
+    and as ``is_causal=True`` for 4e, the faster named; none for the SSD
+    scan) and its bound; a prefill row also gives its plan and the other
+    tensor-core body's time on the same inputs.  Printed as one ``[kernels]
+    rows`` JSON line; the kernels JSON keeps the serve shapes' numbers."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as PA
@@ -877,7 +891,8 @@ def slice_rows() -> dict:
     entries["4b prefill, prefix_len 256 (paligemma's first chunk: Sq 320, hd 256, g 8)"] = (
         lambda: ops.flash_attention(q, k, v, prefix_len=256, scale=sc),
         lambda: FA.flash_attention_plain(q, k, v, prefix_len=256, scale=sc),
-        sdpa_masked(q, k, v, sc, mask), flash_bytes_flops(q, k, 0, 0, prefix_len=256))
+        {"sdpa, boolean mask": sdpa_masked(q, k, v, sc, mask)},
+        flash_bytes_flops(q, k, 0, 0, prefix_len=256), (q, k, v, dict(prefix_len=256, scale=sc)))
     sw = 64 ** -0.5
     for sq in (1500, 64):
         qe, ke, ve = attn_case(dt, sq, 1500, seed=8, **WHISPER_ATTN)
@@ -888,28 +903,53 @@ def slice_rows() -> dict:
             lambda qe=qe, ke=ke, ve=ve: ops.flash_attention(qe, ke, ve, causal=False),
             lambda qe=qe, ke=ke, ve=ve: FA.flash_attention_plain(qe, ke, ve, causal=False,
                                                                  scale=sw),
-            sdpa_masked(qe, ke, ve, sw), flash_bytes_flops(qe, ke, 0, 0, causal=False))
+            {"sdpa, no mask": sdpa_masked(qe, ke, ve, sw)},
+            flash_bytes_flops(qe, ke, 0, 0, causal=False),
+            (qe, ke, ve, dict(causal=False, scale=sw)))
+    # 4e: phase 15's one-shot prefill (qwen3-4b, B 2 x 512, causal at q_offset 0)
+    g10 = torch.Generator(device="cuda").manual_seed(10)
+    qo = torch.randn((LAST_B, LAST_S, 32, 128), generator=g10, device="cuda").to(dt)
+    ko, vo = (torch.randn((LAST_B, LAST_S, 8, 128), generator=g10, device="cuda").to(dt)
+              for _ in range(2))
+    so = 128 ** -0.5
+    causal = torch.ones((LAST_S, LAST_S), dtype=torch.bool, device="cuda").tril()
+    entries[f"4e prefill, causal (qwen3-4b's one-shot prefill: B {LAST_B} x Sq {LAST_S}, "
+            "hd 128, g 4)"] = (
+        lambda: ops.flash_attention(qo, ko, vo, scale=so),
+        lambda: FA.flash_attention_plain(qo, ko, vo, scale=so),
+        {"sdpa, boolean mask": sdpa_masked(qo, ko, vo, so, causal),
+         "sdpa, is_causal": sdpa_masked(qo, ko, vo, so, is_causal=True)},
+        flash_bytes_flops(qo, ko, 0, 0), (qo, ko, vo, dict(scale=so)))
     qp, kp, vp, pt, cl = paged_case(dt, [143, 115, 92, 80], seed=9, **WHISPER_ATTN)
     entries["1 paged decode (whisper: hd 64, g 1, B 4, 9 pages)"] = (
         lambda: ops.paged_attention(qp, kp, vp, pt, cl),
         lambda: PA.paged_attention_plain(qp, kp, vp, pt, cl, scale=sw),
-        sdpa_paged(qp, kp, vp, pt, cl, sw), paged_bytes_flops(qp, kp, pt, cl, 0))
+        {"sdpa, boolean mask": sdpa_paged(qp, kp, vp, pt, cl, sw)},
+        paged_bytes_flops(qp, kp, pt, cl, 0), None)
     xs, dts, as_, bs_, cs_, sts = ssd_case(dt, 1, 64, init=True, seed=9, **JAMBA_SSD)
     entries["5b SSD scan (jamba: b 1, a 64-token chunk, H 128, P 128, N 128)"] = (
         lambda: SSD.ssd_chunked(xs, dts, as_, bs_, cs_, chunk=256, init_state=sts),
         lambda: SSD.ssd_chunked_plain(xs, dts, as_, bs_, cs_, chunk=256, init_state=sts),
-        None, ssd_bytes_flops(xs, bs_, 64, True))
+        None, ssd_bytes_flops(xs, bs_, 64, True), None)
     rows = {}
-    for name, (kern, plain, lib, (nbytes, flops)) in entries.items():
+    for name, (kern, plain, libs, (nbytes, flops), flash) in entries.items():
         b_ms, b_by = bound(nbytes, flops, dt)
+        lib_ms, lib_name = yardstick(libs) if libs else (None, None)
         row = {"ms": device_ms(kern, iters=QUEUED), "plain_ms": time_ms(plain, iters=10),
-               "library_ms": device_ms(lib, iters=QUEUED) if lib is not None else None,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+               "library_ms": lib_ms, "library": lib_name, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "flops": flops}
+        extra = ""
+        if flash is not None:  # the prefill rows: held to the plain version here too
+            fq, fk, fv, fkw = flash
+            err = held_prefill(f"row {name}", kern(), plain(), fq, fk, fv, **fkw)
+            other, other_ms = other_body_ms(fq, fk, fv, **fkw)
+            row |= {"max_abs_err": err, "plan": flash_plan(fq, fk), f"{other}_body_ms": other_ms}
+            extra = f"; max abs err {err:.3e}; the {other} body {other_ms:.4f} ms; {row['plan']}"
         rows[name] = row
-        lib_ms = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms ({lib_name})"
         print(f"[kernels] row {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-              f"ms, library {lib_ms}, bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes, "
-              f"{flops:.0f} flops), {row['ms'] / b_ms:.1f}x bound")
+              f"ms, library {lib}, bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes, "
+              f"{flops:.0f} flops), {row['ms'] / b_ms:.1f}x bound" + extra)
     print("[kernels] rows " + json.dumps(rows))
     return rows
 
@@ -941,19 +981,79 @@ def sdpa_prefill(q, k, v, q_offset, scale):
 
 
 def flash_plan(q, k) -> str:
-    """The prefill kernel's plan for these inputs: body, tiling, grid."""
+    """The prefill kernel's plan for these inputs: body, tiling, grid,
+    key splits."""
     from repro_torch.kernels import flash_attention as FA
 
-    p = FA.plan_flash(q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], q.dtype)
+    p = FA.plan_flash(q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], q.dtype,
+                      sk=k.shape[1])
+    if p.body == "wg":
+        return (f"plan: wg body, blocks of {p.block_rows} rows ({p.warps} warps), key tiles "
+                f"of {p.key_tile}, {p.key_splits} key split(s) of "
+                f"{FA.tiles_per_split(p, k.shape[1])} tiles, "
+                f"grid {p.grid} = {p.blocks} blocks")
     return (f"plan: {p.body} body, {p.key_splits} key split(s) a block of {p.warps} warps, "
             f"{p.key_tile}-key softmax steps, grid {p.grid} = {p.blocks} blocks")
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def held_prefill(label: str, got, want, q, k, v, **kw) -> float:
+    """A bf16 prefill row's output held to the plain version ``want``
+    within 2 bf16 ulps of max|want| (each rounds once to bf16; P's rounding
+    per key tile moves less) and, on a tensor-core body, to that body's
+    emulation (``ref.flash_attention_tc_plain`` at the plan's key tile and
+    splits: the same roundings, f32 sums in another order) within 2 ulps of
+    its max, the card tests' rule: a key left unmasked past Sk, or splits
+    combined wrongly, move the output by more.  Returns the max abs error
+    against the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    lim = 2 * bf16_ulp(want.abs().max().item())
+    check(err <= lim, f"{label}: max abs err {err} against the plain version > {lim}")
+    plan = FA.plan_flash(q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], q.dtype,
+                         sk=k.shape[1])
+    if plan.body in ("tc", "wg"):
+        emul = ref.flash_attention_tc_plain(q, k, v, key_tile=plan.key_tile,
+                                            key_splits=plan.key_splits,
+                                            contiguous=plan.body == "wg", **kw).float()
+        e_err = (got - emul).abs().max().item()
+        e_lim = 2 * bf16_ulp(emul.abs().max().item())
+        check(e_err <= e_lim, f"{label}: max abs err {e_err} against the {plan.body} body's "
+                              f"emulation > {e_lim}")
+    return err
+
+
+def other_body_ms(q, k, v, **kw) -> tuple[str, float]:
+    """The device time of the bf16 tensor-core body that ``plan_flash`` does
+    not pick for these inputs (``tc`` or ``wg``, with its own tiling), on
+    the same inputs: the crossover's evidence in the same call."""
+    from repro_torch.kernels import flash_attention as FA
+
+    b, sq, h, hd = q.shape
+    hkv, sk = k.shape[2], k.shape[1]
+    body = FA.plan_flash(b, sq, h, hkv, hd, q.dtype, sk=sk).body
+    other = (FA.tc_plan(b, sq, h, hkv) if body == "wg"
+             else FA.wg_plan(b, sq, h, hkv, hd, sk=sk))
+    kw = dict(causal=True, window=0, softcap=0.0, q_offset=0, prefix_len=0) | kw
+    return other.body, device_ms(functools.partial(FA._launch, q, k, v, None, plan=other, **kw),
+                                 iters=QUEUED)
 
 
 def prefill_long_context(scale) -> None:
     """The prefill kernel, bf16, at the serve's chunk (Sq 64 at q_offset 64)
     and at a long context (Sq 64 at q_offset LONG_Q_OFFSET), beside SDPA and
-    the bound, each first held against the plain version.  Printed only:
-    the kernels JSON keeps the serve shape's numbers."""
+    the bound, each first held against the plain version and its body's
+    emulation (``held_prefill``); the long context's split plan also with
+    the lse the combine writes, against the plain logsumexp (1e-3 of its
+    largest magnitude, as the card tests).  Printed only: the kernels JSON
+    keeps the serve shape's numbers."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
 
@@ -965,15 +1065,21 @@ def prefill_long_context(scale) -> None:
         b_ms, b_by = bound(nbytes, flops, dt)
         lib_ms = device_ms(sdpa_prefill(q, k, v, off, scale), iters=QUEUED)
         kern = functools.partial(ops.flash_attention, q, k, v, scale=scale, q_offset=off)
-        got = kern()
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        check(err <= TOL[dt], f"flash_attention q_offset {off}: {err}")
+        err = held_prefill(f"flash_attention q_offset {off}", kern(), want, q, k, v,
+                           scale=scale, q_offset=off)
+        if off == LONG_Q_OFFSET:
+            _, lse = FA.flash_attention_lse(q, k, v, scale=scale, q_offset=off)
+            _, want_lse = FA.flash_attention_lse_plain(q, k, v, scale=scale, q_offset=off)
+            lse_err = (lse - want_lse).abs().max().item()
+            check(lse_err <= 1e-3 * want_lse.abs().max().item(),
+                  f"flash_attention q_offset {off}: lse max abs err {lse_err}")
         ms = device_ms(kern, iters=QUEUED)
+        other, other_ms = other_body_ms(q, k, v, scale=scale, q_offset=off)
         print(f"[kernels] flash_attention Sq=64 q_offset={off} (Sk {off + 64}): "
               f"kernel {ms:.4f} ms, library {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), "
               f"bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes, {flops:.0f} flops), "
-              f"{ms / b_ms:.1f}x bound; max abs err {err:.3e}; {flash_plan(q, k)}")
+              f"{ms / b_ms:.1f}x bound; the {other} body {other_ms:.4f} ms; max abs err "
+              f"{err:.3e}; {flash_plan(q, k)}")
 
 
 def long_context(scale) -> None:
@@ -1367,20 +1473,37 @@ def kernel_counters() -> dict:
             "fwt_columns": FWT.COLUMNS_KERNEL, "nw_tile": NW.KERNEL}
 
 
+class Launches(dict):
+    """Each kernel's launches (name -> count) read from ``counters``, and in
+    ``by_body`` the prefill kernel's by body (its ``parts``)."""
+
+    def __init__(self, counters: dict):
+        from repro_torch.kernels import flash_attention as FA
+
+        super().__init__({name: c.launches for name, c in counters.items()})
+        parts = counters["flash_attention"].parts
+        self.by_body = {b: parts.get(b, 0) for b in FA.BODIES}
+
+
 def zero_counters() -> dict:
     """Every kernel's launch count set to 0; returns the counters."""
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
+        c.parts.clear()
     return counters
 
 
-def fold_launches(res: dict, launches: dict) -> None:
+def fold_launches(res: dict, launches: Launches) -> None:
     """A measured run's launches join the earlier phases' in the kernels line
-    (a kernel that no phase has launched yet starts from 0)."""
+    (a kernel that no phase has launched yet starts from 0); the prefill
+    kernel's are also counted by body."""
     for name, n in launches.items():
         if n:
             res[name]["launches"] = res[name].get("launches", 0) + n
+    by_body = res["flash_attention"].setdefault("launches_by_body", {})
+    for body, n in launches.by_body.items():
+        by_body[body] = by_body.get(body, 0) + n
 
 
 def expected_launches(cfg, eng) -> dict:
@@ -1413,9 +1536,12 @@ def count_launches(label: str, run, want):
     counts)."""
     counters = zero_counters()
     out = run()
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = Launches(counters)
     expect = want(out)
     check(launches == expect, f"{label}: launches {launches} != {expect}")
+    check(sum(launches.by_body.values()) == launches["flash_attention"],
+          f"{label}: prefill launches by body {launches.by_body} do not sum to "
+          f"{launches['flash_attention']}")
     return out, launches
 
 
@@ -2500,7 +2626,7 @@ def phase_analysis(res: dict, main: tuple, cache: dict) -> dict:
     t0 = time.perf_counter()
     report = cli.run(device="cuda")
     wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = Launches(counters)
     unwaived, waived = apply_waivers(report["findings"], load_waivers(WAIVERS))
     check(not unwaived and not waived,
           "analysis: findings " + "; ".join(str(f) for f in unwaived + waived))
@@ -2779,6 +2905,10 @@ def phase_zoo_full(res: dict, arch: str, cfg, runs, *, note: str = "",
                 res, f"{arch} {label}", lambda: serve(cfg, params, "cuda", rq, encs=encs, **kw),
                 lambda o: expected_launches(cfg, o[0]))
             check_graphed(eng, f"{arch} {label}")
+            if cfg.n_encoder_layers:  # each encode (Sq = Sk 1500) on the wgmma body
+                check(launches.by_body["wg"] >= cfg.n_encoder_layers * eng.admissions,
+                      f"{arch} {label}: prefill launches by body {launches.by_body}, "
+                      f"{eng.admissions} encodes of {cfg.n_encoder_layers} layers")
             for i, (t, lg) in enumerate(zip(toks, logits)):
                 check(len(t) == NEW_TOKENS and bool(((t >= 0) & (t < cfg.padded_vocab)).all()),
                       f"{arch} {label} request {i}: {t}")
@@ -3373,11 +3503,9 @@ def phase_streams(res: dict) -> list[dict]:
     with every launch count set to 0 just before it and read just after."""
     from repro_torch.launch import streams as S
 
-    counters = kernel_counters()
-    for c in counters.values():
-        c.launches = 0
+    counters = zero_counters()
     results = S.run(device="cuda", n_tasks=8, streams=4)
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = Launches(counters)
     # FWT: 2 launches a task run, one of the row pass and one of the column pass
     per_task = {"matmul": {"streamed_matmul": 1}, "fwt": {"fwt": 1, "fwt_columns": 1},
                 "nw": {"nw_tile": 1}}
@@ -3470,13 +3598,16 @@ def train_attn_case(label: str, dtype, c: dict, res13: dict) -> None:
     line = (f"[train] (a) attention {label}, {str(dtype).removeprefix('torch.')}: "
             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) + f" (tol {tol} x max)")
     if dtype == torch.bfloat16 and label == "qwen3-4b":
+        held_prefill(f"train attention {label}", out.detach(), want.detach(), q, k, v, **kw)
         fwd = functools.partial(FA.flash_attention_lse, q, k, v, causal=True,
                                 scale=kw["scale"])
         ms = device_ms(fwd, iters=QUEUED)
         nbytes, flops = flash_bytes_flops(q, k, 0, 0, lse=True)
         b_ms, b_by = bound(nbytes, flops, dtype)
-        sdpa = sdpa_prefill(q, k, v, 0, kw["scale"])
-        lib_ms = device_ms(sdpa, iters=QUEUED)
+        lib_ms, lib_name = yardstick({
+            "sdpa, boolean mask": sdpa_prefill(q, k, v, 0, kw["scale"]),
+            "sdpa, is_causal": sdpa_masked(q, k, v, kw["scale"], is_causal=True)})
+        other, other_ms = other_body_ms(q, k, v, scale=kw["scale"])
         bwd = functools.partial(A.flash_backward, q, k, v, out.detach(), lse, dout,
                                 q_offset=0, chunk=chunk, **kw)
         plain_ms = time_ms(functools.partial(ref.flash_attention_lse_ref, q, k, v, q_offset=0,
@@ -3490,11 +3621,12 @@ def train_attn_case(label: str, dtype, c: dict, res13: dict) -> None:
         sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(so, (qt, kt, vt), dot,
                                                           retain_graph=True), iters=10, warmup=2)
         res13["row_4d"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                           "plain_ms": plain_ms, "bwd_torch_ops_ms": bwd_ms,
-                           "sdpa_bwd_ms": sdpa_bwd_ms}
-        line += (f"; row 4d: forward with lse {ms:.4f} ms, SDPA {lib_ms:.4f} ms "
-                 f"({ms / lib_ms:.2f}x), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
-                 f"({b_by}), {flash_plan(q, k)}; "
+                           "library": lib_name, f"{other}_body_ms": other_ms,
+                           "plan": flash_plan(q, k), "plain_ms": plain_ms,
+                           "bwd_torch_ops_ms": bwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms}
+        line += (f"; row 4d: forward with lse {ms:.4f} ms, {lib_name} {lib_ms:.4f} ms "
+                 f"({ms / lib_ms:.2f}x), the {other} body {other_ms:.4f} ms, plain "
+                 f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), {flash_plan(q, k)}; "
                  f"backward (torch ops, no kernel) {bwd_ms:.3f} ms, SDPA's backward "
                  f"{sdpa_bwd_ms:.3f} ms")
     print(line)
@@ -3615,8 +3747,11 @@ def train_full(res: dict, res13: dict, smi: str) -> None:
                              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum", "1",
                              "--lr", "1e-3"])
         torch.cuda.synchronize()
-        launches = {name: c.launches for name, c in counters.items()}
+        launches = Launches(counters)
         fold_launches(res, launches)
+        if arch == "qwen3-4b":  # every forward (4 x 512) on the wgmma body
+            check(0 < launches["flash_attention"] == launches.by_body["wg"],
+                  f"train {arch}: prefill launches by body {launches.by_body}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         losses = out["losses"]
         check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
@@ -3816,7 +3951,7 @@ def mesh_step(res: dict, res14: dict, smi: str) -> None:
         with deterministic():
             out = Trainer(cfg, tcfg, mesh=mesh, device=dev, log=quiet).train()
         torch.cuda.synchronize()
-        launches = {name: c.launches for name, c in counters.items()}
+        launches = Launches(counters)
         peak = torch.cuda.max_memory_allocated() / 1e9
         worst, where = 0.0, None
         for path, t in tree_paths(out["params"]):
@@ -3981,7 +4116,8 @@ def measured_prefill(res: dict, label: str, run, flash: int) -> tuple[torch.Tens
     peak = torch.cuda.max_memory_allocated()
     return logits.clone(), {"wall_ms": wall * 1e3, "peak_gb": peak / 1e9,
                             "above_base_gb": (peak - base) / 1e9,
-                            "flash_launches": launches["flash_attention"]}
+                            "flash_launches": launches["flash_attention"],
+                            "flash_by_body": launches.by_body}
 
 
 def phase_last_full(res: dict, main: tuple) -> dict:
@@ -4007,6 +4143,9 @@ def phase_last_full(res: dict, main: tuple) -> dict:
     one, row_o = measured_prefill(res, "transformer.prefill", lambda: T.prefill(
         cfg, params, {"tokens": tokens}, max_seq=max_seq, unembed=eng.unembed)[0],
         cfg.n_layers)
+    check(row_o["flash_by_body"]["wg"] == cfg.n_layers,
+          f"transformer.prefill (B {LAST_B} x {LAST_S}): prefill launches by body "
+          f"{row_o['flash_by_body']}, want all {cfg.n_layers} on the wgmma body")
     check(streamed.shape == one.shape == (LAST_B, 1, cfg.padded_vocab),
           f"last logits {tuple(streamed.shape)} / {tuple(one.shape)}")
     check(bool(torch.isfinite(streamed).all() and torch.isfinite(one).all()),
@@ -4040,7 +4179,8 @@ def phase_last_full(res: dict, main: tuple) -> dict:
           f"{row_s['flash_launches']} prefill launches; transformer.prefill (one shot) "
           f"{row_o['wall_ms']:.2f} ms, peak {row_o['peak_gb']:.3f} GB "
           f"({row_o['above_base_gb']:.3f} above), "
-          f"{row_o['flash_launches']} launches; max |dlogit| {err:.4e} = {err / scale:.3e} of "
+          f"{row_o['flash_launches']} launches (by body: streamed {row_s['flash_by_body']}, "
+          f"one shot {row_o['flash_by_body']}); max |dlogit| {err:.4e} = {err / scale:.3e} of "
           f"{scale:.3f} (tol {LAST_RTOL}), argmax agreement {agree:.2f}; generate "
           f"{LAST_NEW} tokens {gen_s:.3f} s ({launches['flash_attention']} launches)")
     del eng
@@ -4063,7 +4203,7 @@ def phase_last_examples(res: dict) -> dict:
         rc = module.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = Launches(counters)
         check(rc == 0, f"examples.{name} returned {rc}")
         for k in kernels:
             check(launches[k] > 0, f"examples.{name}: {k} not launched")
@@ -4166,6 +4306,7 @@ def main() -> int:
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
+               | ({"launches_by_body": r["launches_by_body"]} if "launches_by_body" in r else {})
                for n, r in res.items()]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)

@@ -125,8 +125,29 @@ def _check_split(plan, s: dict) -> list[str]:
 def _check_flash(plan, s: dict) -> list[str]:
     from repro_torch.kernels import flash_attention as FA
 
+    rows = s["sq"] * (s["n_heads"] // s["n_kv"])
+    if plan.body == "wg":
+        bad = []
+        splits = plan.key_splits
+        if plan.grid[0] % splits:
+            bad.append(f"grid x {plan.grid[0]} is not m-tiles x {splits} key splits")
+        why = _cover(rows, plan.grid[0] // splits, plan.block_rows)
+        if why:
+            bad.append(f"m-tiles: {why}")
+        consumers = (plan.warps - 1) // 4
+        if plan.warps != 4 * consumers + 1 \
+                or not 1 <= consumers <= FA.WG_CONSUMERS.get(s["head_dim"], 0):
+            bad.append(f"{plan.warps} warps at head_dim {s['head_dim']}")
+        if s["head_dim"] not in FA.WG_HEAD_DIMS \
+                or plan.key_tile != (128 if s["head_dim"] <= 128 else 64):
+            bad.append(f"key tile {plan.key_tile} at head_dim {s['head_dim']}")
+        why = _cover(-(-s["sk"] // plan.key_tile), splits, FA.tiles_per_split(plan, s["sk"]))
+        if why:
+            bad.append(f"key splits: {why}")
+        if plan.grid[1:] != (s["n_kv"], s["batch"]):
+            bad.append(f"grid {plan.grid} is not (m-tiles x splits, n_kv, batch)")
+        return bad
     if plan.body == "tc":
-        rows = s["sq"] * (s["n_heads"] // s["n_kv"])
         why = _cover(rows, plan.grid[0], 16)
         bad = [f"m-tiles: {why}"] if why else []
         if plan.grid[1:] != (s["n_kv"], s["batch"]):

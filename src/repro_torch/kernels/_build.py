@@ -96,13 +96,16 @@ KERNELS: list[CudaKernel] = []  # every kernel object, in creation order
 
 class CudaKernel:
     """One kernel of a built library: its C entry point, bound with ctypes,
-    and a plain count of the launches made through :meth:`launch`.
+    and a plain count of the launches made through :meth:`launch`, also
+    kept by part (``parts``) where the wrapper names one (a body of the
+    prefill kernel).
 
     The C function launches on the stream it is given and returns
     ``cudaGetLastError()``; a non-zero code raises here.  Under a CUDA graph
     capture the call records the launch instead of running it, so
     ``runtime.graphs`` takes the count of a capture back out and adds it on
-    every replay (every kernel is in :data:`KERNELS` for that).
+    every replay, parts included (every kernel is in :data:`KERNELS` for
+    that).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -110,6 +113,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.parts: dict[str, int] = {}  # launches by part, where the wrapper names it
         self._lib = None
         self._fn = None
         KERNELS.append(self)
@@ -127,12 +131,14 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, part: str | None = None) -> None:
         rc = self._bind()(*args)
         if rc != 0:
             msg = self._lib.error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
         self.launches += 1
+        if part is not None:
+            self.parts[part] = self.parts.get(part, 0) + 1
 
 
 def stream_of(t: torch.Tensor) -> int:

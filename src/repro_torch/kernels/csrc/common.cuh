@@ -104,6 +104,27 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// wgmma's ordering (the streamed matmul's TF32 body, the prefill's wg body).
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps a register live, unchanged, past this point (after wgmma_wait: the
+// asynchronous products wrote or read it).
+__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+// Shared-memory stores made by threads become visible to wgmma's reads (the
+// async proxy) after this fence and a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Dynamic shared memory above 48 KB must be opted into per kernel.
 template <typename Kernel>
 static cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -163,26 +163,6 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc_b));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps a register live, unchanged, past this point (after wgmma_wait: the
-// asynchronous products wrote or read it).
-__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-// Shared-memory stores made by threads become visible to wgmma's reads (the
-// async proxy) after this fence and a barrier.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // A wgmma shared-memory descriptor of a K-major operand without swizzle:
 // 8-row x 16-byte core matrices, lbo bytes apart along K, sbo bytes apart
 // along N.

@@ -328,15 +328,18 @@ def flash_attention_tc_plain(
     prefix_len: int = 0,
     key_tile: int = 16,
     key_splits: int = 1,
+    contiguous: bool = False,
 ) -> torch.Tensor:
-    """The prefill kernel's tensor-core body in plain PyTorch, for the tests
-    (the main path never calls it): scores of the (bf16) q and k as exact
-    products summed in f32, then an online softmax over key tiles of
+    """The prefill kernel's tensor-core bodies in plain PyTorch, for the
+    tests (the main path never calls it): scores of the (bf16) q and k as
+    exact products summed in f32, then an online softmax over key tiles of
     ``key_tile`` keys at multiples of it, P rounded to bf16 before P V per
     tile (l summed from the f32 P), f32 l and acc.  ``key_splits`` > 1: tile
-    j goes to split j % key_splits, each split keeps its own (m, l, acc)
-    over its tiles in order, and the splits are combined with weights
-    exp(m_s - max m) at the end, as the kernel's warps do.  The mask is
+    j goes to split j % key_splits (the tc body's warps: key_tile 16), or,
+    ``contiguous``, to split j // ceil(tiles / key_splits) (the wgmma body's
+    blocks: key_tile 128 or 64); each split keeps its own (m, l, acc) over
+    its tiles in order, and the splits are combined with weights
+    exp(m_s - max m) at the end.  The mask is
     :func:`flash_attention_ref`'s, ``prefix_len`` included.  Masked keys
     take no part (p = 0, not in the max); a row that sees no key gives 0.
     ``key_splits`` 1 is the reference's ``flash_attention_ref`` at chunk =
@@ -360,12 +363,17 @@ def flash_attention_tc_plain(
         ok = ok & (qpos - kpos < window)
     ok = ok.expand(sq, -1)
     shape = s.shape[:-1]  # (b, hkv, g, sq)
+    if contiguous:
+        per = -(-n_tiles // key_splits)
+        runs = [range(j, min(j + per, n_tiles)) for j in range(0, n_tiles, per)]
+    else:
+        runs = [range(split, n_tiles, key_splits) for split in range(key_splits)]
     m_s, l_s, acc_s = [], [], []
-    for split in range(key_splits):
+    for tiles in runs:
         m = torch.full(shape, NEG_INF, device=q.device)
         l = torch.zeros(shape, device=q.device)
         acc = torch.zeros((*shape, hd), device=q.device)
-        for j in range(split, n_tiles, key_splits):
+        for j in tiles:
             cols = slice(j * key_tile, (j + 1) * key_tile)
             st, okt = s[..., cols], ok[:, cols]
             m_new = torch.maximum(m, torch.where(okt, st, NEG_INF).amax(-1))

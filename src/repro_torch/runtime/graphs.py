@@ -27,8 +27,9 @@ replay, and a caller that keeps one longer clones it.
 Launch accounting: a kernel wrapper counts host calls
 (``CudaKernel.launches``), so a capture would count launches that did not
 run and a replay none.  A capture records each kernel's count difference
-across it (the launches the graph holds), takes those calls back out, and
-every replay adds them again.
+across it (the launches the graph holds), by part too
+(``CudaKernel.parts``), takes those calls back out, and every replay adds
+them again.
 """
 
 from __future__ import annotations
@@ -120,6 +121,7 @@ class StepGraph:
         self.graph = None
         self.outputs = None
         self.launches: dict[_build.CudaKernel, int] = {}  # per replay
+        self.parts: dict[_build.CudaKernel, dict[str, int]] = {}  # per replay, by part
 
     def _fill(self, values: dict[str, Any]) -> None:
         if self._copied is not None:
@@ -147,11 +149,15 @@ class StepGraph:
         self.graph.replay()
         for kernel, n in self.launches.items():
             kernel.launches += n
+        for kernel, parts in self.parts.items():
+            for part, n in parts.items():
+                kernel.parts[part] = kernel.parts.get(part, 0) + n
         self.graphs.replays += 1
         return self.outputs
 
     def _capture(self) -> None:
         before = {k: k.launches for k in _build.KERNELS}
+        parts_before = {k: dict(k.parts) for k in _build.KERNELS}
         t0 = time.perf_counter()
         # A capture synchronizes the device once (torch.cuda.graph's entry):
         # the live sync audit counts it as sanctioned.
@@ -163,3 +169,7 @@ class StepGraph:
             if kernel.launches != n:  # recorded, not run: taken back out
                 self.launches[kernel] = kernel.launches - n
                 kernel.launches = n
+                was = parts_before[kernel]
+                self.parts[kernel] = {p: c - was.get(p, 0) for p, c in kernel.parts.items()
+                                      if c != was.get(p, 0)}
+                kernel.parts = was

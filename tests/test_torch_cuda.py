@@ -5,7 +5,9 @@ CPU, with the copy-on-write fork and the sampler's hash on the card; the
 paged and prefill kernels at the zoo's grouped-query ratios (g = 2, 3, 6)
 with gemma2's query scale and softcap; the prefill kernel with
 paligemma's bidirectional prefix (``prefix_len``) and whisper's non-causal
-attention over 1500 frames, the paged kernel at whisper's hd 64 / g 1 and
+attention over 1500 frames, each through the body its plan picks and
+against that body's emulation, with the wgmma body's key splits, tile
+edges and the training forward's lse, the paged kernel at whisper's hd 64 / g 1 and
 the SSD scan at jamba's H 128, P 128; graphed steps (qwen3, mamba2, a MoE
 config, whisper and jamba) against their eager runs; the engine's stage
 probe leaving a live pool or slot cache as it was with slots active, and
@@ -163,7 +165,7 @@ def _flash_case(cuda, dtype, case):
     k = torch.randn((b, off + sq, hkv, hd), generator=gen).to(cuda, dtype)
     v = torch.randn((b, off + sq, hkv, hd), generator=gen).to(cuda, dtype)
     kw = {k: case[k] for k in ("window", "softcap") if k in case}
-    return (q, k, v), kw, FA.plan_flash(b, sq, hkv * g, hkv, hd, dtype)
+    return (q, k, v), kw, FA.plan_flash(b, sq, hkv * g, hkv, hd, dtype, sk=off + sq)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -171,29 +173,37 @@ def _flash_case(cuda, dtype, case):
 def test_flash_kernel_matches_plain(cuda, dtype, case):
     (q, k, v), kw, plan = _flash_case(cuda, dtype, case)
     hd, off = q.shape[-1], case["q_offset"]
-    # bf16 with head_dim % 16 == 0 runs the tensor-core body, all else SIMT
-    assert plan.body == ("tc" if dtype == torch.bfloat16 and hd % 16 == 0 else "simt")
-    n0 = FA.KERNEL.launches
+    # bf16 with head_dim % 16 == 0 runs a tensor-core body (the wgmma body
+    # at long query blocks or key ranges), all else SIMT
+    tensor_cores = dtype == torch.bfloat16 and hd % 16 == 0
+    assert (plan.body in ("tc", "wg")) == tensor_cores and (plan.body == "simt") != tensor_cores
+    n0, nb = FA.KERNEL.launches, FA.KERNEL.parts.get(plan.body, 0)
     got = ops.flash_attention(q, k, v, q_offset=off, **kw)
     want = FA.flash_attention_plain(q, k, v, scale=1 / math.sqrt(hd), q_offset=off, **kw)
     torch.cuda.synchronize()
-    assert FA.KERNEL.launches == n0 + 1
+    assert FA.KERNEL.launches == n0 + 1 and FA.KERNEL.parts[plan.body] == nb + 1
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+def _emulated(q, k, v, plan, **kw) -> torch.Tensor:
+    """The tensor-core body's emulation for ``plan`` (tc or wg), on the CPU."""
+    return ref.flash_attention_tc_plain(
+        q.cpu(), k.cpu(), v.cpu(), key_tile=plan.key_tile, key_splits=plan.key_splits,
+        contiguous=plan.body == "wg", **kw).float()
 
 
 @pytest.mark.parametrize("case", [c for c in FLASH_CASES if c.get("hd", 128) % 16 == 0],
                          ids=str)
 def test_flash_tc_kernel_matches_its_emulation(cuda, case):
-    """The tensor-core body computes what ``ref.flash_attention_tc_plain``
-    models (bf16 P per 16-key tile, the plan's key splits; run on the CPU):
-    within 2 bf16 ulps of the output's largest magnitude, the tolerance the
-    CPU tests hold the emulation's key splits to against JAX."""
+    """The tensor-core bodies compute what ``ref.flash_attention_tc_plain``
+    models (bf16 P per key tile of the plan, its key splits; run on the
+    CPU): within 2 bf16 ulps of the output's largest magnitude, the
+    tolerance the CPU tests hold the emulation's key splits to against
+    JAX."""
     (q, k, v), kw, plan = _flash_case(cuda, torch.bfloat16, case)
-    assert plan.body == "tc"
+    assert plan.body in ("tc", "wg")
     got = ops.flash_attention(q, k, v, q_offset=case["q_offset"], **kw).float().cpu()
-    want = ref.flash_attention_tc_plain(
-        q.cpu(), k.cpu(), v.cpu(), q_offset=case["q_offset"], key_tile=plan.key_tile,
-        key_splits=plan.key_splits, **kw).float()
+    want = _emulated(q, k, v, plan, q_offset=case["q_offset"], **kw)
     ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
     assert (got - want).abs().max().item() <= 2 * ulp
 
@@ -222,23 +232,33 @@ def _attn_inputs(cuda, dtype, case, *, hd, g, hkv):
     return q, k, v
 
 
-def _held_flash(q, k, v, dtype, **kw):
-    """The kernel (one launch) against the plain version; bf16 tensor-core
-    calls also against the body's emulation (2 bf16 ulps, as
-    ``test_flash_tc_kernel_matches_its_emulation``)."""
+def _held_flash(q, k, v, dtype, *, lse=False, **kw):
+    """The kernel (one launch, of the planned body) against the plain
+    version; bf16 tensor-core calls also against the body's emulation (2
+    bf16 ulps, as ``test_flash_tc_kernel_matches_its_emulation``); with
+    ``lse`` the logsumexp too (1e-3 of its largest magnitude, the f32 exp2
+    and log2 of the kernel against the plain logsumexp)."""
     hd = q.shape[-1]
-    n0 = FA.KERNEL.launches
-    got = ops.flash_attention(q, k, v, **kw)
-    want = FA.flash_attention_plain(q, k, v, scale=1 / math.sqrt(hd), **kw)
+    plan = FA.plan_flash(q.shape[0], q.shape[1], q.shape[2], k.shape[2], hd, dtype,
+                         sk=k.shape[1])
+    n0, nb = FA.KERNEL.launches, FA.KERNEL.parts.get(plan.body, 0)
+    if lse:
+        got, got_lse = ops.flash_attention_lse(q, k, v, **kw)
+        want, want_lse = FA.flash_attention_lse_plain(q, k, v, scale=1 / math.sqrt(hd), **kw)
+    else:
+        got = ops.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, scale=1 / math.sqrt(hd), **kw)
     torch.cuda.synchronize()
-    assert FA.KERNEL.launches == n0 + 1
+    assert FA.KERNEL.launches == n0 + 1 and FA.KERNEL.parts[plan.body] == nb + 1
+    assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
-    plan = FA.plan_flash(q.shape[0], q.shape[1], q.shape[2], k.shape[2], hd, dtype)
-    if plan.body == "tc":
-        emul = ref.flash_attention_tc_plain(q.cpu(), k.cpu(), v.cpu(), key_tile=plan.key_tile,
-                                            key_splits=plan.key_splits, **kw).float()
+    if lse:
+        assert (got_lse - want_lse).abs().max().item() <= 1e-3 * want_lse.abs().max().item()
+    if plan.body in ("tc", "wg"):
+        emul = _emulated(q, k, v, plan, **kw)
         ulp = 2.0 ** (math.floor(math.log2(emul.abs().max().item())) - 7)
         assert (got.float().cpu() - emul).abs().max().item() <= 2 * ulp
+    return plan
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -253,6 +273,49 @@ def test_flash_kernel_with_prefix_matches_plain(cuda, dtype, case):
 def test_flash_kernel_non_causal_matches_plain(cuda, dtype, case):
     q, k, v = _attn_inputs(cuda, dtype, case, hd=64, g=1, hkv=16)
     _held_flash(q, k, v, dtype, causal=False)
+
+
+# The wgmma body's key split and its tile edges at whisper's 1500 frames (hd
+# 64, g 1): a partial second warpgroup (200 rows), a causal chunk late in the
+# context, a window that starts mid-tile, a ragged last tile; and row 4d's
+# training forward with lse (qwen3-4b: B 4 x 512, H 32 / 8, hd 128), whose
+# plan has no split; qwen3's heads at B 1 x 256 over 1024 keys, softcapped,
+# no split either; and a chunk of 64 at q_offset 960 with lse, whose plan
+# splits the keys 4 ways, so that the combine kernel writes the lse.
+# ``split``: the plan must split the keys.
+WG_CASES = [dict(sq=200, sk=1500, causal=False, split=True),
+            dict(sq=100, sk=1500, q_offset=1400, split=True),
+            dict(sq=300, sk=1500, q_offset=1200, window=700, split=True),
+            dict(sq=1500, sk=1500, lse=True),
+            dict(b=4, sq=512, sk=512, hd=128, g=4, hkv=8, lse=True),
+            dict(b=1, sq=256, sk=1024, q_offset=768, hd=128, g=4, hkv=8, lse=True,
+                 softcap=30.0),
+            dict(b=1, sq=64, sk=1024, q_offset=960, hd=128, g=4, hkv=8, lse=True, split=True)]
+
+
+@pytest.mark.parametrize("case", WG_CASES, ids=str)
+def test_flash_wg_key_split_and_tile_edges(cuda, case):
+    c = dict(case)
+    gen = torch.Generator().manual_seed(6)
+    b, hd, g, hkv = c.pop("b", 1), c.pop("hd", 64), c.pop("g", 1), c.pop("hkv", 16)
+    sq, sk, split = c.pop("sq"), c.pop("sk"), c.pop("split", False)
+    q = torch.randn((b, sq, hkv * g, hd), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((b, sk, hkv, hd), generator=gen).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    plan = _held_flash(q, k, v, torch.bfloat16, **c)
+    assert plan.body == "wg" and (plan.key_splits > 1) == split
+
+
+def test_flash_wg_raises_and_never_falls_back(cuda):
+    """The wgmma body's TMA and cp.async copies need 16-byte aligned q, k
+    and v: a misaligned input raises, and no body launches."""
+    k = torch.zeros((1, 1500, 16, 64), device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(64 * 16 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 64, 16, 64)
+    assert FA.plan_flash(1, 64, 16, 16, 64, torch.bfloat16, sk=1500).body == "wg"
+    counts = (FA.KERNEL.launches, dict(FA.KERNEL.parts))
+    with pytest.raises(ValueError, match="wg body .* 16-byte"):
+        ops.flash_attention(q, k, k, causal=False)
+    assert counts == (FA.KERNEL.launches, FA.KERNEL.parts)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

@@ -127,31 +127,50 @@ def test_flash_tc_emulation_with_f32_inputs_is_the_plain_version(case):
 
 
 def test_plan_flash_serve_and_long_context_shapes():
-    """The serve's chunk (B 1, Sq 64, H 32 / 8, hd 128): 128 m-tiles of 16
-    rows, one a block, its four warps splitting the keys: 128 blocks of 4
-    warps; the long context has the same rows and the same plan."""
-    plan = FA.plan_flash(1, 64, 32, 8, 128, BF16)
+    """The serve's chunk (B 1, Sq 64 at q_offset 64, H 32 / 8, hd 128): 128
+    m-tiles of 16 rows, one a block, its four warps splitting the keys: 128
+    blocks of 4 warps.  The long context (the same rows over 2048 keys)
+    goes to the wgmma body: 2 blocks of 128 rows a kv head, its 16 key
+    tiles in 8 splits of 2, 128 blocks."""
+    plan = FA.plan_flash(1, 64, 32, 8, 128, BF16, sk=128)
     assert plan == FA.FlashPlan("tc", (16, 8, 1), 4, 4, 16)
     assert plan.blocks == 128 and plan.blocks * plan.warps == 512
+    long = FA.plan_flash(1, 64, 32, 8, 128, BF16, sk=2048)
+    assert long == FA.FlashPlan("wg", (16, 8, 1), 9, 8, 128)
+    assert long.block_rows == 128 and FA.tiles_per_split(long, 2048) == 2
+
+
+# shape -> (Sk, the whole plan): a longer chunk, 2048 rows a kv head, goes to
+# the wgmma body's 16 blocks of 128 rows (two warpgroups and a producer warp)
+# over 4 key tiles, no split; the others stay below the crossover.
+TILE_PLANS = {
+    (1, 512, 32, 8, 128): (512, FA.FlashPlan("wg", (16, 8, 1), 9, 1, 128)),
+    (1, 160, 32, 8, 128): (160, FA.FlashPlan("tc", (40, 8, 1), 4, 4, 16)),
+    (2, 37, 8, 8, 64): (37, FA.FlashPlan("tc", (3, 8, 2), 4, 4, 16)),      # g 1, ragged
+    (1, 13, 64, 8, 256): (13, FA.FlashPlan("tc", (7, 8, 1), 4, 4, 16)),    # g 8, hd 256
+}
 
 
 @pytest.mark.parametrize("shape,grid", [
-    ((1, 512, 32, 8, 128), (128, 8, 1)),  # a longer chunk: 1024 m-tiles
+    ((1, 512, 32, 8, 128), (16, 8, 1)),
     ((1, 160, 32, 8, 128), (40, 8, 1)),
-    ((2, 37, 8, 8, 64), (3, 8, 2)),       # g 1, ragged
-    ((1, 13, 64, 8, 256), (7, 8, 1)),     # g 8, head_dim 256
+    ((2, 37, 8, 8, 64), (3, 8, 2)),
+    ((1, 13, 64, 8, 256), (7, 8, 1)),
 ])
 def test_plan_flash_tiles(shape, grid):
-    """One m-tile a block whatever the shape, its warps splitting the keys."""
-    plan = FA.plan_flash(*shape, BF16)
-    assert plan == FA.FlashPlan("tc", grid, FA.TC_WARPS, FA.TC_WARPS, FA.KEY_TILE)
+    """Below the crossover one 16-row m-tile a block, its warps splitting
+    the keys; above it the wgmma body's 128-row blocks."""
+    sk, plan = TILE_PLANS[shape]
+    got = FA.plan_flash(*shape, BF16, sk=sk)
+    assert got == plan and got.grid == grid
+    assert got.block_rows == (128 if got.body == "wg" else 16)
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 128), (BF16, 24), (torch.float32, 24)])
 def test_plan_flash_simt_body(dtype, hd):
     """f32, or a head_dim that is not a multiple of 16, keeps the SIMT body:
     one query head a block, no key split."""
-    plan = FA.plan_flash(2, 37, 32, 8, hd, dtype)
+    plan = FA.plan_flash(2, 37, 32, 8, hd, dtype, sk=37)
     assert plan == FA.FlashPlan("simt", (64, 3, 1), 4, 1, 32)
 
 
