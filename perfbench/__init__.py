@@ -1,0 +1,2 @@
+"""The benchmark of ``repro_torch``, the PyTorch and CUDA port (see
+``perfbench/README.md``)."""

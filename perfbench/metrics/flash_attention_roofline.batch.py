@@ -1,0 +1,11 @@
+"""The prefill attention kernel's share of its roofline in the traced
+span (``Record.flash_attention_roofline``), in the closed-loop batch cells."""
+
+LAYER = "prefill attention kernel (kernels/flash_attention.py)"
+UNIT = "%"
+BETTER = "higher"
+MOVES = "tokens_per_s"
+
+
+def read(rec):
+    return rec.flash_attention_roofline()

@@ -1,0 +1,12 @@
+"""The time Python's collector took in the window (``Record.gc_ms_per_s``),
+in the closed-loop cells: the loop runs the program as it leaves the collector,
+so its pauses are part of every host-paced step."""
+
+LAYER = "Python collector (host)"
+UNIT = "ms/s"
+BETTER = "lower"
+MOVES = "tokens_per_s"
+
+
+def read(rec):
+    return rec.gc_ms_per_s()
